@@ -1,0 +1,417 @@
+"""Shared UNet building blocks, channels-last (counterpart of
+``anyv2v_tpu/models/layers.py``).
+
+Layouts: spatial activations ``[(B F), H, W, C]``, temporal activations
+``[B, F, H, W, C]`` (frames unfolded only inside temporal layers), attention
+tokens ``[..., C]``. 3x3 convolutions run on ``torch.channels_last`` views of
+these tensors, so no layer permutes its data in memory.
+
+Parameters carry the diffusers key names and shapes in ``state_dict()``, so
+a diffusers checkpoint (or the JAX params through
+:mod:`anyv2v_torch.utils.weights`) loads directly. Two modules store their
+weights in another form for the kernels and convert in their state-dict
+hooks: :class:`Attention` pads every head to :func:`padded_head_dim`
+(i2vgen-xl's 5/10/20 -> 8/16/32), and the temporal conv stores ``[3, C, C']``.
+
+Norms compute in fp32; everything else in the module's dtype. PnP injection
+flags are Python bools (see :mod:`anyv2v_torch.ops.pnp`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import multi_head_attention, padded_head_dim, temporal_attention
+from ..ops.ffn import ffn_geglu, fits as ffn_fits
+from ..ops.pnp import inject_source_rows
+from ..ops.temporal_conv import gn_silu_temporal_conv, groupnorm_scale_shift
+
+# ---------------------------------------------------------------------------
+# functional helpers
+# ---------------------------------------------------------------------------
+
+
+def group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+    """GroupNorm over every axis but the first and last of a channels-last
+    tensor, in fp32 (returns fp32)."""
+    n, c = x.shape[0], x.shape[-1]
+    g = norm.num_groups
+    xf = x.float().reshape(n, -1, g, c // g)
+    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
+    y = ((xf - mean) * torch.rsqrt(var + norm.eps)).reshape(x.shape)
+    return y * norm.weight.float() + norm.bias.float()
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps)
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """nn.Conv2d on a channels-last ``[N, H, W, C]`` tensor."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride,
+                 conv.padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def linear_1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 nn.Conv2d applied to channels-last tokens as a matmul."""
+    return F.linear(x, conv.weight.reshape(conv.out_channels, conv.in_channels), conv.bias)
+
+
+def sinusoidal_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                         downscale_freq_shift: float = 0.0,
+                         max_period: float = 10000.0) -> torch.Tensor:
+    """diffusers ``get_timestep_embedding`` (fp32)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    out = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        out = F.pad(out, (0, 1))
+    return out
+
+
+def adaptive_avg_pool_2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d`` on channels-last ``[B, H, W, C]``: an exact
+    reshape-mean when the sizes divide (64x64 -> 32x32 at 512^2), the JAX
+    package's linear resize otherwise."""
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(b, oh, h // oh, ow, w // ow, c).mean(dim=(2, 4))
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(oh, ow), mode="bilinear",
+                      align_corners=False, antialias=oh < h or ow < w)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def fold_frames(x: torch.Tensor) -> torch.Tensor:
+    """[B, F, H, W, C] -> [(B F), H, W, C]"""
+    b, f, h, w, c = x.shape
+    return x.reshape(b * f, h, w, c)
+
+
+def unfold_frames(x: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """[(B F), H, W, C] -> [B, F, H, W, C]"""
+    bf, h, w, c = x.shape
+    return x.reshape(bf // num_frames, num_frames, h, w, c)
+
+
+# ---------------------------------------------------------------------------
+# embeddings and resnets
+# ---------------------------------------------------------------------------
+
+
+class TimestepEmbedding(nn.Module):
+    """linear -> silu -> linear (diffusers ``TimestepEmbedding``)."""
+
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, embed_dim)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class ResnetBlock2D(nn.Module):
+    """diffusers ResnetBlock2D; the PnP conv injection point is after conv2,
+    before the shortcut add."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
+                 groups: int = 32, eps: float = 1e-5, dtype=torch.float32,
+                 pnp_chunks: int = 3):
+        super().__init__()
+        self.dtype, self.pnp_chunks = dtype, pnp_chunks
+        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_dim, out_channels) if temb_dim else None
+        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb=None, inject: bool = False):
+        h = conv_nhwc(self.conv1, F.silu(group_norm(x, self.norm1)).to(self.dtype))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
+        h = conv_nhwc(self.conv2, F.silu(group_norm(h, self.norm2)).to(self.dtype))
+        h = inject_source_rows(h, inject, self.pnp_chunks)
+        if self.conv_shortcut is not None:
+            x = linear_1x1(self.conv_shortcut, x)
+        return x + h
+
+
+# ---------------------------------------------------------------------------
+# temporal conv
+# ---------------------------------------------------------------------------
+
+
+class TemporalConv3(nn.Module):
+    """(3,1,1) Conv3d parameters stored as ``weight [3, C, C']`` for the K4
+    kernel; ``state_dict()`` shows the diffusers Conv3d shape
+    ``[C', C, 3, 1, 1]`` and loading converts back."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(3, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self._register_state_dict_hook(TemporalConv3._export)
+        self._register_load_state_dict_pre_hook(TemporalConv3._import, with_module=True)
+
+    @staticmethod
+    def _export(module, state_dict, prefix, local_metadata):
+        w = state_dict[prefix + "weight"]
+        state_dict[prefix + "weight"] = w.permute(2, 1, 0)[..., None, None].contiguous()
+
+    @staticmethod
+    def _import(module, state_dict, prefix, *args):
+        key = prefix + "weight"
+        if key in state_dict and state_dict[key].dim() == 5:
+            state_dict[key] = state_dict[key][:, :, :, 0, 0].permute(2, 1, 0).contiguous()
+
+
+class TemporalConvLayer(nn.Module):
+    """diffusers ``TemporalConvLayer``: four (groupnorm -> silu -> (3,1,1)
+    conv) stages with an identity residual, on ``[B, F, H, W, C]``. Each stage
+    is one K4 launch; the group statistics are a plain reduction."""
+
+    def __init__(self, channels: int, groups: int = 32, dtype=torch.float32):
+        super().__init__()
+        self.groups = groups
+        for i in range(1, 5):
+            stage = nn.Module()
+            stage.add_module("0", nn.GroupNorm(groups, channels, eps=1e-5))
+            stage.add_module("2" if i == 1 else "3", TemporalConv3(channels, channels))
+            self.add_module(f"conv{i}", stage)
+
+    def forward(self, x):
+        b, f = x.shape[:2]
+        h = x.reshape(b, f, -1, x.shape[-1])
+        for i in range(1, 5):
+            stage = getattr(self, f"conv{i}")
+            norm = stage._modules["0"]
+            conv = stage._modules["2" if i == 1 else "3"]
+            s, t = groupnorm_scale_shift(h, norm.weight, norm.bias, self.groups, norm.eps)
+            h = gn_silu_temporal_conv(h, s, t, conv.weight, conv.bias)
+        return x + h.reshape(x.shape[:-1] + (h.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
+# attention and transformer blocks
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """diffusers Attention with the PnP Q/K injection point (Q and K only,
+    never V) and padded head storage: ``to_q/to_k/to_v`` hold each head
+    padded to :func:`padded_head_dim` with zero rows, ``to_out`` the matching
+    zero columns, so activations come out of the projections already in the
+    kernels' head widths. ``state_dict()`` strips the padding (the
+    checkpoint's true widths) and loading pads again. The softmax scale comes
+    from the true head width."""
+
+    def __init__(self, query_dim: int, heads: int, head_dim: int,
+                 cross_attention_dim: Optional[int] = None, out_dim: Optional[int] = None,
+                 qkv_bias: bool = False, pnp_chunks: int = 3):
+        super().__init__()
+        self.heads, self.head_dim, self.pnp_chunks = heads, head_dim, pnp_chunks
+        self.stored_head_dim = padded_head_dim(head_dim)
+        self.scale = float(head_dim) ** -0.5
+        inner = heads * self.stored_head_dim
+        kv_dim = cross_attention_dim or query_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
+        self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias)
+        self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or query_dim)])
+        if self.stored_head_dim != head_dim:
+            self._register_state_dict_hook(Attention._strip_padding)
+            self._register_load_state_dict_pre_hook(Attention._pad_heads, with_module=True)
+
+    @staticmethod
+    def _strip_padding(module, state_dict, prefix, local_metadata):
+        h, d, p = module.heads, module.head_dim, module.stored_head_dim
+        for name in ("to_q", "to_k", "to_v"):
+            for suffix in ("weight", "bias"):
+                key = f"{prefix}{name}.{suffix}"
+                if key in state_dict:
+                    w = state_dict[key]
+                    w = w.reshape(h, p, *w.shape[1:])[:, :d]
+                    state_dict[key] = w.reshape(h * d, *w.shape[2:]).contiguous()
+        key = f"{prefix}to_out.0.weight"
+        w = state_dict[key]
+        state_dict[key] = w.reshape(w.shape[0], h, p)[:, :, :d].reshape(w.shape[0], h * d).contiguous()
+
+    @staticmethod
+    def _pad_heads(module, state_dict, prefix, *args):
+        h, d, p = module.heads, module.head_dim, module.stored_head_dim
+        for name in ("to_q", "to_k", "to_v"):
+            for suffix in ("weight", "bias"):
+                key = f"{prefix}{name}.{suffix}"
+                if key in state_dict and state_dict[key].shape[0] == h * d:
+                    w = state_dict[key]
+                    w = w.reshape(h, d, *w.shape[1:])
+                    w = F.pad(w, (0, 0) * (w.dim() - 2) + (0, p - d))
+                    state_dict[key] = w.reshape(h * p, *w.shape[2:])
+        key = f"{prefix}to_out.0.weight"
+        if key in state_dict and state_dict[key].shape[1] == h * d:
+            w = state_dict[key]
+            w = F.pad(w.reshape(w.shape[0], h, d), (0, p - d))
+            state_dict[key] = w.reshape(w.shape[0], h * p)
+
+    def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False):
+        ctx = x if context is None else context
+        q = inject_source_rows(self.to_q(x), inject, self.pnp_chunks)
+        k = inject_source_rows(self.to_k(ctx), inject, self.pnp_chunks)
+        v = self.to_v(ctx)
+        if frame_axis:
+            # temporal tokens [B, F, HW, C]: attend over F in place
+            out = temporal_attention(q, k, v, self.heads, self.scale)
+        else:
+            out = multi_head_attention(q, k, v, self.heads, self.scale)
+        return self.to_out[0](out)
+
+
+class _Proj(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out)
+
+
+class FeedForward(nn.Module):
+    """diffusers FeedForward (``net.0.proj``, ``net.2``) with exact-erf GELU.
+    The GEGLU form routes to the K3 kernel where it fits (C <= 768)."""
+
+    def __init__(self, dim: int, mult: int = 4, activation: str = "geglu"):
+        super().__init__()
+        if activation not in ("geglu", "gelu"):
+            raise ValueError(activation)
+        self.activation = activation
+        inner = dim * mult
+        self.net = nn.ModuleList([
+            _Proj(dim, 2 * inner if activation == "geglu" else inner),
+            nn.Identity(),
+            nn.Linear(inner, dim),
+        ])
+
+    def forward(self, x):
+        proj, out = self.net[0].proj, self.net[2]
+        if self.activation == "geglu":
+            if ffn_fits(x.shape[-1], out.in_features):
+                return ffn_geglu(x.contiguous(), proj.weight, proj.bias, out.weight, out.bias)
+            h, gate = proj(x).chunk(2, dim=-1)
+            return out(h * F.gelu(gate))
+        return out(F.gelu(proj(x)))
+
+
+class BasicTransformerBlock(nn.Module):
+    """norm1 -> attn1 (self) -> norm2 -> attn2 (cross, or self when no context
+    dim) -> norm3 -> ff. PnP injection reaches attn1 only."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 cross_attention_dim: Optional[int] = None, dtype=torch.float32,
+                 pnp_chunks: int = 3):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, pnp_chunks=pnp_chunks)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, heads, head_dim, cross_attention_dim=cross_attention_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False):
+        dt = self.dtype
+        x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inject,
+                           frame_axis=frame_axis)
+        x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context,
+                           frame_axis=frame_axis)
+        return x + self.ff(layer_norm(x, self.norm3).to(dt))
+
+
+class SpatialTransformer(nn.Module):
+    """diffusers Transformer2DModel over ``[(B F), H, W, C]``: groupnorm ->
+    1x1 proj_in -> block on the flattened pixels -> 1x1 proj_out -> residual."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int, cross_attention_dim: int,
+                 groups: int = 32, dtype=torch.float32, pnp_chunks: int = 3):
+        super().__init__()
+        self.dtype = dtype
+        inner = heads * head_dim
+        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
+            inner, heads, head_dim, cross_attention_dim, dtype, pnp_chunks)])
+        self.proj_out = nn.Conv2d(inner, channels, 1)
+
+    def forward(self, x, context=None, inject: bool = False):
+        b, h, w, c = x.shape
+        y = linear_1x1(self.proj_in, group_norm(x, self.norm).to(self.dtype))
+        y = self.transformer_blocks[0](y.reshape(b, h * w, -1), context=context, inject=inject)
+        return linear_1x1(self.proj_out, y.reshape(b, h, w, -1)) + x
+
+
+class TemporalTransformer(nn.Module):
+    """diffusers TransformerTemporalModel over ``[B, F, H, W, C]``: tokens are
+    frames per pixel and stay in the module-native ``[B, F, HW, C]`` layout;
+    both attentions of the block attend over F (K2)."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32,
+                 dtype=torch.float32, pnp_chunks: int = 3):
+        super().__init__()
+        self.dtype = dtype
+        inner = heads * head_dim
+        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner)
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
+            inner, heads, head_dim, None, dtype, pnp_chunks)])
+        self.proj_out = nn.Linear(inner, channels)
+
+    def forward(self, x, inject: bool = False):
+        b, f, h, w, c = x.shape
+        y = group_norm(x.reshape(b * f, h, w, c), self.norm).to(self.dtype)
+        y = self.proj_in(y.reshape(b, f, h * w, c))
+        y = self.transformer_blocks[0](y, inject=inject, frame_axis=True)
+        return self.proj_out(y).reshape(b, f, h, w, c) + x
+
+
+# ---------------------------------------------------------------------------
+# resampling
+# ---------------------------------------------------------------------------
+
+
+class Downsample2D(nn.Module):
+    """Strided 3x3 conv. ``asymmetric_pad``: the diffusers VAE encoder's
+    padding=0 conv after an explicit right/bottom pad of one pixel."""
+
+    def __init__(self, channels: int, asymmetric_pad: bool = False):
+        super().__init__()
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
+                              padding=0 if asymmetric_pad else 1)
+
+    def forward(self, x):
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))
+        return conv_nhwc(self.conv, x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsample then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+        return conv_nhwc(self.conv, x)

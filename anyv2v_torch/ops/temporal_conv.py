@@ -1,0 +1,81 @@
+"""K4: groupnorm-apply + SiLU + (3,1,1) temporal convolution over ``[B, F, P, C]``.
+
+Replaces ``anyv2v_tpu/ops/pallas_temporal_conv.py::_tconv_kernel``, which every
+``TemporalConvLayer`` runs four times. The group statistics stay a plain
+reduction outside the kernel (:func:`groupnorm_scale_shift`), as the JAX code
+keeps them outside Pallas; the kernel (``csrc/temporal_conv.cu``) applies
+``silu(x * s + t)`` in fp32, rounds to the compute dtype and convolves along
+frames with zero frame padding, accumulating in fp32.
+
+Weights use the kernel layout ``[3, C, C']`` (tap, in, out).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+
+def groupnorm_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                          groups: int, eps: float):
+    """Per-(batch, channel) fp32 ``s, t`` such that groupnorm(x) = x*s + t,
+    statistics over every axis but batch and channel. x ``[B, ..., C]``."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, groups, c // groups)
+    var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False)     # [B, G]
+    inv = torch.rsqrt(var + eps)
+    s = inv.repeat_interleave(c // groups, dim=1) * gamma.float()[None]
+    t = beta.float()[None] - mean.repeat_interleave(c // groups, dim=1) * s
+    return s.contiguous(), t.contiguous()
+
+
+def gn_silu_temporal_conv_plain(x, s, t, w, b):
+    """Plain PyTorch version: prologue in fp32, rounded to x's dtype, the three
+    frame taps as one matmul over ``[.., 3C]`` (fp32 accumulation, one
+    rounding), then the bias."""
+    if s is not None:
+        h = (x.float() * s[:, None, None, :] + t[:, None, None, :])
+        h = F.silu(h).to(x.dtype)
+    else:
+        h = x
+    f = x.shape[1]
+    hp = F.pad(h, (0, 0, 0, 0, 1, 1))
+    taps = torch.cat([hp[:, d:d + f] for d in range(3)], dim=-1)
+    out = torch.matmul(taps, w.reshape(3 * w.shape[1], w.shape[2]))
+    return (out.float() + b.float()).to(x.dtype)
+
+
+def gn_silu_temporal_conv(x: torch.Tensor, s: Optional[torch.Tensor],
+                          t: Optional[torch.Tensor], w: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """x ``[B, F, P, C]``, s/t ``[B, C]`` fp32 (or both None: no prologue),
+    w ``[3, C, C']``, b ``[C']`` -> ``[B, F, P, C']``."""
+    if x.device.type == "cpu":
+        return gn_silu_temporal_conv_plain(x, s, t, w, b)
+    _build.require_cuda("gn_silu_temporal_conv", x, w, b)
+    _build.require_cuda("gn_silu_temporal_conv", s, t, dtype=torch.float32)
+    bsz, f, p, c = x.shape
+    c_out = w.shape[2]
+    if (x.dim() != 4 or w.shape != (3, c, c_out) or b.shape != (c_out,)
+            or (s is None) != (t is None)
+            or (s is not None and (s.shape != (bsz, c) or t.shape != (bsz, c)))):
+        raise ValueError(f"gn_silu_temporal_conv: x{tuple(x.shape)} w{tuple(w.shape)} "
+                         f"b{tuple(b.shape)}")
+    out = torch.empty((bsz, f, p, c_out), dtype=x.dtype, device=x.device)
+    null = ctypes.c_void_p(0)
+    rc = _build.library().anyv2v_temporal_conv(
+        _build.ptr(x), null if s is None else _build.ptr(s),
+        null if t is None else _build.ptr(t), _build.ptr(w), _build.ptr(b),
+        _build.ptr(out), ctypes.c_int(bsz), ctypes.c_int(f), ctypes.c_int(p),
+        ctypes.c_int(c), ctypes.c_int(c_out), _build.stream())
+    _build.check(rc, "gn_silu_temporal_conv")
+    gn_silu_temporal_conv.launches += 1
+    return out
+
+
+gn_silu_temporal_conv.launches = 0

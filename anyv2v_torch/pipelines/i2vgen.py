@@ -1,0 +1,171 @@
+"""I2VGen-XL AnyV2V pipeline: DDIM inversion and the PnP edit (counterpart of
+``anyv2v_tpu/pipelines/i2vgen.py``).
+
+The JAX package's ``lax.scan`` programs become Python step loops:
+
+- inversion writes every step's latent into a preallocated fp32 trajectory
+  tensor on the device, ``[n, 1, F, h, w, 4]`` in ascending-t order;
+- the edit runs the CFG batch ``[src, uncond, cond]`` (src row re-read from
+  the trajectory each step) in static segments of constant injection flags,
+  then drops to a batch of 2 ``[uncond, cond]`` once the last injection has
+  expired, since the source row's eps is discarded by the CFG combine.
+
+Precision: the scan carries and the trajectory are fp32; the UNet computes in
+its configured dtype (bf16 on the GPU).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.pnp import injection_step_mask
+from ..schedulers import (
+    DiffusionSchedule,
+    ddim_inverse_step,
+    ddim_step,
+    inversion_timesteps,
+    sampling_timesteps,
+)
+from .common import LatentCodecMixin, group_constant_runs
+
+
+@dataclasses.dataclass
+class PnPConfig:
+    """pnp_f_t / pnp_spatial_attn_t / pnp_temp_attn_t thresholds."""
+
+    conv: float = 0.2
+    spatial: float = 0.2
+    temporal: float = 0.5
+
+
+@dataclasses.dataclass
+class I2VGenPipeline(LatentCodecMixin):
+    unet: torch.nn.Module
+    vae: torch.nn.Module
+    text_encoder: torch.nn.Module
+    vision_encoder: torch.nn.Module
+    schedule: DiffusionSchedule
+    device: torch.device
+    dtype: torch.dtype = torch.bfloat16
+
+    # ------------------------------------------------------------------
+    # conditioning
+    # ------------------------------------------------------------------
+
+    def prepare_image_latents(self, image01, num_frames: int) -> torch.Tensor:
+        """Conditioning-frame latent plus (F-1) position-mask frames of value
+        (i+1)/(F-1). ``[H, W, 3]`` -> ``[1, F, h, w, 4]`` fp32."""
+        z = self._encode_frames(self._tensor(image01)[None])[0]
+        masks = [torch.full_like(z, (i + 1) / (num_frames - 1)) for i in range(num_frames - 1)]
+        return torch.stack([z, *masks], dim=0)[None]
+
+    @torch.inference_mode()
+    def encode_image_clip(self, image_clip) -> torch.Tensor:
+        """CLIP-normalised ``[1, 224, 224, 3]`` -> ``[1, 1, proj_dim]``."""
+        _, embeds = self.vision_encoder(self._tensor(image_clip))
+        return embeds[:, None, :]
+
+    @torch.inference_mode()
+    def _eps(self, sample, t: int, text, fps: int, image_latents, image_embeds,
+             pnp: Optional[Tuple[bool, bool, bool]] = None) -> torch.Tensor:
+        return self.unet(sample, t, text, fps, image_latents, image_embeds, pnp=pnp).float()
+
+    # ------------------------------------------------------------------
+    # inversion
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def invert(self, video_latents, text_embeds, image_latents, image_embeds,
+               num_inversion_steps: int = 500, fps: int = 8):
+        """Returns (trajectory ``[n, 1, F, h, w, 4]`` fp32 on the device,
+        ascending timesteps ``[n]``)."""
+        inv_ts = inversion_timesteps(self.schedule, num_inversion_steps)
+        x = self._tensor(video_latents)
+        text, il, ie = (self._tensor(a) for a in (text_embeds, image_latents, image_embeds))
+        traj = torch.empty((len(inv_ts),) + tuple(x.shape), dtype=torch.float32,
+                           device=self.device)
+        for i, t in enumerate(inv_ts):
+            eps = self._eps(x, int(t), text, fps, il, ie)
+            x = ddim_inverse_step(self.schedule, x, eps, int(t), num_inversion_steps)
+            traj[i] = x
+        return traj, inv_ts
+
+    # ------------------------------------------------------------------
+    # PnP edit / plain sampling
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def sample_with_pnp(self, traj, inv_ts: np.ndarray, text_embeds_all, image_latents_all,
+                        image_embeds_all, num_inference_steps: int = 50, t_idx: int = 0,
+                        guidance_scale: float = 9.0, pnp: Optional[PnPConfig] = None,
+                        fps: int = 8, init_latent=None, split_scan: bool = True) -> torch.Tensor:
+        """PnP editing loop from the cached inverted latent at
+        ``timesteps[t_idx]`` (or ``init_latent``) over ``timesteps[t_idx:]``.
+
+        ``split_scan`` (default): once every injection schedule has expired
+        the remaining steps run at batch 2 without the source row — the same
+        result as keeping the batch of 3 throughout (``split_scan=False``)."""
+        pnp = pnp or PnPConfig()
+        ts = sampling_timesteps(self.schedule, num_inference_steps)
+        masks = tuple(injection_step_mask(ts, thr, num_inference_steps)[t_idx:]
+                      for thr in (pnp.conv, pnp.spatial, pnp.temporal))
+        ts_run = ts[t_idx:]
+        ts_prev = ts_run - self.schedule.num_train_timesteps // num_inference_steps
+
+        t_to_row = {int(t): i for i, t in enumerate(inv_ts)}
+        missing = [int(t) for t in ts_run if int(t) not in t_to_row]
+        if missing:
+            raise ValueError(
+                f"sampling timestep {missing[0]} not on the inversion grid; invert with "
+                f"a step count that is a multiple of {num_inference_steps}")
+        cache_idx = [t_to_row[int(t)] for t in ts_run]
+
+        traj = self._tensor(traj)
+        x = traj[cache_idx[0]] if init_latent is None else self._tensor(init_latent)
+        text3, il3, ie3 = (self._tensor(a) for a in
+                           (text_embeds_all, image_latents_all, image_embeds_all))
+
+        m_any = masks[0] | masks[1] | masks[2]
+        n_run = len(ts_run)
+        k_inj = int(np.max(np.nonzero(m_any)[0])) + 1 if m_any.any() else 0
+        if not split_scan:
+            k_inj = n_run
+        # static segments: each run of steps has one Python-bool flag pattern
+        for start, pat, stop in group_constant_runs(masks, k_inj):
+            for i in range(start, stop):
+                inp = torch.cat([traj[cache_idx[i]], x, x], dim=0)
+                eps3 = self._eps(inp, int(ts_run[i]), text3, fps, il3, ie3, pnp=pat)
+                _eps_src, eps_neg, eps_edit = eps3.chunk(3, dim=0)
+                eps = eps_neg + guidance_scale * (eps_edit - eps_neg)
+                x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
+        if k_inj < n_run:
+            x = self._sample_loop(x, text3[1:], il3[1:], ie3[1:], ts_run[k_inj:],
+                                  ts_prev[k_inj:], guidance_scale, fps, do_cfg=True)
+        return x
+
+    @torch.inference_mode()
+    def _sample_loop(self, x, text_all, il_all, ie_all, ts, ts_prev, guidance_scale,
+                     fps, do_cfg: bool):
+        for t, t_prev in zip(ts, ts_prev):
+            inp = torch.cat([x, x], dim=0) if do_cfg else x
+            eps = self._eps(inp, int(t), text_all, fps, il_all, ie_all)
+            if do_cfg:
+                eps_neg, eps_cond = eps.chunk(2, dim=0)
+                eps = eps_neg + guidance_scale * (eps_cond - eps_neg)
+            x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
+        return x
+
+    def sample(self, init_latent, text_embeds_all, image_latents_all, image_embeds_all,
+               num_inference_steps: int = 50, t_idx: int = 0, guidance_scale: float = 9.0,
+               fps: int = 8) -> torch.Tensor:
+        """Vanilla DDIM sampling (the reconstruction check)."""
+        ts = sampling_timesteps(self.schedule, num_inference_steps)[t_idx:]
+        ts_prev = ts - self.schedule.num_train_timesteps // num_inference_steps
+        return self._sample_loop(
+            self._tensor(init_latent), self._tensor(text_embeds_all),
+            self._tensor(image_latents_all), self._tensor(image_embeds_all), ts, ts_prev,
+            guidance_scale, fps, do_cfg=guidance_scale > 1.0)

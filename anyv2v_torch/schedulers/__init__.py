@@ -1,0 +1,12 @@
+from .ddim import ddim_inverse_step, ddim_step, ddim_transfer
+from .schedules import (
+    DiffusionSchedule,
+    inversion_timesteps,
+    make_schedule,
+    sampling_timesteps,
+)
+
+__all__ = [
+    "DiffusionSchedule", "ddim_inverse_step", "ddim_step", "ddim_transfer",
+    "inversion_timesteps", "make_schedule", "sampling_timesteps",
+]

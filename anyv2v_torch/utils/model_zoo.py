@@ -1,0 +1,127 @@
+"""i2vgen-xl model configurations and pipeline construction (counterpart of
+the i2vgen part of ``anyv2v_tpu/utils/model_zoo.py``).
+
+Parameters come from ``init``:
+
+- ``"random"``: seeded random weights, drawn on the target device with a
+  ``torch.Generator``: normal with std ``fan_in ** -0.5`` for matrices and
+  kernels, 0.02 for embeddings, ones for norm scales, zeros for biases, and
+  the last conv of every temporal conv layer zero (the layer starts as the
+  identity, as in the JAX package). Not the JAX package's random weights:
+  use a ``.npz`` for identical weights in both packages.
+- a path to a ``.npz`` written by ``anyv2v_tpu.utils.model_zoo.save_params``:
+  loaded with numpy and carried over by
+  :func:`anyv2v_torch.utils.weights.state_dict_from_jax`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .. import resolve_device
+from ..models.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig, CLIPVisionModel
+from ..models.unet_i2vgen import I2VGenUNet, I2VGenUNetConfig
+from ..models.vae import AutoencoderKL, VAEConfig
+from ..pipelines.i2vgen import I2VGenPipeline
+from ..schedulers import make_schedule
+
+# ali-vilab/i2vgen-xl: the checkpoint's attention_head_dim=64 is the HEAD
+# COUNT in diffusers' 3D UNets (issue #2011), so heads are 5/10/20 wide
+I2VGEN_XL = dict(
+    unet=I2VGenUNetConfig(num_attention_heads=64),
+    vae=VAEConfig(),
+    text=CLIPTextConfig(),
+    vision=CLIPVisionConfig(),
+)
+
+# small but structured: every block kind, for tests and CPU runs
+I2VGEN_TINY = dict(
+    unet=I2VGenUNetConfig(
+        block_out_channels=(16, 32, 32, 32),
+        layers_per_block=1,
+        cross_attention_dim=32,
+        attention_head_dim=8,
+        norm_num_groups=8,
+        num_image_context_tokens=2,
+        pnp_attn_targets=((1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1)),
+        pnp_conv_target=(1, 1),
+    ),
+    vae=VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1, norm_num_groups=8),
+    text=CLIPTextConfig(vocab_size=49408, hidden_size=32, intermediate_size=64,
+                        num_layers=2, num_heads=4, projection_dim=None),
+    vision=CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                            num_heads=4, image_size=224, patch_size=32, projection_dim=32),
+)
+
+ARCHS = {"i2vgen-xl": I2VGEN_XL, "i2vgen-tiny": I2VGEN_TINY}
+
+
+def build_modules(arch: str, dtype: torch.dtype, device="meta") -> Dict[str, nn.Module]:
+    """The four modules of ``ARCHS[arch]`` with compute dtype ``dtype``,
+    parameters uninitialised (on ``meta`` unless another device is given)."""
+    spec = ARCHS[arch]
+    with torch.device(device):
+        return {
+            "unet": I2VGenUNet(dataclasses.replace(spec["unet"], dtype=dtype)),
+            "vae": AutoencoderKL(dataclasses.replace(spec["vae"], dtype=dtype)),
+            "text": CLIPTextModel(dataclasses.replace(spec["text"], dtype=dtype)),
+            "vision": CLIPVisionModel(dataclasses.replace(spec["vision"], dtype=dtype)),
+        }
+
+
+# CLIP's token / position tables and class token
+_EMBEDDINGS = ("token_embedding.weight", "position_embedding.weight", "class_embedding")
+
+
+def random_state_dict(module: nn.Module, generator: torch.Generator,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+    """Seeded random weights for ``module`` in its state-dict (diffusers)
+    shapes, fp32 on ``device``."""
+    out = {}
+    for name, ref in module.state_dict().items():
+        if name.endswith("bias"):
+            t = torch.zeros(ref.shape, device=device)
+        elif name.endswith("weight") and ref.dim() == 1:   # norm scales
+            t = torch.ones(ref.shape, device=device)
+        elif ".temp_convs." in name and ".conv4." in name:
+            t = torch.zeros(ref.shape, device=device)
+        else:
+            std = (0.02 if name.endswith(_EMBEDDINGS)
+                   else float(np.prod(ref.shape[1:])) ** -0.5)
+            t = torch.randn(ref.shape, generator=generator, device=device) * std
+        out[name] = t
+    return out
+
+
+def build_i2vgen_pipeline(arch: str = "i2vgen-xl", *, device, init: str = "random",
+                          seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                          scheduler_kwargs: Optional[dict] = None) -> I2VGenPipeline:
+    dev = resolve_device(device)
+    modules = build_modules(arch, dtype)
+    if init == "random":
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        states = {name: random_state_dict(m, gen, dev) for name, m in modules.items()}
+    elif os.path.exists(init):
+        from .weights import load_jax_npz, state_dict_from_jax
+
+        tree, _ = load_jax_npz(init)
+        states = {name: {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}
+                  for name, sd in state_dict_from_jax(tree, arch).items()}
+    else:
+        raise ValueError(f"unknown init: {init}")
+    for name, m in modules.items():
+        m.to_empty(device=dev)
+        m.to(dtype)
+        m.load_state_dict(states[name])
+        m.eval().requires_grad_(False)
+    del states
+    schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
+    return I2VGenPipeline(unet=modules["unet"], vae=modules["vae"],
+                          text_encoder=modules["text"], vision_encoder=modules["vision"],
+                          schedule=schedule, device=dev, dtype=dtype)

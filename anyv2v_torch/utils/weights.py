@@ -1,0 +1,289 @@
+"""JAX params -> the port's ``state_dict`` (numpy in, numpy out).
+
+:func:`state_dict_from_jax` is the exact inverse of the converters in
+``anyv2v_tpu/utils/convert.py`` (``convert_unet_i2vgen``, ``convert_vae``,
+``convert_clip_text``, ``convert_clip_vision``): the port's modules use the
+diffusers / Hugging Face key names, so the output also has a real
+checkpoint's layout. Attention projections lose the zero columns that
+``pad_attention_heads`` added (checked to be zero); the port pads them back
+when the state dict is loaded (``models.layers.Attention``).
+
+Also reads the JAX package's ``save_params`` ``.npz`` files with numpy alone.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict
+
+import numpy as np
+
+from ..ops.attention import padded_head_dim
+
+Tree = Dict[str, Any]
+StateDict = Dict[str, np.ndarray]
+
+
+def _params(tree: Tree) -> Tree:
+    return tree["params"] if "params" in tree else tree
+
+
+def _linear(sd: StateDict, prefix: str, t: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(t["kernel"]).T)
+    if "bias" in t:
+        sd[f"{prefix}.bias"] = np.asarray(t["bias"])
+
+
+def _conv(sd: StateDict, prefix: str, t: Tree) -> None:
+    k = np.asarray(t["kernel"])
+    perm = (3, 2, 0, 1) if k.ndim == 4 else (4, 3, 0, 1, 2)
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(k.transpose(perm))
+    if "bias" in t:
+        sd[f"{prefix}.bias"] = np.asarray(t["bias"])
+
+
+def _norm(sd: StateDict, prefix: str, t: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(t["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(t["bias"])
+
+
+def _unpad(t: Tree, heads: int, head_dim: int, axis: int, where: str) -> Tree:
+    """Drop the zero pad of each head along ``axis`` of the kernel (1: output
+    columns of to_q/k/v, 0: input rows of to_out), and of the bias."""
+    pd = padded_head_dim(head_dim)
+    if pd == head_dim:
+        return t
+    out = dict(t)
+    k = np.asarray(t["kernel"])
+    if axis == 1:
+        kh = k.reshape(k.shape[0], heads, pd)
+        pad, keep = kh[:, :, head_dim:], kh[:, :, :head_dim]
+        out["kernel"] = keep.reshape(k.shape[0], heads * head_dim)
+    else:
+        kh = k.reshape(heads, pd, k.shape[1])
+        pad, keep = kh[:, head_dim:], kh[:, :head_dim]
+        out["kernel"] = keep.reshape(heads * head_dim, k.shape[1])
+    if np.any(pad != 0):
+        raise ValueError(f"{where}: padded head columns are not zero")
+    if "bias" in t and axis == 1:
+        b = np.asarray(t["bias"]).reshape(heads, pd)
+        if np.any(b[:, head_dim:] != 0):
+            raise ValueError(f"{where}: padded head bias is not zero")
+        out["bias"] = b[:, :head_dim].reshape(heads * head_dim)
+    return out
+
+
+def _attn(sd: StateDict, p: str, t: Tree, heads: int, head_dim: int) -> None:
+    for n in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{p}.{n}", _unpad(t[n], heads, head_dim, 1, f"{p}.{n}"))
+    _linear(sd, f"{p}.to_out.0", _unpad(t["to_out"], heads, head_dim, 0, f"{p}.to_out"))
+
+
+def _ff(sd: StateDict, p: str, t: Tree) -> None:
+    _linear(sd, f"{p}.net.0.proj", t["proj_in"])
+    _linear(sd, f"{p}.net.2", t["proj_out"])
+
+
+def _block(sd: StateDict, p: str, t: Tree, heads: int, head_dim: int) -> None:
+    _norm(sd, f"{p}.norm1", t["norm1"])
+    _attn(sd, f"{p}.attn1", t["attn1"], heads, head_dim)
+    if "attn2" in t:
+        _norm(sd, f"{p}.norm2", t["norm2"])
+        _attn(sd, f"{p}.attn2", t["attn2"], heads, head_dim)
+    _norm(sd, f"{p}.norm3", t["norm3"])
+    _ff(sd, f"{p}.ff", t["ff"])
+
+
+def _transformer(sd: StateDict, p: str, t: Tree, heads: int, head_dim: int,
+                 spatial: bool) -> None:
+    _norm(sd, f"{p}.norm", t["norm"])
+    put = _conv if spatial else _linear
+    put(sd, f"{p}.proj_in", t["proj_in"])
+    _block(sd, f"{p}.transformer_blocks.0", t["blocks_0"], heads, head_dim)
+    put(sd, f"{p}.proj_out", t["proj_out"])
+
+
+def _resnet(sd: StateDict, p: str, t: Tree) -> None:
+    _norm(sd, f"{p}.norm1", t["norm1"])
+    _conv(sd, f"{p}.conv1", t["conv1"])
+    _norm(sd, f"{p}.norm2", t["norm2"])
+    _conv(sd, f"{p}.conv2", t["conv2"])
+    if "time_emb_proj" in t:
+        _linear(sd, f"{p}.time_emb_proj", t["time_emb_proj"])
+    if "conv_shortcut" in t:
+        _conv(sd, f"{p}.conv_shortcut", t["conv_shortcut"])
+
+
+def _temp_conv(sd: StateDict, p: str, t: Tree) -> None:
+    for i in range(1, 5):
+        _norm(sd, f"{p}.conv{i}.0", t[f"norm{i}"])
+        _conv(sd, f"{p}.conv{i}.{2 if i == 1 else 3}", t[f"conv{i}"])
+
+
+def unet_state_dict(tree: Tree, cfg) -> StateDict:
+    """I2VGenUNet params -> diffusers ``I2VGenXLUNet`` keys; ``cfg`` an
+    :class:`~anyv2v_torch.models.unet_i2vgen.I2VGenUNetConfig`."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    _transformer(sd, "transformer_in", p["transformer_in"], 8,
+                 cfg.num_attention_heads or cfg.attention_head_dim, spatial=False)
+    for name in ("linear_1", "linear_2"):
+        _linear(sd, f"time_embedding.{name}", p["time_embedding"][name])
+    _linear(sd, "fps_embedding.0", p["fps_embedding"]["linear_1"])
+    _linear(sd, "fps_embedding.2", p["fps_embedding"]["linear_2"])
+    for i, idx in ((1, 0), (2, 2), (3, 4)):
+        _conv(sd, f"image_latents_proj_in.{idx}", p[f"img_lat_proj{i}"])
+    for i, idx in ((1, 0), (2, 3), (3, 5)):
+        _conv(sd, f"image_latents_context_embedding.{idx}", p[f"img_ctx_conv{i}"])
+    _linear(sd, "context_embedding.0", p["context_embedding_1"])
+    _linear(sd, "context_embedding.2", p["context_embedding_2"])
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    te = p["image_latents_temporal_encoder"]
+    _norm(sd, "image_latents_temporal_encoder.norm1", te["norm1"])
+    _attn(sd, "image_latents_temporal_encoder.attn1", te["attn1"], 2, cfg.in_channels)
+    _ff(sd, "image_latents_temporal_encoder.ff", te["ff"])
+
+    chs = cfg.block_out_channels
+    n = len(chs)
+    for i, ch in enumerate(chs):
+        heads, hd = cfg.heads(ch)
+        base = f"down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            _resnet(sd, f"{base}.resnets.{j}", p[f"down_{i}_resnet_{j}"])
+            _temp_conv(sd, f"{base}.temp_convs.{j}", p[f"down_{i}_tempconv_{j}"])
+            if i < n - 1:
+                _transformer(sd, f"{base}.attentions.{j}", p[f"down_{i}_attn_{j}"],
+                             heads, hd, spatial=True)
+                _transformer(sd, f"{base}.temp_attentions.{j}", p[f"down_{i}_tempattn_{j}"],
+                             heads, hd, spatial=False)
+        if i < n - 1:
+            _conv(sd, f"{base}.downsamplers.0.conv", p[f"down_{i}_downsample"]["conv"])
+    heads, hd = cfg.heads(chs[-1])
+    _resnet(sd, "mid_block.resnets.0", p["mid_resnet_0"])
+    _temp_conv(sd, "mid_block.temp_convs.0", p["mid_tempconv_0"])
+    _transformer(sd, "mid_block.attentions.0", p["mid_attn"], heads, hd, spatial=True)
+    _transformer(sd, "mid_block.temp_attentions.0", p["mid_tempattn"], heads, hd, spatial=False)
+    _resnet(sd, "mid_block.resnets.1", p["mid_resnet_1"])
+    _temp_conv(sd, "mid_block.temp_convs.1", p["mid_tempconv_1"])
+    for i, ch in enumerate(reversed(chs)):
+        heads, hd = cfg.heads(ch)
+        base = f"up_blocks.{i}"
+        for j in range(cfg.layers_per_block + 1):
+            _resnet(sd, f"{base}.resnets.{j}", p[f"up_{i}_resnet_{j}"])
+            _temp_conv(sd, f"{base}.temp_convs.{j}", p[f"up_{i}_tempconv_{j}"])
+            if i > 0:
+                _transformer(sd, f"{base}.attentions.{j}", p[f"up_{i}_attn_{j}"],
+                             heads, hd, spatial=True)
+                _transformer(sd, f"{base}.temp_attentions.{j}", p[f"up_{i}_tempattn_{j}"],
+                             heads, hd, spatial=False)
+        if i < n - 1:
+            _conv(sd, f"{base}.upsamplers.0.conv", p[f"up_{i}_upsample"]["conv"])
+    return sd
+
+
+def _vae_mid(sd: StateDict, p: str, t: Tree) -> None:
+    _resnet(sd, f"{p}.resnets.0", t["resnet_0"])
+    _norm(sd, f"{p}.attentions.0.group_norm", t["attn_norm"])
+    _attn(sd, f"{p}.attentions.0", t["attn"], 1, np.asarray(t["attn"]["to_q"]["kernel"]).shape[1])
+    _resnet(sd, f"{p}.resnets.1", t["resnet_1"])
+
+
+def vae_state_dict(tree: Tree, cfg) -> StateDict:
+    """AutoencoderKL params -> diffusers ``AutoencoderKL`` keys."""
+    p = _params(tree)
+    enc, dec = p["encoder"], p["decoder"]
+    n = len(cfg.block_out_channels)
+    sd: StateDict = {}
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}", enc[f"down_{i}_resnet_{j}"])
+        if i < n - 1:
+            _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                  enc[f"down_{i}_downsample"]["conv"])
+    _vae_mid(sd, "encoder.mid_block", enc["mid"])
+    _norm(sd, "encoder.conv_norm_out", enc["conv_norm_out"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    _conv(sd, "quant_conv", enc["quant_conv"])
+    _conv(sd, "post_quant_conv", dec["post_quant_conv"])
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    _vae_mid(sd, "decoder.mid_block", dec["mid"])
+    for i in range(n):
+        for j in range(cfg.layers_per_block + 1):
+            _resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", dec[f"up_{i}_resnet_{j}"])
+        if i < n - 1:
+            _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv", dec[f"up_{i}_upsample"]["conv"])
+    _norm(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    return sd
+
+
+def _clip_layers(sd: StateDict, base: str, p: Tree, num_layers: int) -> None:
+    for i in range(num_layers):
+        t, pre = p[f"layers_{i}"], f"{base}encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{pre}.self_attn.{n}", t["self_attn"][n])
+        _norm(sd, f"{pre}.layer_norm1", t["layer_norm1"])
+        _norm(sd, f"{pre}.layer_norm2", t["layer_norm2"])
+        _linear(sd, f"{pre}.mlp.fc1", t["fc1"])
+        _linear(sd, f"{pre}.mlp.fc2", t["fc2"])
+
+
+def clip_text_state_dict(tree: Tree, cfg) -> StateDict:
+    p = _params(tree)
+    sd: StateDict = {
+        "text_model.embeddings.token_embedding.weight": np.asarray(p["token_embedding"]["embedding"]),
+        "text_model.embeddings.position_embedding.weight": np.asarray(p["position_embedding"]),
+    }
+    _clip_layers(sd, "text_model.", p, cfg.num_layers)
+    _norm(sd, "text_model.final_layer_norm", p["final_layer_norm"])
+    if "text_projection" in p:
+        _linear(sd, "text_projection", p["text_projection"])
+    return sd
+
+
+def clip_vision_state_dict(tree: Tree, cfg) -> StateDict:
+    p = _params(tree)
+    sd: StateDict = {
+        "vision_model.embeddings.class_embedding": np.asarray(p["class_embedding"]),
+        "vision_model.embeddings.position_embedding.weight": np.asarray(p["position_embedding"]),
+    }
+    _conv(sd, "vision_model.embeddings.patch_embedding", p["patch_embedding"])
+    _norm(sd, "vision_model.pre_layrnorm", p["pre_layrnorm"])
+    _clip_layers(sd, "vision_model.", p, cfg.num_layers)
+    _norm(sd, "vision_model.post_layernorm", p["post_layernorm"])
+    if "visual_projection" in p:
+        _linear(sd, "visual_projection", p["visual_projection"])
+    return sd
+
+
+def state_dict_from_jax(params: Tree, arch: str) -> Dict[str, StateDict]:
+    """``{"unet", "vae", "text", "vision"}`` JAX param trees (numpy leaves) ->
+    the port's state dicts for the same components, for ``ARCHS[arch]``."""
+    from .model_zoo import ARCHS
+
+    spec = ARCHS[arch]
+    convert = {"unet": unet_state_dict, "vae": vae_state_dict,
+                "text": clip_text_state_dict, "vision": clip_vision_state_dict}
+    return {name: convert[name](params[name], spec[name])
+            for name in convert if name in params}
+
+
+def load_jax_npz(path: str):
+    """Read a ``anyv2v_tpu.utils.model_zoo.save_params`` file with numpy:
+    returns (nested param tree, meta dict)."""
+    data = np.load(path)
+    tree: Tree = {}
+    meta: Dict[str, Any] = {}
+    for name in data.files:
+        if name == "__meta__":
+            meta = json.loads(str(data[name]))
+            continue
+        node = tree
+        parts = name.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = data[name]
+    return tree, meta

@@ -1,0 +1,171 @@
+"""The port's four kernel functions against the JAX package's Pallas entries.
+
+Each CUDA kernel of ``anyv2v_torch/csrc`` has a plain PyTorch version in its
+module; on CPU tensors the kernel's wrapper runs that version. Here the
+wrapper (so the plain version) and the Pallas entry it replaces run on the
+same numpy-seeded fp32 inputs; off-TPU the Pallas entries run in interpret
+mode. Shapes are small but cover each routed class: self and cross, padded
+head widths 8/16/32/64, 16 frames with a pixel count that tiles.
+
+Tolerance: rtol 1e-4, atol 2e-5 (the block goldens' in
+tests/test_convert_golden.py). The kernels themselves are checked against the
+same plain versions on the GPU by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from anyv2v_tpu.ops import pallas_temporal_conv
+from anyv2v_tpu.ops.pallas_ffn import fused_ffn
+from anyv2v_tpu.ops.pallas_packed_flash import packed_flash_attention
+from anyv2v_tpu.ops.pallas_short_attention import short_attention_bsc, short_attention_frames
+from anyv2v_tpu.ops.pallas_temporal_conv import temporal_conv3
+from anyv2v_tpu.ops.pallas_temporal_ew import temporal_ew_attention
+from anyv2v_torch.ops.ffn import ffn_geglu
+from anyv2v_torch.ops.folded_attention import folded_attention
+from anyv2v_torch.ops.frame_attention import frame_attention
+from anyv2v_torch.ops.temporal_conv import gn_silu_temporal_conv, groupnorm_scale_shift
+
+TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.randn(*shape) * scale).astype(np.float32)
+
+
+def _close(got: torch.Tensor, want) -> None:
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,heads,dh,true_dh",
+    [
+        (1, 256, 256, 64, 8, 5),      # L0 self class (dh 5 -> 8)
+        (1, 256, 157, 64, 8, 5),      # L0 cross: text + image context
+        (1, 256, 256, 32, 16, 10),    # L1 self class (dh 10 -> 16)
+        (2, 256, 157, 16, 32, 20),    # L2 cross class (dh 20 -> 32)
+    ],
+)
+def test_folded_attention_vs_packed_flash(b, sq, sk, heads, dh, true_dh):
+    rng = np.random.RandomState(0)
+    c = heads * dh
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    scale = true_dh ** -0.5
+    want = packed_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  heads=heads, scale=scale)
+    got = folded_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                           heads, scale)
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "b,s,heads,dh,true_dh",
+    [
+        (4, 64, 64, 32, 20),   # mid-block spatial self (8x8 tokens)
+        (64, 16, 2, 8, 4),     # image-latent temporal encoder (2 heads, dh 4 -> 8)
+    ],
+)
+def test_folded_attention_vs_short_attention(b, s, heads, dh, true_dh):
+    rng = np.random.RandomState(1)
+    c = heads * dh
+    q, k, v = _rand(rng, b, s, c), _rand(rng, b, s, c), _rand(rng, b, s, c)
+    scale = true_dh ** -0.5
+    want = short_attention_bsc(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               heads=heads, scale=scale)
+    got = folded_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                           heads, scale)
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "b,s,hw,heads,dh,true_dh",
+    [
+        (1, 16, 64, 64, 8, 5),    # L0 temporal class
+        (3, 8, 32, 4, 16, 10),    # edit batch, short clip
+    ],
+)
+def test_frame_attention_vs_temporal_ew(b, s, hw, heads, dh, true_dh):
+    rng = np.random.RandomState(2)
+    c = heads * dh
+    q, k, v = (_rand(rng, b, s, hw, c, scale=0.3) for _ in range(3))
+    scale = true_dh ** -0.5
+    want = temporal_ew_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 heads=heads, scale=scale)
+    got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, scale)
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "b,s,hw,heads,dh,true_dh",
+    [
+        (3, 16, 64, 8, 64, 64),    # transformer_in class (8 heads x 64)
+        (2, 16, 64, 64, 16, 10),   # L1 temporal class
+        (2, 8, 16, 2, 16, 16),     # tiny arch
+    ],
+)
+def test_frame_attention_vs_short_attention_frames(b, s, hw, heads, dh, true_dh):
+    rng = np.random.RandomState(3)
+    c = heads * dh
+    q, k, v = (_rand(rng, b, s, hw, c) for _ in range(3))
+    scale = true_dh ** -0.5
+    want = short_attention_frames(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  heads=heads, scale=scale)
+    got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, scale)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("lead,c", [((1024,), 128), ((2, 300), 320), ((4, 40), 64)])
+def test_ffn_geglu_vs_fused_ffn(lead, c):
+    rng = np.random.RandomState(4)
+    inner = 4 * c
+    x = _rand(rng, *lead, c)
+    w1, b1 = _rand(rng, c, 2 * inner, scale=0.02), _rand(rng, 2 * inner, scale=0.1)
+    w2, b2 = _rand(rng, inner, c, scale=0.02), _rand(rng, c, scale=0.1)
+    want = fused_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)), activation="geglu")
+    # the port keeps torch Linear layouts: [out, in]
+    got = ffn_geglu(torch.from_numpy(x), torch.from_numpy(w1.T.copy()), torch.from_numpy(b1),
+                    torch.from_numpy(w2.T.copy()), torch.from_numpy(b2))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,f,p,c,c_out", [(1, 16, 64, 128, 128), (3, 8, 24, 64, 32)])
+def test_temporal_conv_vs_temporal_conv3(b, f, p, c, c_out):
+    rng = np.random.RandomState(5)
+    x = _rand(rng, b, f, p, c)
+    w, bias = _rand(rng, 3, c, c_out, scale=0.05), _rand(rng, c_out, scale=0.1)
+    want = temporal_conv3(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
+    got = gn_silu_temporal_conv(torch.from_numpy(x), None, None, torch.from_numpy(w),
+                                torch.from_numpy(bias))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,f,p,c,c_out,groups", [(1, 16, 64, 128, 128, 32),
+                                                  (3, 8, 24, 64, 64, 8)])
+def test_temporal_conv_prologue_vs_pallas_run(b, f, p, c, c_out, groups):
+    """The fused groupnorm-apply + SiLU prologue (Pallas ``_run`` with s/t)."""
+    rng = np.random.RandomState(6)
+    x = _rand(rng, b, f, p, c)
+    gamma, beta = 1.0 + _rand(rng, c, scale=0.1), _rand(rng, c, scale=0.1)
+    w, bias = _rand(rng, 3, c, c_out, scale=0.05), _rand(rng, c_out, scale=0.1)
+    xt = torch.from_numpy(x)
+    s, t = groupnorm_scale_shift(xt, torch.from_numpy(gamma), torch.from_numpy(beta),
+                                 groups, 1e-5)
+    want = pallas_temporal_conv._run(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                     jnp.asarray(s.numpy()), jnp.asarray(t.numpy()),
+                                     jnp.float32)
+    got = gn_silu_temporal_conv(xt, s, t, torch.from_numpy(w), torch.from_numpy(bias))
+    _close(got, want)
+
+
+def test_groupnorm_scale_shift_is_groupnorm():
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(_rand(rng, 2, 4, 12, 32))
+    gamma, beta = torch.from_numpy(1 + _rand(rng, 32)), torch.from_numpy(_rand(rng, 32))
+    s, t = groupnorm_scale_shift(x, gamma, beta, 8, 1e-5)
+    want = torch.nn.functional.group_norm(x.permute(0, 3, 1, 2), 8, gamma, beta, 1e-5)
+    np.testing.assert_allclose((x * s[:, None, None] + t[:, None, None]).numpy(),
+                               want.permute(0, 2, 3, 1).numpy(), rtol=1e-4, atol=1e-5)
