@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.clip import preprocess_clip_image
-from ..utils.model_zoo import build_i2vgen_pipeline
+from ..utils.model_zoo import build_consisti2v_pipeline, build_i2vgen_pipeline
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -26,17 +26,20 @@ def setup_logging(debug: bool) -> None:
         format="%(asctime)s - %(levelname)s - [%(funcName)s] - %(message)s")
 
 
-def build_pipeline_from_config(cfg, device):
-    """(pipeline, tokenizer or None) from a config's ``model:`` section."""
+def build_pipeline_from_config(cfg, device, default_arch: str = "i2vgen-xl"):
+    """(pipeline, tokenizer or None) from a config's ``model:`` section: an
+    i2vgen or a ConsistI2V pipeline, by the ``arch`` it names."""
     model = cfg.get("model", {})
-    pipe = build_i2vgen_pipeline(
-        model.get("arch", "i2vgen-xl"), device=device, init=model.get("init", "random"),
+    arch = model.get("arch", default_arch)
+    build = build_consisti2v_pipeline if arch.startswith("consisti2v") else build_i2vgen_pipeline
+    pipe = build(
+        arch, device=device, init=model.get("init", "random"),
         seed=int(cfg.get("seed", 0)), dtype=_DTYPES[model.get("dtype", "bfloat16")],
         scheduler_kwargs=dict(model.get("scheduler", {})))
     tokenizer = None
     tok_path = model.get("tokenizer_path")
     if tok_path:
-        from anyv2v_tpu.utils.tokenizer import CLIPTokenizer
+        from ..utils.tokenizer import CLIPTokenizer
 
         tokenizer = CLIPTokenizer(
             os.path.join(tok_path, "vocab.json"), os.path.join(tok_path, "merges.txt"),
@@ -75,7 +78,7 @@ def clip_input(pipe, image01: np.ndarray, width: int) -> torch.Tensor:
 def load_frames_for_config(cfg) -> list:
     """PIL frames from ``video_frames_path``, else extracted from
     ``video_path`` (needs PIL and OpenCV: CLI shells only)."""
-    from anyv2v_tpu.utils import io as vio
+    from ..utils import io as vio
 
     size = (int(cfg.image_size[0]), int(cfg.image_size[1]))
     n = int(cfg.n_frames)

@@ -54,8 +54,8 @@ def invert_video(pipe, frames01: np.ndarray, *, text_ids: np.ndarray, n_steps: i
 def reconstruct(pipe, tokenizer, cfg, latents, traj, inv_ts, img_lat, img_emb):
     """Optional DDIM reconstruction from the cache, with a PSNR report and an
     opt-in ``recon_config.min_psnr`` gate."""
-    from anyv2v_tpu.utils import io as vio
-    from anyv2v_tpu.utils.metrics import video_report
+    from ..utils import io as vio
+    from ..utils.metrics import video_report
 
     from ..schedulers import sampling_timesteps
 
@@ -87,8 +87,8 @@ def reconstruct(pipe, tokenizer, cfg, latents, traj, inv_ts, img_lat, img_emb):
 
 
 def main(argv=None):
-    from anyv2v_tpu.utils import io as vio
-    from anyv2v_tpu.utils.config import load_group_configs, load_yaml
+    from ..utils import io as vio
+    from ..utils.config import load_group_configs, load_yaml
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--template_config", default="configs/group_ddim_inversion/template.yaml")

@@ -72,8 +72,8 @@ def edit_video(pipe, traj, inv_ts: np.ndarray, src01: np.ndarray, edited01: np.n
 def main(argv=None):
     from PIL import Image
 
-    from anyv2v_tpu.utils import io as vio
-    from anyv2v_tpu.utils.config import load_group_configs, load_yaml
+    from ..utils import io as vio
+    from ..utils.config import load_group_configs, load_yaml
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--template_config", default="configs/group_pnp_edit/template.yaml")

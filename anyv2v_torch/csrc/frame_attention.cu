@@ -1,25 +1,44 @@
 // K2 frame_attention: self-attention over the frame axis S of temporal tokens
 // x [B, S, HW, C] (C = heads * DH), for every (batch, pixel, head), bf16.
 //
+// Keys k/v [B, Sk, HW, C] may carry extra frames past S (ConsistI2V's
+// augmented first-frame window, appended on the frame axis).
+//
 // Replaces (anyv2v_tpu/ops/):
 //   pallas_temporal_ew.py     _ew_kernel      (L0 temporal, HW 4096, dh 8)
 //   pallas_short_attention.py _strided_kernel (L1/L2/mid temporal and
-//                                              transformer_in, dh 16/32/64)
+//                                              transformer_in, dh 16/32/64;
+//                                              ConsistI2V, Sk = 25, dh 40/80)
 // Both read the native [B, S, HW, C] layout so the temporal transformer never
-// transposes its tokens. This kernel does the same and computes no wasted
-// scores: S x S per (batch, pixel, head), as _ew_kernel did.
+// transposes its tokens. These kernels do the same and compute no wasted
+// scores: S x Sk per (batch, pixel, head), as _ew_kernel did.
 //
 // What bounds it on the H100: bytes. q, k and v are read once and the output
-// written once (4 x B*S*HW*C*2 bytes, 400 MB for an L0 edit call); the
-// S*S*DH multiply-adds per head are few by comparison.
+// written once (2 x B*(S+Sk)*HW*C*2 bytes, 400 MB for an i2vgen-xl L0 edit
+// call, 0.66 GB for ConsistI2V's); the S*Sk*DH multiply-adds per head are few
+// by comparison.
 //
-// Design: one thread per (batch, pixel, channel pair); neighbouring threads
-// hold neighbouring channels, so each warp reads 128 contiguous bytes per
-// frame (coalesced bf16x2 loads). A head spans DH/2 consecutive lanes, and
+// Two bodies, one entry:
+//
+// frame_attention_kernel (Sk == S, DH a power of two <= 64: i2vgen-xl's
+// temporal layers). One thread per (batch, pixel, channel pair); neighbouring
+// threads hold neighbouring channels, so each warp reads 128 contiguous bytes
+// per frame (coalesced bf16x2 loads). A head spans DH/2 consecutive lanes, and
 // the per-head q.k sum over DH is a butterfly of warp shuffles inside that
 // lane group. Each thread keeps its two channels of k and v for all S frames
 // in registers and loops over query frames: S scores, fp32 softmax with
 // exp2f, then p.v for its two channels.
+//
+// frame_attention_rows_kernel (S <= Sk <= S + 16, DH 8/16/40/80/160:
+// ConsistI2V's temporal layers, 8 heads of 40/80/160 over 17 frames plus
+// 8 augmented first-frame keys). DH/2 lanes is no power of two there, and 48
+// keys of two channels would not fit in registers, so the work is cut the
+// other way: R lanes own one query row (b, pixel, head, frame), each holding
+// CW = DH/R channels of q and of the fp32 accumulator (CW <= 40). Neighbouring
+// row groups are the S query frames of one (pixel, head), so a key or value
+// load is one address broadcast to all of them (two addresses per warp) and
+// device memory is read once.
+// Keys run in chunks of 8 with one online-softmax rescale per chunk.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,7 +143,156 @@ cudaError_t launch_s(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int CW, int R>
+__global__ void __launch_bounds__(128) frame_attention_rows_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+    int Sk, int HW, int H, long long total, float scale_log2) {
+  constexpr int KCH = 8;
+  constexpr int V8 = CW / 8;   // 16-byte loads per lane and frame
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = gid < total;
+  // threads past the end work on the last row and store nothing, so every
+  // lane of a row group joins the shuffles
+  const long long g = valid ? gid : total - 1;
+  const int r = (int)(g % R);
+  long long rest = g / R;
+  const int i = (int)(rest % S);
+  rest /= S;
+  const int h = (int)(rest % H);
+  rest /= H;
+  const int p = (int)(rest % HW);
+  const long long b = rest / HW;
+  const int C = H * CW * R;
+  const int c0 = h * CW * R + r * CW;
+  const long long fstride = (long long)HW * C;
+
+  float qr[CW], acc[CW];
+  {
+    const uint4* qp = reinterpret_cast<const uint4*>(q + ((b * S + i) * HW + p) * C + c0);
+#pragma unroll
+    for (int u = 0; u < V8; ++u) {
+      const uint4 w = qp[u];
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float2 f = __bfloat1622float2(e[x]);
+        qr[u * 8 + 2 * x] = f.x * scale_log2;
+        qr[u * 8 + 2 * x + 1] = f.y * scale_log2;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  const __nv_bfloat16* kb = k + (b * Sk * HW + p) * C + c0;
+  const __nv_bfloat16* vb = v + (b * Sk * HW + p) * C + c0;
+
+  for (int j0 = 0; j0 < Sk; j0 += KCH) {
+    float s[KCH];
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < KCH; ++jj) {
+      float dot = 0.f;
+      if (j0 + jj < Sk) {
+        const uint4* kp = reinterpret_cast<const uint4*>(kb + (j0 + jj) * fstride);
+#pragma unroll
+        for (int u = 0; u < V8; ++u) {
+          const uint4 w = kp[u];
+          const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float2 f = __bfloat1622float2(e[x]);
+            dot = fmaf(qr[u * 8 + 2 * x], f.x, dot);
+            dot = fmaf(qr[u * 8 + 2 * x + 1], f.y, dot);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = R / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      s[jj] = j0 + jj < Sk ? dot : -INFINITY;
+      cmax = fmaxf(cmax, s[jj]);
+    }
+    // j0 < Sk: the chunk holds a real key, so cmax is finite
+    const float m_new = fmaxf(m, cmax);
+    const float corr = exp2f(m - m_new);
+    l *= corr;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[c] *= corr;
+#pragma unroll
+    for (int jj = 0; jj < KCH; ++jj) {
+      if (j0 + jj < Sk) {
+        const float pj = exp2f(s[jj] - m_new);
+        l += pj;
+        const uint4* vp = reinterpret_cast<const uint4*>(vb + (j0 + jj) * fstride);
+#pragma unroll
+        for (int u = 0; u < V8; ++u) {
+          const uint4 w = vp[u];
+          const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float2 f = __bfloat1622float2(e[x]);
+            acc[u * 8 + 2 * x] = fmaf(pj, f.x, acc[u * 8 + 2 * x]);
+            acc[u * 8 + 2 * x + 1] = fmaf(pj, f.y, acc[u * 8 + 2 * x + 1]);
+          }
+        }
+      }
+    }
+    m = m_new;
+  }
+
+  if (valid) {
+    const float inv = 1.f / l;
+    uint4* op = reinterpret_cast<uint4*>(o + ((b * S + i) * HW + p) * C + c0);
+#pragma unroll
+    for (int u = 0; u < V8; ++u) {
+      uint4 w;
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        e[x] = __floats2bfloat162_rn(acc[u * 8 + 2 * x] * inv, acc[u * 8 + 2 * x + 1] * inv);
+      op[u] = w;
+    }
+  }
+}
+
+template <int CW, int R>
+cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int Sk, int HW, int H, float scale_log2,
+                        cudaStream_t stream) {
+  const long long total = (long long)B * HW * H * S * R;
+  const int threads = 128;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  frame_attention_rows_kernel<CW, R><<<(unsigned)blocks, threads, 0, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, S, Sk, HW, H, total, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// S <= Sk <= S + 16, DH 8/16/40/80/160; pointers 16-byte aligned.
+extern "C" int anyv2v_frame_attention_rows(const void* q, const void* k,
+                                           const void* v, void* o, int B, int S,
+                                           int Sk, int HW, int C, int DH,
+                                           float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 0 || S <= 0 || Sk < S || Sk > S + 16 || HW <= 0 || DH <= 0 ||
+      C % DH != 0)
+    return (int)cudaErrorInvalidValue;
+  const int H = C / DH;
+  const float sl = scale * 1.4426950408889634f;
+  switch (DH) {
+    case 8: return (int)launch_rows<8, 1>(q, k, v, o, B, S, Sk, HW, H, sl, s);
+    case 16: return (int)launch_rows<16, 1>(q, k, v, o, B, S, Sk, HW, H, sl, s);
+    case 40: return (int)launch_rows<40, 1>(q, k, v, o, B, S, Sk, HW, H, sl, s);
+    case 80: return (int)launch_rows<40, 2>(q, k, v, o, B, S, Sk, HW, H, sl, s);
+    case 160: return (int)launch_rows<40, 4>(q, k, v, o, B, S, Sk, HW, H, sl, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int anyv2v_frame_attention(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,

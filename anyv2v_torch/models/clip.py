@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import sdpa_attention
 from .layers import layer_norm
 
 
@@ -65,8 +65,9 @@ class _SelfAttention(nn.Module):
 
     def forward(self, x, causal: bool):
         scale = (x.shape[-1] // self.heads) ** -0.5
-        out = multi_head_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x),
-                                   self.heads, scale, causal=causal)
+        # the JAX package leaves CLIP's attention to XLA: no TPU kernel to port
+        out = sdpa_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x),
+                             self.heads, scale, causal=causal)
         return self.out_proj(out)
 
 

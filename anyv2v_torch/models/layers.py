@@ -139,12 +139,12 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def forward(self, x, temb=None, inject: bool = False):
+    def forward(self, x, temb=None, inject: bool = False, pnp_chunks: Optional[int] = None):
         h = conv_nhwc(self.conv1, F.silu(group_norm(x, self.norm1)).to(self.dtype))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
         h = conv_nhwc(self.conv2, F.silu(group_norm(h, self.norm2)).to(self.dtype))
-        h = inject_source_rows(h, inject, self.pnp_chunks)
+        h = inject_source_rows(h, inject, pnp_chunks or self.pnp_chunks)
         if self.conv_shortcut is not None:
             x = linear_1x1(self.conv_shortcut, x)
         return x + h

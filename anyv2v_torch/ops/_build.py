@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 All sources under ``anyv2v_torch/csrc`` compile into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds). The build
+plain C interface (no PyTorch headers). Each source compiles in its own nvcc
+process, all started together, and one more nvcc links the objects. The build
 lands in ``build/anyv2v_torch/`` at the repository root, named by a hash of the
 sources, so an edited source rebuilds and an unchanged one loads the cached
 library. Nothing is built at import time: the first kernel launch builds.
@@ -23,12 +24,13 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "anyv2v_torch")
-SOURCES = ("folded_attention.cu", "frame_attention.cu", "ffn.cu", "temporal_conv.cu")
+SOURCES = ("folded_attention.cu", "frame_attention.cu", "ffn.cu", "temporal_conv.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None
-build_seconds = None   # wall time of the nvcc call in this process, if any
+build_seconds = None   # wall time of the nvcc build in this process, if any
 
 
 def _nvcc() -> str:
@@ -49,6 +51,34 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands as parallel processes and wait for every one; raise
+    with the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed[0]}")
+
+
+def _compile_and_link(so: str) -> None:
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+                  for src, obj in zip(SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{so}.{tag}", *objs]])
+        os.replace(f"{so}.{tag}", so)
+    finally:
+        for path in objs + [f"{so}.{tag}"]:
+            if os.path.exists(path):
+                os.remove(path)
+
+
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     global _lib, build_seconds
@@ -59,15 +89,9 @@ def library() -> ctypes.CDLL:
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"libanyv2v_{_source_hash()}.so")
     if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[os.path.join(CSRC, s) for s in SOURCES]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _compile_and_link(so)
         build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     lib.anyv2v_error_string.restype = ctypes.c_char_p
     lib.anyv2v_error_string.argtypes = [ctypes.c_int]
@@ -106,3 +130,12 @@ def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16) -> Non
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
+
+
+def require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Kernels that read 16-byte vectors need 16-byte aligned data pointers
+    (``None`` entries skipped)."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "
+                             "16-byte aligned")

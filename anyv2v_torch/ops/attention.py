@@ -2,23 +2,36 @@
 
 Contract, as in the JAX package: flat ``[B, S, heads*dh]`` tokens in and out,
 an explicit ``scale`` (the true head width's, since projections store each
-head padded by :func:`padded_head_dim`), and :func:`temporal_attention` on
-``[B, S, HW, C]`` temporal tokens with no transposes.
+head padded by :func:`padded_head_dim`), :func:`temporal_attention` on
+``[B, S, HW, C]`` temporal tokens with no transposes, and
+:func:`spatial_attention_ffconcat` for ConsistI2V's first-frame-conditioned
+spatial self-attention.
 
-Routing on CUDA tensors, the same on every call:
+Hopper routes on CUDA tensors, the same on every call:
 
-- K1 :func:`..ops.folded_attention.folded_attention` for every folded
-  attention (no bias, no mask) whose head width is 8, 16, 32 or 64 and
-  whose heads window-pack (:func:`window_packable`) or which is short
-  (Sq, Sk <= 128): the spatial self and cross attention of the 64-head
-  i2vgen-xl levels and the image-latent temporal encoder;
-- K2 :func:`..ops.frame_attention.frame_attention` for all frame-axis
-  attention with S <= 32;
-- everything else (the VAE's one 512-wide head, CLIP's causal attention)
-  to PyTorch's ``scaled_dot_product_attention``.
+=============================================  ======================  =========
+call                                           shapes                  route
+=============================================  ======================  =========
+i2vgen-xl spatial self / cross, 64 heads       dh 8/16/32 (padded)     K1
+short self / cross (Sq, Sk <= 128)             dh 8/16/32/64           K1
+  (i2vgen mid block, image-latent encoder,
+  ConsistI2V mid cross)
+other attention, not causal                    dh 8/16/40/64/80/160    K5
+  (ConsistI2V spatial cross, 5/10/20 heads
+  of 64; temporal cross over [B, F*HW, C],
+  8 heads of 40/80/160)
+:func:`spatial_attention_ffconcat`             dh as K5                K5 split-KV
+:func:`temporal_attention` (frame axis)        S <= 32, Sk <= S + 16   K2
+everything else (the VAE's 512-wide head)                              SDPA
+=============================================  ======================  =========
 
-The JAX row and length thresholds were tuned on a TPU and are not copied.
-On CPU tensors every route takes the kernel's plain version.
+K1 takes what it took before K5 existed except window-packed heads of 64,
+which no i2vgen-xl call has (its windowed calls are 64 heads of 8/16/32);
+the JAX package likewise sends only heads narrower than 64 to its packed
+kernels. CLIP's text and vision encoders call :func:`sdpa_attention`
+directly, as the JAX package left them to XLA. The JAX row and length
+thresholds were tuned on a TPU and are not copied. On CPU tensors every route
+takes the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -26,8 +39,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention
 from .folded_attention import HEAD_DIMS, folded_attention
-from .frame_attention import MAX_FRAMES, frame_attention
+from .frame_attention import frame_attention, takes as frame_kernel_takes
 
 
 def padded_head_dim(d: int) -> int:
@@ -52,17 +66,15 @@ def window_packable(heads: int, head_dim: int) -> bool:
 
 def uses_folded_kernel(sq: int, sk: int, heads: int, head_dim: int) -> bool:
     """K1's route (the same on CPU, where the route runs its plain version)."""
-    return head_dim in HEAD_DIMS and (window_packable(heads, head_dim)
-                                      or (sq <= 128 and sk <= 128))
+    return head_dim in HEAD_DIMS and (
+        (head_dim < 64 and window_packable(heads, head_dim)) or (sq <= 128 and sk <= 128))
 
 
-def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                         heads: int, scale: float, causal: bool = False) -> torch.Tensor:
-    """query ``[B, Sq, H*dh]``, key/value ``[B, Sk, H*dh]`` -> ``[B, Sq, H*dh]``."""
+def sdpa_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                   heads: int, scale: float, causal: bool = False) -> torch.Tensor:
+    """PyTorch's ``scaled_dot_product_attention`` on a head-split view."""
     b, sq, c = query.shape
     dh = c // heads
-    if not causal and uses_folded_kernel(sq, key.shape[1], heads, dh):
-        return folded_attention(query, key, value, heads, scale)
 
     def split(x):
         return x.reshape(b, x.shape[1], heads, dh).transpose(1, 2)
@@ -72,11 +84,38 @@ def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
     return out.transpose(1, 2).reshape(b, sq, c)
 
 
+def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                         heads: int, scale: float, causal: bool = False) -> torch.Tensor:
+    """query ``[B, Sq, H*dh]``, key/value ``[B, Sk, H*dh]`` -> ``[B, Sq, H*dh]``."""
+    dh = query.shape[-1] // heads
+    if not causal:
+        if uses_folded_kernel(query.shape[1], key.shape[1], heads, dh):
+            return folded_attention(query, key, value, heads, scale)
+        if dh in FLASH_HEAD_DIMS:
+            return flash_attention(query, key, value, heads, scale)
+    return sdpa_attention(query, key, value, heads, scale, causal)
+
+
+def spatial_attention_ffconcat(query: torch.Tensor, k_self: torch.Tensor,
+                               v_self: torch.Tensor, k_ctx: torch.Tensor,
+                               v_ctx: torch.Tensor, frames: int, heads: int,
+                               scale: float) -> torch.Tensor:
+    """ConsistI2V first-frame-concat spatial self-attention
+    (``videoldm_transformer_blocks.py:479-504``): every frame's queries
+    ``[(B F), Sq, C]`` attend over their own keys ``[(B F), Sk1, C]`` plus the
+    keys of their batch row's first frame ``[B, Sk2, C]``, under one softmax.
+    K5's split-KV mode reads the shared context once per row instead of
+    building the per-frame repeat that the reference concatenates."""
+    return flash_attention(query, k_self, v_self, heads, scale, k_ctx, v_ctx, frames)
+
+
 def temporal_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                        heads: int, scale: float) -> torch.Tensor:
-    """Self-attention over the frame axis S of ``[B, S, HW, C]`` tokens."""
-    if query.shape[1] > MAX_FRAMES:
+    """Self-attention over the frame axis S of ``[B, S, HW, C]`` tokens; keys
+    and values ``[B, Sk, HW, C]`` may carry up to 16 extra frames."""
+    s, sk = query.shape[1], key.shape[1]
+    if not frame_kernel_takes(s, sk, query.shape[-1] // heads):
         raise NotImplementedError(
-            f"{query.shape[1]} frames: attention over more than {MAX_FRAMES} "
-            "frames is not ported yet")
+            f"frame-axis attention of {s} query frames over {sk} key frames at head "
+            f"width {query.shape[-1] // heads} is not ported yet")
     return frame_attention(query, key, value, heads, scale)

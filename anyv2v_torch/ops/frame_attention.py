@@ -2,13 +2,19 @@
 
 Replaces ``anyv2v_tpu/ops/pallas_temporal_ew.py::_ew_kernel`` (L0 temporal
 attention) and ``anyv2v_tpu/ops/pallas_short_attention.py::_strided_kernel``
-(L1/L2/mid temporal attention and ``transformer_in``). Both read the native
-layout, so the module never transposes its tokens; ``csrc/frame_attention.cu``
-does the same with one kernel for every level.
+(the other temporal layers, ``transformer_in``, and ConsistI2V's augmented
+temporal attention). Both read the native layout, so the module never
+transposes its tokens; ``csrc/frame_attention.cu`` does the same.
 
-Keys equal queries in count (Sk == S, S <= 32) and there is no bias: the
-longer key axis and per-head bias that ConsistI2V and SEINE need are not
-ported yet.
+Keys and values may carry up to 16 frames more than the queries (ConsistI2V's
+8 first-frame window keys, appended on the frame axis with their rotary
+positions already applied). There is no bias operand: SEINE's per-head bias
+is not ported yet.
+
+Two kernel bodies sit behind the one wrapper and its one launch count:
+``Sk == S`` with a power-of-two head width up to 64 (i2vgen-xl) takes the
+channel-pair body; every other shape (``S <= Sk <= S + 16``, head widths
+8/16/40/80/160, the ConsistI2V archs' temporal heads) takes the row body.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import torch
 from . import _build
 
 MAX_FRAMES = 32
+MAX_EXTRA_KEYS = 16
+PAIR_HEAD_DIMS = (2, 4, 8, 16, 32, 64)
+ROW_HEAD_DIMS = (8, 16, 40, 80, 160)
 
 
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -29,7 +38,8 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dh = c // heads
 
     def t(x):
-        return x.permute(0, 2, 1, 3).reshape(b * hw, s, heads, dh).transpose(1, 2).float()
+        n = x.shape[1]
+        return x.permute(0, 2, 1, 3).reshape(b * hw, n, heads, dh).transpose(1, 2).float()
 
     scores = torch.matmul(t(q), t(k).transpose(-1, -2)) * scale
     out = torch.matmul(torch.softmax(scores, dim=-1), t(v))     # [b*hw, H, s, dh]
@@ -37,26 +47,45 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).contiguous()
 
 
+def takes(s: int, sk: int, head_dim: int) -> bool:
+    """The shapes the kernel takes."""
+    if not (1 <= s <= MAX_FRAMES and s <= sk <= s + MAX_EXTRA_KEYS):
+        return False
+    return (sk == s and head_dim in PAIR_HEAD_DIMS) or head_dim in ROW_HEAD_DIMS
+
+
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float) -> torch.Tensor:
-    """q, k, v ``[B, S, HW, C]`` -> ``[B, S, HW, C]``, attending over S."""
+    """q ``[B, S, HW, C]``, k/v ``[B, Sk, HW, C]`` -> ``[B, S, HW, C]``,
+    attending over the frame axis."""
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, heads, scale)
     _build.require_cuda("frame_attention", q, k, v)
+    _build.require_aligned("frame_attention", q, k, v)
     b, s, hw, c = q.shape
+    sk = k.shape[1]
     dh = c // heads if heads else 0
-    if k.shape != q.shape or v.shape != q.shape or c != heads * dh:
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]
+            or c != heads * dh):
         raise ValueError(f"frame_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} heads={heads}")
-    if not 1 <= s <= MAX_FRAMES:
-        raise ValueError(f"frame_attention: {s} frames, at most {MAX_FRAMES}")
-    if dh not in (2, 4, 8, 16, 32, 64):
-        raise ValueError(f"frame_attention: head width {dh} is not a power of two in [2, 64]")
+    if not takes(s, sk, dh):
+        raise ValueError(f"frame_attention: {s} query frames, {sk} key frames, head "
+                         f"width {dh}: takes S <= {MAX_FRAMES}, S <= Sk <= S + "
+                         f"{MAX_EXTRA_KEYS}, widths {PAIR_HEAD_DIMS} at Sk == S or "
+                         f"{ROW_HEAD_DIMS}")
     out = torch.empty_like(q)
-    rc = _build.library().anyv2v_frame_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        ctypes.c_int(b), ctypes.c_int(s), ctypes.c_int(hw), ctypes.c_int(c),
-        ctypes.c_int(dh), ctypes.c_float(scale), _build.stream())
+    lib = _build.library()
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), ctypes.c_int(b),
+            ctypes.c_int(s))
+    if sk == s and dh in PAIR_HEAD_DIMS:
+        rc = lib.anyv2v_frame_attention(*args, ctypes.c_int(hw), ctypes.c_int(c),
+                                        ctypes.c_int(dh), ctypes.c_float(scale),
+                                        _build.stream())
+    else:
+        rc = lib.anyv2v_frame_attention_rows(*args, ctypes.c_int(sk), ctypes.c_int(hw),
+                                             ctypes.c_int(c), ctypes.c_int(dh),
+                                             ctypes.c_float(scale), _build.stream())
     _build.check(rc, "frame_attention")
     frame_attention.launches += 1
     return out

@@ -1,0 +1,234 @@
+"""ConsistI2V AnyV2V pipeline: DDIM inversion and the dual-CFG PnP edit
+(counterpart of ``anyv2v_tpu/pipelines/consisti2v.py``).
+
+As the reference ``ConditionalVideoEditingPipeline``
+(``consisti2v/consisti2v/pipelines/pipeline_video_editing.py``):
+
+- the video's frame 0 is the clean conditioning latent; the denoised state
+  is frames 1..F-1, and each cached trajectory row carries the clean frame 0
+  in front (``:932-941``);
+- dual CFG: guidance mode None / "text" / "both" from (cfg_txt, cfg_img), the
+  batch ``[src, x]``, ``[src, x, x]`` or ``[src, x, x, x]`` with text rows
+  ``[inv, text]``, ``[inv, uncond, text]``, ``[inv, uncond, uncond, text]``
+  and first-frame rows ``[src_ff, edit_ff]``, ``[src_ff, edit_ff, edit_ff]``,
+  ``[src_ff, cache_ff, edit_ff, edit_ff]`` (``:1516-1524``);
+- eps = uncond + s_img (img - uncond) + s_txt (both - img), with optional
+  guidance rescale in text mode (arXiv:2305.08891);
+- output frame 0 is the edited image latent, copied.
+
+The JAX ``lax.scan`` programs become Python step loops: the edit runs in
+static segments of constant PnP flags (``group_constant_runs``) and, once the
+last injection has expired, drops the source row (one UNet row less), as its
+eps is discarded by the CFG combine. The carries and the trajectory are fp32;
+the UNet computes in its configured dtype (bf16 on the GPU).
+
+Not ported yet (``ROADMAP.md``): FreeInit, pyoco noise, camera motion, the
+host-resident trajectory and the multi-chip path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.pnp import injection_step_mask
+from ..schedulers import (
+    DiffusionSchedule,
+    ddim_inverse_step,
+    ddim_step,
+    inversion_timesteps,
+    sampling_timesteps,
+)
+from .common import LatentCodecMixin, group_constant_runs
+from .i2vgen import PnPConfig
+
+_UNCOND_ROWS = {None: 1, "text": 2, "both": 3}   # CFG rows besides the source
+
+
+def guidance_mode(cfg_txt: float, cfg_img: float) -> Optional[str]:
+    """Reference ``pipeline_video_editing.py:1321-1326``."""
+    mode = None
+    if cfg_txt > 1.0:
+        mode = "text"
+    if cfg_img > 1.0:
+        mode = "both"
+    return mode
+
+
+def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
+                      guidance_rescale: float) -> torch.Tensor:
+    """Guidance rescale (reference ``:50-61``, arXiv:2305.08891 §3.4)."""
+    dims = tuple(range(1, noise_pred_text.dim()))
+    std_text = noise_pred_text.std(dim=dims, keepdim=True, unbiased=False)
+    std_cfg = noise_cfg.std(dim=dims, keepdim=True, unbiased=False)
+    rescaled = noise_cfg * (std_text / std_cfg)
+    return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+def combine_guidance(eps_rows: torch.Tensor, mode: Optional[str], cfg_txt: float,
+                     cfg_img: float, guidance_rescale: float = 0.0) -> torch.Tensor:
+    """The guided eps from the non-source rows ``[uncond?, img?, cond]``."""
+    if mode is None:
+        return eps_rows
+    if mode == "text":
+        e_u, e_t = eps_rows.chunk(2, dim=0)
+        eps = e_u + cfg_txt * (e_t - e_u)
+        if guidance_rescale > 0.0:
+            eps = rescale_noise_cfg(eps, e_t, guidance_rescale)
+        return eps
+    e_u, e_i, e_b = eps_rows.chunk(3, dim=0)
+    return e_u + cfg_img * (e_i - e_u) + cfg_txt * (e_b - e_i)
+
+
+def _first_frame_rows(mode: Optional[str], ff_uncond: torch.Tensor,
+                      ff_cond: torch.Tensor) -> list:
+    """First-frame latents of the non-source rows; the image-uncond row of
+    mode "both" takes ``ff_uncond``."""
+    return {None: [ff_cond], "text": [ff_cond, ff_cond],
+            "both": [ff_uncond, ff_cond, ff_cond]}[mode]
+
+
+@dataclasses.dataclass
+class ConsistI2VPipeline(LatentCodecMixin):
+    unet: torch.nn.Module
+    vae: torch.nn.Module
+    text_encoder: torch.nn.Module
+    schedule: DiffusionSchedule
+    device: torch.device
+    dtype: torch.dtype = torch.bfloat16
+
+    @torch.inference_mode()
+    def _eps(self, sample, t: int, text, first_frame, frame_stride: int,
+             pnp=None, pnp_chunks: Optional[int] = None) -> torch.Tensor:
+        return self.unet(sample, t, text, first_frame, frame_stride, pnp=pnp,
+                         pnp_chunks=pnp_chunks).float()
+
+    # ------------------------------------------------------------------
+    # inversion
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def invert(self, video_latents, text_embeds, num_inversion_steps: int = 500,
+               frame_stride: int = 3):
+        """cfg_txt = cfg_img = 1 inversion of ``[1, F, h, w, 4]`` latents (frame
+        0 included). Returns (trajectory ``[n, 1, F, h, w, 4]`` fp32 on the
+        device, every row with the clean frame 0 in front; ascending timesteps
+        ``[n]``)."""
+        inv_ts = inversion_timesteps(self.schedule, num_inversion_steps)
+        lat = self._tensor(video_latents)
+        ff, x = lat[:, :1], lat[:, 1:]
+        text = self._tensor(text_embeds)
+        traj = torch.empty((len(inv_ts),) + tuple(lat.shape), dtype=torch.float32,
+                           device=self.device)
+        traj[:, :, :1] = ff
+        for i, t in enumerate(inv_ts):
+            eps = self._eps(x, int(t), text, ff, frame_stride)
+            x = ddim_inverse_step(self.schedule, x, eps, int(t), num_inversion_steps)
+            traj[i, :, 1:] = x
+        return traj, inv_ts
+
+    # ------------------------------------------------------------------
+    # PnP edit
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def sample_with_pnp(self, traj, inv_ts: np.ndarray, text_embeds_all, edited_ff_latent,
+                        src_ff_latent, num_inference_steps: int = 50, t_idx: int = 4,
+                        cfg_txt: float = 35.0, cfg_img: float = 1.0,
+                        guidance_rescale: float = 0.0, pnp: Optional[PnPConfig] = None,
+                        frame_stride: int = 3, init_latent=None,
+                        split_scan: bool = True) -> torch.Tensor:
+        """Edited latents ``[1, F, h, w, 4]`` with frame 0 the edited image
+        latent. ``text_embeds_all``: the rows of the guidance mode (module
+        doc). ``split_scan``: once every injection has expired, run without
+        the source row (the same result as keeping it)."""
+        pnp = pnp or PnPConfig(0.2, 0.2, 0.5)
+        mode = guidance_mode(cfg_txt, cfg_img)
+        ts = sampling_timesteps(self.schedule, num_inference_steps)
+        masks = tuple(injection_step_mask(ts, thr, num_inference_steps)[t_idx:]
+                      for thr in (pnp.conv, pnp.spatial, pnp.temporal))
+        ts_run = ts[t_idx:]
+        ts_prev = ts_run - self.schedule.num_train_timesteps // num_inference_steps
+        t_to_row = {int(t): i for i, t in enumerate(inv_ts)}
+        missing = [int(t) for t in ts_run if int(t) not in t_to_row]
+        if missing:
+            raise ValueError(f"timestep {missing[0]} not on the inversion grid")
+        cache_idx = [t_to_row[int(t)] for t in ts_run]
+
+        traj = self._tensor(traj)
+        init_row = traj[cache_idx[0]]
+        cache_ff = init_row[:, :1]
+        x = init_row[:, 1:] if init_latent is None else self._tensor(init_latent)
+        text_all = self._tensor(text_embeds_all)
+        ff_src, ff_edit = self._tensor(src_ff_latent), self._tensor(edited_ff_latent)
+        ff_rows = _first_frame_rows(mode, cache_ff, ff_edit)
+        n_rows = _UNCOND_ROWS[mode]
+
+        m_any = masks[0] | masks[1] | masks[2]
+        n_run = len(ts_run)
+        k_inj = int(np.max(np.nonzero(m_any)[0])) + 1 if m_any.any() else 0
+        if not split_scan:
+            k_inj = n_run
+        ffl = torch.cat([ff_src] + ff_rows, dim=0)
+        for start, pat, stop in group_constant_runs(masks, k_inj):
+            for i in range(start, stop):
+                inp = torch.cat([traj[cache_idx[i]][:, 1:]] + [x] * n_rows, dim=0)
+                eps = self._eps(inp, int(ts_run[i]), text_all, ffl, frame_stride, pnp=pat,
+                                pnp_chunks=n_rows + 1)
+                eps = combine_guidance(eps[1:], mode, cfg_txt, cfg_img, guidance_rescale)
+                x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
+        if k_inj < n_run:
+            x = self._guided_loop(x, text_all[1:], torch.cat(ff_rows, dim=0), ts_run[k_inj:],
+                                  ts_prev[k_inj:], mode, cfg_txt, cfg_img, guidance_rescale,
+                                  frame_stride)
+        return torch.cat([ff_edit, x], dim=1)
+
+    @torch.inference_mode()
+    def _guided_loop(self, x, text_rows, ff_rows, ts, ts_prev, mode, cfg_txt, cfg_img,
+                     guidance_rescale, frame_stride):
+        n_rows = _UNCOND_ROWS[mode]
+        for t, t_prev in zip(ts, ts_prev):
+            eps = self._eps(torch.cat([x] * n_rows, dim=0), int(t), text_rows, ff_rows,
+                            frame_stride)
+            eps = combine_guidance(eps, mode, cfg_txt, cfg_img, guidance_rescale)
+            x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
+        return x
+
+    # ------------------------------------------------------------------
+    # plain generation (reference __call__, :469-700)
+    # ------------------------------------------------------------------
+
+    def sample(self, first_frame_latent, text_embeds_all, num_frames: int = 16,
+               num_inference_steps: int = 50, cfg_txt: float = 7.5, cfg_img: float = 1.0,
+               guidance_rescale: float = 0.0, frame_stride: int = 3, seed: int = 0,
+               noise_sampling_method: str = "vanilla", use_frameinit: bool = False,
+               init_latent=None, t_idx: int = 0) -> torch.Tensor:
+        """Image-to-video generation from ``first_frame_latent [1, 1, h, w, 4]``
+        (clean): ``init_latent`` (or seeded ``vanilla`` noise from a
+        ``torch.Generator``, which cannot reproduce ``jax.random``) gives the
+        noisy frame 0 of the image-uncond row and the state of frames 1..;
+        the clean first-frame latent is put back in front."""
+        if noise_sampling_method != "vanilla":
+            raise NotImplementedError(
+                f"noise_sampling_method={noise_sampling_method!r}: pyoco noise is not "
+                "ported yet (ROADMAP.md queue 1, ConsistI2V)")
+        if use_frameinit:
+            raise NotImplementedError(
+                "use_frameinit: FreeInit is not ported yet (ROADMAP.md queue 1, ConsistI2V)")
+        ff = self._tensor(first_frame_latent)
+        if init_latent is None:
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            init_latent = torch.randn((1, num_frames) + tuple(ff.shape[2:]), generator=gen,
+                                      device=self.device)
+        init_latent = self._tensor(init_latent)
+        mode = guidance_mode(cfg_txt, cfg_img)
+        ts = sampling_timesteps(self.schedule, num_inference_steps)[t_idx:]
+        ts_prev = ts - self.schedule.num_train_timesteps // num_inference_steps
+        out = self._guided_loop(init_latent[:, 1:], self._tensor(text_embeds_all),
+                                torch.cat(_first_frame_rows(mode, init_latent[:, :1], ff), dim=0),
+                                ts, ts_prev, mode, cfg_txt, cfg_img, guidance_rescale,
+                                frame_stride)
+        return torch.cat([ff, out], dim=1)

@@ -1,14 +1,17 @@
-"""i2vgen-xl model configurations and pipeline construction (counterpart of
-the i2vgen part of ``anyv2v_tpu/utils/model_zoo.py``).
+"""i2vgen-xl and ConsistI2V model configurations and pipeline construction
+(counterpart of ``anyv2v_tpu/utils/model_zoo.py``).
 
 Parameters come from ``init``:
 
 - ``"random"``: seeded random weights, drawn on the target device with a
   ``torch.Generator``: normal with std ``fan_in ** -0.5`` for matrices and
-  kernels, 0.02 for embeddings, ones for norm scales, zeros for biases, and
-  the last conv of every temporal conv layer zero (the layer starts as the
-  identity, as in the JAX package). Not the JAX package's random weights:
-  use a ``.npz`` for identical weights in both packages.
+  kernels, 0.02 for embeddings, ones for norm scales, zeros for biases, the
+  last conv of every i2vgen temporal conv layer zero (the layer starts as the
+  identity, as in the JAX package), and ConsistI2V's temporal gates
+  ``alpha`` at 0.5 (the JAX package starts them at 1, which bypasses the
+  temporal layers; half-open gates let the temporal kernels count in a
+  random-weight run). Not the JAX package's random weights: use a ``.npz``
+  for identical weights in both packages.
 - a path to a ``.npz`` written by ``anyv2v_tpu.utils.model_zoo.save_params``:
   loaded with numpy and carried over by
   :func:`anyv2v_torch.utils.weights.state_dict_from_jax`.
@@ -27,7 +30,9 @@ import torch.nn as nn
 from .. import resolve_device
 from ..models.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig, CLIPVisionModel
 from ..models.unet_i2vgen import I2VGenUNet, I2VGenUNetConfig
+from ..models.unet_videoldm import VideoLDMUNet, VideoLDMUNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
+from ..pipelines.consisti2v import ConsistI2VPipeline
 from ..pipelines.i2vgen import I2VGenPipeline
 from ..schedulers import make_schedule
 
@@ -59,20 +64,44 @@ I2VGEN_TINY = dict(
                             num_heads=4, image_size=224, patch_size=32, projection_dim=32),
 )
 
-ARCHS = {"i2vgen-xl": I2VGEN_XL, "i2vgen-tiny": I2VGEN_TINY}
+# TIGER-Lab/ConsistI2V: SD2.1-base UNet + VideoLDM temporal layers, rotary
+# temporal PE, augmented temporal attention; the i2vgen VAE and OpenCLIP text
+# encoder
+CONSISTI2V = dict(
+    unet=VideoLDMUNetConfig(),
+    vae=VAEConfig(),
+    text=CLIPTextConfig(),
+)
+CONSISTI2V_TINY = dict(
+    unet=VideoLDMUNetConfig(
+        block_out_channels=(16, 32, 32, 32),
+        layers_per_block=1,
+        cross_attention_dim=32,
+        attention_head_dim=8,
+        n_temp_heads=2,
+        norm_num_groups=8,
+        pnp_attn_targets=((1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1)),
+        pnp_conv_target=(1, 1),
+    ),
+    vae=I2VGEN_TINY["vae"],
+    text=I2VGEN_TINY["text"],
+)
+
+ARCHS = {"i2vgen-xl": I2VGEN_XL, "i2vgen-tiny": I2VGEN_TINY,
+         "consisti2v": CONSISTI2V, "consisti2v-tiny": CONSISTI2V_TINY}
+
+_MODULES = {I2VGenUNetConfig: I2VGenUNet, VideoLDMUNetConfig: VideoLDMUNet,
+            VAEConfig: AutoencoderKL, CLIPTextConfig: CLIPTextModel,
+            CLIPVisionConfig: CLIPVisionModel}
 
 
 def build_modules(arch: str, dtype: torch.dtype, device="meta") -> Dict[str, nn.Module]:
-    """The four modules of ``ARCHS[arch]`` with compute dtype ``dtype``,
-    parameters uninitialised (on ``meta`` unless another device is given)."""
-    spec = ARCHS[arch]
+    """The modules of ``ARCHS[arch]`` (unet, vae, text and, for i2vgen,
+    vision) with compute dtype ``dtype``, parameters uninitialised (on
+    ``meta`` unless another device is given)."""
     with torch.device(device):
-        return {
-            "unet": I2VGenUNet(dataclasses.replace(spec["unet"], dtype=dtype)),
-            "vae": AutoencoderKL(dataclasses.replace(spec["vae"], dtype=dtype)),
-            "text": CLIPTextModel(dataclasses.replace(spec["text"], dtype=dtype)),
-            "vision": CLIPVisionModel(dataclasses.replace(spec["vision"], dtype=dtype)),
-        }
+        return {name: _MODULES[type(cfg)](dataclasses.replace(cfg, dtype=dtype))
+                for name, cfg in ARCHS[arch].items()}
 
 
 # CLIP's token / position tables and class token
@@ -91,6 +120,8 @@ def random_state_dict(module: nn.Module, generator: torch.Generator,
             t = torch.ones(ref.shape, device=device)
         elif ".temp_convs." in name and ".conv4." in name:
             t = torch.zeros(ref.shape, device=device)
+        elif name.endswith("alpha"):
+            t = torch.full(ref.shape, 0.5, device=device)
         else:
             std = (0.02 if name.endswith(_EMBEDDINGS)
                    else float(np.prod(ref.shape[1:])) ** -0.5)
@@ -99,10 +130,9 @@ def random_state_dict(module: nn.Module, generator: torch.Generator,
     return out
 
 
-def build_i2vgen_pipeline(arch: str = "i2vgen-xl", *, device, init: str = "random",
-                          seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                          scheduler_kwargs: Optional[dict] = None) -> I2VGenPipeline:
-    dev = resolve_device(device)
+def _load_modules(arch: str, dev: torch.device, init: str, seed: int,
+                  dtype: torch.dtype) -> Dict[str, nn.Module]:
+    """``build_modules`` with weights from ``init``, on ``dev``, in eval mode."""
     modules = build_modules(arch, dtype)
     if init == "random":
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -120,8 +150,28 @@ def build_i2vgen_pipeline(arch: str = "i2vgen-xl", *, device, init: str = "rando
         m.to(dtype)
         m.load_state_dict(states[name])
         m.eval().requires_grad_(False)
-    del states
+    return modules
+
+
+def build_i2vgen_pipeline(arch: str = "i2vgen-xl", *, device, init: str = "random",
+                          seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                          scheduler_kwargs: Optional[dict] = None) -> I2VGenPipeline:
+    dev = resolve_device(device)
+    modules = _load_modules(arch, dev, init, seed, dtype)
     schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
     return I2VGenPipeline(unet=modules["unet"], vae=modules["vae"],
                           text_encoder=modules["text"], vision_encoder=modules["vision"],
                           schedule=schedule, device=dev, dtype=dtype)
+
+
+def build_consisti2v_pipeline(arch: str = "consisti2v", *, device, init: str = "random",
+                              seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                              scheduler_kwargs: Optional[dict] = None) -> ConsistI2VPipeline:
+    if not isinstance(ARCHS[arch]["unet"], VideoLDMUNetConfig):
+        raise ValueError(f"{arch} is not a ConsistI2V architecture")
+    dev = resolve_device(device)
+    modules = _load_modules(arch, dev, init, seed, dtype)
+    schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
+    return ConsistI2VPipeline(unet=modules["unet"], vae=modules["vae"],
+                              text_encoder=modules["text"], schedule=schedule,
+                              device=dev, dtype=dtype)

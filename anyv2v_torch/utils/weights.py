@@ -1,10 +1,11 @@
 """JAX params -> the port's ``state_dict`` (numpy in, numpy out).
 
 :func:`state_dict_from_jax` is the exact inverse of the converters in
-``anyv2v_tpu/utils/convert.py`` (``convert_unet_i2vgen``, ``convert_vae``,
-``convert_clip_text``, ``convert_clip_vision``): the port's modules use the
-diffusers / Hugging Face key names, so the output also has a real
-checkpoint's layout. Attention projections lose the zero columns that
+``anyv2v_tpu/utils/convert.py`` (``convert_unet_i2vgen``,
+``convert_unet_videoldm``, ``convert_vae``, ``convert_clip_text``,
+``convert_clip_vision``): the port's modules use the diffusers / Hugging Face
+(and, for ConsistI2V's UNet, the reference checkpoint's) key names, so the
+output also has a real checkpoint's layout. Attention projections lose the zero columns that
 ``pad_attention_heads`` added (checked to be zero); the port pads them back
 when the state dict is loaded (``models.layers.Attention``).
 
@@ -183,6 +184,106 @@ def unet_state_dict(tree: Tree, cfg) -> StateDict:
     return sd
 
 
+def _proj_1x1(sd: StateDict, prefix: str, t: Tree) -> None:
+    """A 1x1 conv kernel ``[1, 1, in, out]`` -> the checkpoint's Linear."""
+    k = np.asarray(t["kernel"])
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(k.reshape(k.shape[-2], k.shape[-1]).T)
+    if "bias" in t:
+        sd[f"{prefix}.bias"] = np.asarray(t["bias"])
+
+
+def _alpha_temporal_resnet(sd: StateDict, p: str, t: Tree) -> None:
+    for i in (1, 2):
+        _norm(sd, f"{p}.norm{i}", t[f"norm{i}"])
+        _conv(sd, f"{p}.conv{i}", t[f"conv{i}"])
+    sd[f"{p}.alpha"] = np.asarray(t["alpha"]).reshape(1)
+
+
+def _flat_attn(sd: StateDict, p: str, t: Tree, name: str) -> None:
+    for n in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{p}.{name}.{n}", t[f"{name}_{n}"])
+    _linear(sd, f"{p}.{name}.to_out.0", t[f"{name}_to_out"])
+
+
+def _videoldm_spatial(sd: StateDict, p: str, t: Tree) -> None:
+    _norm(sd, f"{p}.norm", t["norm"])
+    _proj_1x1(sd, f"{p}.proj_in", t["proj_in"])
+    _proj_1x1(sd, f"{p}.proj_out", t["proj_out"])
+    b, bt = f"{p}.transformer_blocks.0", t["block"]
+    for n in ("norm1", "norm2", "norm3"):
+        _norm(sd, f"{b}.{n}", bt[n])
+    _ff(sd, f"{b}.ff", bt["ff"])
+    _flat_attn(sd, b, bt, "attn1")
+    _flat_attn(sd, b, bt, "attn2")
+
+
+def _videoldm_temporal(sd: StateDict, p: str, t: Tree) -> None:
+    _norm(sd, f"{p}.norm", t["norm"])
+    _proj_1x1(sd, f"{p}.proj_in", t["proj_in"])
+    _proj_1x1(sd, f"{p}.proj_out", t["proj_out"])
+    sd[f"{p}.alpha"] = np.asarray(t["alpha"]).reshape(1)
+    b = f"{p}.transformer_blocks.0"
+    for n in ("norm1", "norm2", "norm3"):
+        _norm(sd, f"{b}.{n}", t[n])
+    _ff(sd, f"{b}.ff", t["ff"])
+    a1 = t["attn1"]
+    for n in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{b}.attn1.{n}", a1[n])
+    _linear(sd, f"{b}.attn1.to_out.0", a1["to_out"])
+    _flat_attn(sd, b, t, "attn2")
+
+
+def videoldm_unet_state_dict(tree: Tree, cfg) -> StateDict:
+    """VideoLDMUNet params -> the ConsistI2V reference checkpoint's keys (the
+    inverse of ``convert_unet_videoldm``); ``cfg`` a
+    :class:`~anyv2v_torch.models.unet_videoldm.VideoLDMUNetConfig`."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    for name in ("linear_1", "linear_2"):
+        _linear(sd, f"time_embedding.{name}", p["time_embedding"][name])
+    if "frame_stride_fc1" in p:
+        _linear(sd, "frame_stride_embedding.linear_1", p["frame_stride_fc1"])
+        _linear(sd, "frame_stride_embedding.linear_2", p["frame_stride_fc2"])
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    n = len(cfg.block_out_channels)
+
+    def layer(base: str, key: str, j: int, cross: bool) -> None:
+        _resnet(sd, f"{base}.resnets.{j}", p[f"{key}_resnet_{j}"])
+        if f"{key}_conv3d_{j}" in p:
+            _alpha_temporal_resnet(sd, f"{base}.conv3ds.{j}", p[f"{key}_conv3d_{j}"])
+        if cross:
+            _videoldm_spatial(sd, f"{base}.attentions.{j}", p[f"{key}_attn_{j}"])
+            if f"{key}_tempattn_{j}" in p:
+                _videoldm_temporal(sd, f"{base}.tempo_attns.{j}", p[f"{key}_tempattn_{j}"])
+
+    for i in range(n):
+        base, key = f"down_blocks.{i}", f"down_{i}"
+        if f"{key}_first_frame_conv" in p:
+            _conv(sd, f"{base}.first_frame_conv", p[f"{key}_first_frame_conv"])
+        for j in range(cfg.layers_per_block):
+            layer(base, key, j, i < n - 1)
+        if i < n - 1:
+            _conv(sd, f"{base}.downsamplers.0.conv", p[f"{key}_downsample"]["conv"])
+    for j in range(2):
+        _resnet(sd, f"mid_block.resnets.{j}", p[f"mid_resnet_{j}"])
+        if f"mid_conv3d_{j}" in p:
+            _alpha_temporal_resnet(sd, f"mid_block.conv3ds.{j}", p[f"mid_conv3d_{j}"])
+    _videoldm_spatial(sd, "mid_block.attentions.0", p["mid_attn"])
+    if "mid_first_frame_conv" in p:
+        _conv(sd, "mid_block.first_frame_conv", p["mid_first_frame_conv"])
+    for i in range(n):
+        base, key = f"up_blocks.{i}", f"up_{i}"
+        if f"{key}_first_frame_conv" in p:
+            _conv(sd, f"{base}.first_frame_conv", p[f"{key}_first_frame_conv"])
+        for j in range(cfg.layers_per_block + 1):
+            layer(base, key, j, i > 0)
+        if i < n - 1:
+            _conv(sd, f"{base}.upsamplers.0.conv", p[f"{key}_upsample"]["conv"])
+    return sd
+
+
 def _vae_mid(sd: StateDict, p: str, t: Tree) -> None:
     _resnet(sd, f"{p}.resnets.0", t["resnet_0"])
     _norm(sd, f"{p}.attentions.0.group_norm", t["attn_norm"])
@@ -261,12 +362,16 @@ def clip_vision_state_dict(tree: Tree, cfg) -> StateDict:
 
 def state_dict_from_jax(params: Tree, arch: str) -> Dict[str, StateDict]:
     """``{"unet", "vae", "text", "vision"}`` JAX param trees (numpy leaves) ->
-    the port's state dicts for the same components, for ``ARCHS[arch]``."""
+    the port's state dicts for the same components, for ``ARCHS[arch]``
+    (i2vgen-xl or ConsistI2V)."""
+    from ..models.unet_videoldm import VideoLDMUNetConfig
     from .model_zoo import ARCHS
 
     spec = ARCHS[arch]
-    convert = {"unet": unet_state_dict, "vae": vae_state_dict,
-                "text": clip_text_state_dict, "vision": clip_vision_state_dict}
+    unet = (videoldm_unet_state_dict if isinstance(spec["unet"], VideoLDMUNetConfig)
+            else unet_state_dict)
+    convert = {"unet": unet, "vae": vae_state_dict,
+               "text": clip_text_state_dict, "vision": clip_vision_state_dict}
     return {name: convert[name](params[name], spec[name])
             for name in convert if name in params}
 

@@ -4,21 +4,30 @@
 
 Phases:
  1. environment: torch and CUDA versions, the card's name and power limit;
- 2. build the four CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a);
+ 2. build the five CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a);
  3. hold each kernel against its plain PyTorch version in bf16 at the shapes
-    the main path gives it, and time both;
- 4. the main path at full i2vgen-xl width (16 frames, 512x512, seeded random
+    the main paths give it, and time it beside its plain version, its bound
+    (the least time the card could take: bytes over 3.35 TB/s or bf16
+    operations over 989 TFLOP/s, whichever is larger) and, where one PyTorch
+    call computes the same function, that call (``scaled_dot_product_attention``);
+ 4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
-    (injection segments and the batch-2 tail), decode; every kernel's
-    launch count over that run must be positive and the outputs finite;
- 5. one i2vgen-xl UNet forward at batch 1 and at batch 3 under torch.profiler:
-    device time by kernel group, the device's busy share and the 12 kernels
-    that take the most time.
+    (injection segments and the batch-2 tail), decode; every kernel it routes
+    (K1-K4) must launch, K5 must not, and the outputs must be finite;
+    then one i2vgen-xl UNet forward at batch 1 and at batch 3 under
+    torch.profiler: device time by kernel group, the device's busy share and
+    the 12 kernels that take the most time;
+ 5. the ConsistI2V main path at full width (16 frames plus the conditioning
+    frame, 512x512): a consisti2v-tiny reference check, then inversion, the
+    cache files, the dual-CFG PnP edit at cfg_txt 35 / cfg_img 1 (batch 3,
+    then the batch-2 tail) and decode; K1-K5 must all launch, K5 in its three
+    roles, K2 with the augmented key axis, and no UNet attention of head
+    width 40/64/80 may reach SDPA; then its profile at batch 1 and 3.
 
-Prints one JSON line with the kernel records, then, as the last line,
-``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
-there is no CUDA GPU or any phase fails.
+Prints the card's name and power limit, one JSON line with the kernel
+records, then, as the last line, ``{"ok": true, "device": {...}}``. Exits
+non-zero, with no result line, when there is no CUDA GPU or any phase fails.
 """
 
 from __future__ import annotations
@@ -72,13 +81,90 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _kernel_cases():
-    """(record name, route, source, replaces, case label, kernel fn, plain fn,
-    args factory, atol, rtol). Shapes are the main path's (i2vgen-xl, 16
-    frames, 512^2; K1 at batch rows 1-2)."""
-    from anyv2v_torch.ops import ffn, folded_attention as fa, frame_attention as fr
-    from anyv2v_torch.ops import temporal_conv as tc
+PEAK_FLOPS = 989e12      # bf16 dense tensor-core peak, H100 SXM
+PEAK_BYTES = 3.35e12     # HBM3 bandwidth, H100 SXM
 
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _attn_cost(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
+    """(operations, bytes) of softmax attention on folded heads: q.k and p.v
+    over every key of the row, each operand read once, the output written."""
+    b, sq, c = q.shape
+    sk = k.shape[1] + (k_ctx.shape[1] if k_ctx is not None else 0)
+    return 4 * b * sq * sk * c, _nbytes(q, q, k, v, k_ctx, v_ctx)
+
+
+def _frame_cost(q, k, v, heads, scale):
+    b, s, hw, c = q.shape
+    return 4 * b * hw * s * k.shape[1] * c, _nbytes(q, q, k, v)
+
+
+def _ffn_cost(x, w1, b1, w2, b2):
+    n, c = x.numel() // x.shape[-1], x.shape[-1]
+    inner = w2.shape[1]
+    return 6 * n * c * inner, _nbytes(x, x, w1, b1, w2, b2)
+
+
+def _tconv_cost(x, s, t, w, b):
+    bsz, f, p, c = x.shape
+    return (2 * bsz * f * p * 3 * c * w.shape[2],
+            _nbytes(x, s, t, w, b) + bsz * f * p * w.shape[2] * x.element_size())
+
+
+def _attn_library(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
+    """One SDPA call on the same inputs; the split-KV context is repeated and
+    concatenated beforehand, outside the timed call."""
+    if k_ctx is not None:
+        k = torch.cat([k, k_ctx.repeat_interleave(frames, dim=0)], dim=1)
+        v = torch.cat([v, v_ctx.repeat_interleave(frames, dim=0)], dim=1)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(x.view(x.shape[0], x.shape[1], heads, -1).transpose(1, 2) for x in (q, k, v)),
+        scale=scale)
+
+
+def _frame_library(q, k, v, heads, scale):
+    """SDPA on the frame-axis view ``[B*HW, H, S, dh]`` of ``[B, S, HW, C]``."""
+    b, s, hw, c = q.shape
+
+    def view(x):
+        return x.permute(0, 2, 1, 3).reshape(b * hw, x.shape[1], heads, c // heads).transpose(1, 2)
+
+    return lambda: torch.nn.functional.scaled_dot_product_attention(view(q), view(k), view(v),
+                                                                    scale=scale)
+
+
+def _kernels():
+    """name -> (route, source, replaces, wrapper, plain version, cost,
+    library call factory or None)."""
+    from anyv2v_torch.ops import ffn, flash_attention as fl, folded_attention as fa
+    from anyv2v_torch.ops import frame_attention as fr, temporal_conv as tc
+
+    return {
+        "folded_attention": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
+                             "anyv2v_tpu/ops/pallas_packed_flash.py:357", fa.folded_attention,
+                             fa.folded_attention_plain, _attn_cost, _attn_library),
+        "frame_attention": ("cuda", "anyv2v_torch/csrc/frame_attention.cu",
+                            "anyv2v_tpu/ops/pallas_short_attention.py:223", fr.frame_attention,
+                            fr.frame_attention_plain, _frame_cost, _frame_library),
+        "ffn_geglu": ("cuda", "anyv2v_torch/csrc/ffn.cu", "anyv2v_tpu/ops/pallas_ffn.py:64",
+                      ffn.ffn_geglu, ffn.ffn_geglu_plain, _ffn_cost, None),
+        "gn_silu_temporal_conv": ("cuda", "anyv2v_torch/csrc/temporal_conv.cu",
+                                  "anyv2v_tpu/ops/pallas_temporal_conv.py:38",
+                                  tc.gn_silu_temporal_conv, tc.gn_silu_temporal_conv_plain,
+                                  _tconv_cost, None),
+        "flash_attention": ("cuda", "anyv2v_torch/csrc/flash_attention.cu",
+                            "anyv2v_tpu/ops/pallas_attention.py:131", fl.flash_attention,
+                            fl.flash_attention_plain, _attn_cost, _attn_library),
+    }
+
+
+def _kernel_cases():
+    """(kernel name, case label, args factory). Shapes are the main paths':
+    i2vgen-xl (16 frames, 512^2; K1 at batch rows 1-2) and ConsistI2V (16
+    frames plus the conditioning frame, 512^2, the edit batch of 3 rows)."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rn(*shape, std=1.0, dtype=torch.bfloat16):
@@ -90,10 +176,18 @@ def _kernel_cases():
                     rn(b, sk, heads * dh), heads, true_dh ** -0.5)
         return make
 
-    def frames(b, s, hw, heads, dh, true_dh):
+    def splitkv(rows, frames, s, heads, dh):
         def make():
-            return (rn(b, s, hw, heads * dh), rn(b, s, hw, heads * dh),
-                    rn(b, s, hw, heads * dh), heads, true_dh ** -0.5)
+            c = heads * dh
+            return (rn(rows, s, c), rn(rows, s, c), rn(rows, s, c), heads, dh ** -0.5,
+                    rn(rows // frames, s, c), rn(rows // frames, s, c), frames)
+        return make
+
+    def frames(b, s, hw, heads, dh, true_dh, sk=None):
+        def make():
+            c = heads * dh
+            return (rn(b, s, hw, c), rn(b, sk or s, hw, c), rn(b, sk or s, hw, c), heads,
+                    true_dh ** -0.5)
         return make
 
     def ffn_args(n, c):
@@ -111,47 +205,61 @@ def _kernel_cases():
             return (rn(b, f, p, c), s, t, rn(3, c, c, std=(3 * c) ** -0.5), rn(c, std=0.1))
         return make
 
-    k1 = ("folded_attention", "cuda", "anyv2v_torch/csrc/folded_attention.cu",
-          "anyv2v_tpu/ops/pallas_packed_flash.py:357", fa.folded_attention,
-          fa.folded_attention_plain)
-    k2 = ("frame_attention", "cuda", "anyv2v_torch/csrc/frame_attention.cu",
-          "anyv2v_tpu/ops/pallas_temporal_ew.py:69", fr.frame_attention,
-          fr.frame_attention_plain)
-    k3 = ("ffn_geglu", "cuda", "anyv2v_torch/csrc/ffn.cu",
-          "anyv2v_tpu/ops/pallas_ffn.py:64", ffn.ffn_geglu, ffn.ffn_geglu_plain)
-    k4 = ("gn_silu_temporal_conv", "cuda", "anyv2v_torch/csrc/temporal_conv.cu",
-          "anyv2v_tpu/ops/pallas_temporal_conv.py:38", tc.gn_silu_temporal_conv,
-          tc.gn_silu_temporal_conv_plain)
-    tol_attn, tol_mm = (1e-2, 2e-2), (1e-2, 2e-2)
+    k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
+                          "gn_silu_temporal_conv", "flash_attention")
     return [
-        (*k1, "L0 self b2 S4096 h64 dh8", attn(2, 4096, 4096, 64, 8, 5), *tol_attn),
-        (*k1, "L0 cross b2 Sq4096 Sk157 dh8", attn(2, 4096, 157, 64, 8, 5), *tol_attn),
-        (*k1, "L1 self b2 S1024 dh16", attn(2, 1024, 1024, 64, 16, 10), *tol_attn),
-        (*k1, "L2 cross b2 Sq256 Sk157 dh32", attn(2, 256, 157, 64, 32, 20), *tol_attn),
-        (*k1, "mid self b16 S64 dh32", attn(16, 64, 64, 64, 32, 20), *tol_attn),
-        (*k1, "image-latent encoder b4096 S16 h2 dh8", attn(4096, 16, 16, 2, 8, 4), *tol_attn),
-        (*k2, "L0 temporal b1 S16 HW4096 h64 dh8", frames(1, 16, 4096, 64, 8, 5), *tol_attn),
-        (*k2, "L1 temporal b3 S16 HW1024 dh16", frames(3, 16, 1024, 64, 16, 10), *tol_attn),
-        (*k2, "L2 temporal b3 S16 HW256 dh32", frames(3, 16, 256, 64, 32, 20), *tol_attn),
-        (*k2, "transformer_in b1 S16 HW4096 h8 dh64", frames(1, 16, 4096, 8, 64, 64), *tol_attn),
-        (*k3, "L0 C320 rows 65536", ffn_args(65536, 320), *tol_mm),
-        (*k3, "transformer_in C512 rows 65536", ffn_args(65536, 512), *tol_mm),
-        (*k3, "L1 C640 rows 16384", ffn_args(16384, 640), *tol_mm),
-        (*k4, "L0 C320 P4096 F16 b1", tconv_args(1, 16, 4096, 320), *tol_mm),
-        (*k4, "L1 C640 P1024 F16 b3", tconv_args(3, 16, 1024, 640), *tol_mm),
-        (*k4, "L2 C1280 P256 F16 b3", tconv_args(3, 16, 256, 1280), *tol_mm),
-        (*k4, "mid C1280 P64 F16 b3", tconv_args(3, 16, 64, 1280), *tol_mm),
-        # edge masking, off the main path: rows, channels not multiples of the tiles
-        (*k3, "ragged rows 1000 C320", ffn_args(1000, 320), *tol_mm),
-        (*k4, "ragged C36 P30 F5 b2", tconv_args(2, 5, 30, 36), *tol_mm),
+        (k1, "L0 self b2 S4096 h64 dh8", attn(2, 4096, 4096, 64, 8, 5)),
+        (k1, "L0 cross b2 Sq4096 Sk157 dh8", attn(2, 4096, 157, 64, 8, 5)),
+        (k1, "L1 self b2 S1024 dh16", attn(2, 1024, 1024, 64, 16, 10)),
+        (k1, "L2 cross b2 Sq256 Sk157 dh32", attn(2, 256, 157, 64, 32, 20)),
+        (k1, "mid self b16 S64 dh32", attn(16, 64, 64, 64, 32, 20)),
+        (k1, "image-latent encoder b4096 S16 h2 dh8", attn(4096, 16, 16, 2, 8, 4)),
+        (k1, "ConsistI2V mid cross b51 Sq64 Sk77 h20 dh64", attn(51, 64, 77, 20, 64, 64)),
+        (k2, "L0 temporal b1 S16 HW4096 h64 dh8", frames(1, 16, 4096, 64, 8, 5)),
+        (k2, "L1 temporal b3 S16 HW1024 dh16", frames(3, 16, 1024, 64, 16, 10)),
+        (k2, "L2 temporal b3 S16 HW256 dh32", frames(3, 16, 256, 64, 32, 20)),
+        (k2, "transformer_in b1 S16 HW4096 h8 dh64", frames(1, 16, 4096, 8, 64, 64)),
+        (k2, "ConsistI2V L0 temporal b3 S17 Sk25 HW4096 h8 dh40",
+         frames(3, 17, 4096, 8, 40, 40, sk=25)),
+        (k2, "ConsistI2V L1 temporal b3 S17 Sk25 HW1024 h8 dh80",
+         frames(3, 17, 1024, 8, 80, 80, sk=25)),
+        (k2, "ConsistI2V L2 temporal b3 S17 Sk25 HW256 h8 dh160",
+         frames(3, 17, 256, 8, 160, 160, sk=25)),
+        (k3, "L0 C320 rows 65536", ffn_args(65536, 320)),
+        (k3, "transformer_in C512 rows 65536", ffn_args(65536, 512)),
+        (k3, "L1 C640 rows 16384", ffn_args(16384, 640)),
+        (k4, "L0 C320 P4096 F16 b1", tconv_args(1, 16, 4096, 320)),
+        (k4, "L1 C640 P1024 F16 b3", tconv_args(3, 16, 1024, 640)),
+        (k4, "L2 C1280 P256 F16 b3", tconv_args(3, 16, 256, 1280)),
+        (k4, "mid C1280 P64 F16 b3", tconv_args(3, 16, 64, 1280)),
+        (k3, "ConsistI2V L0 C320 rows 3*17*4096", ffn_args(3 * 17 * 4096, 320)),
+        (k4, "ConsistI2V L0 C320 P4096 F17 b3", tconv_args(3, 17, 4096, 320)),
+        (k5, "split-KV L0 51 rows Sq4096 Sk4096+4096 h5 dh64", splitkv(51, 17, 4096, 5, 64)),
+        (k5, "split-KV L1 51 rows Sq1024 Sk1024+1024 h10 dh64", splitkv(51, 17, 1024, 10, 64)),
+        (k5, "split-KV L2 51 rows Sq256 Sk256+256 h20 dh64", splitkv(51, 17, 256, 20, 64)),
+        (k5, "spatial cross L0 b51 Sq4096 Sk77 h5 dh64", attn(51, 4096, 77, 5, 64, 64)),
+        (k5, "temporal cross L0 b3 Sq17*4096 Sk77 h8 dh40", attn(3, 17 * 4096, 77, 8, 40, 40)),
+        (k5, "temporal cross L1 b3 Sq17*1024 Sk77 h8 dh80", attn(3, 17 * 1024, 77, 8, 80, 80)),
+        (k5, "temporal cross L2 b3 Sq17*256 Sk77 h8 dh160", attn(3, 17 * 256, 77, 8, 160, 160)),
+        # edge masking, off the main paths: rows, keys, channels not multiples of the tiles
+        (k3, "ragged rows 1000 C320", ffn_args(1000, 320)),
+        (k4, "ragged C36 P30 F5 b2", tconv_args(2, 5, 30, 36)),
+        (k5, "ragged split-KV 6 rows Sq1000 Sk999+77 h3 dh80",
+         lambda: (rn(6, 1000, 240), rn(6, 999, 240), rn(6, 999, 240), 3, 80 ** -0.5,
+                  rn(2, 77, 240), rn(2, 77, 240), 3)),
+        (k2, "ragged b2 S7 Sk13 HW37 h2 dh40", frames(2, 7, 37, 2, 40, 40, sk=13)),
     ]
 
 
 def phase_kernels():
-    """Each kernel against its plain version; returns {name: record} with the
-    worst error and the summed times over the kernel's cases."""
+    """Each kernel against its plain version (max error within ``0.01 +
+    0.02*max|ref|``); returns {name: record} with the worst error and, over
+    the main-path cases, the summed times and bounds."""
+    kernels = _kernels()
     records, failures = {}, []
-    for name, route, src, repl, kern, plain, label, make, atol, rtol in _kernel_cases():
+    atol, rtol = 1e-2, 2e-2
+    for name, label, make in _kernel_cases():
+        route, src, repl, kern, plain, cost, library = kernels[name]
         args = make()
         got = kern(*args)
         torch.cuda.synchronize()
@@ -160,25 +268,39 @@ def phase_kernels():
         err = (got.float() - want.float()).abs().max().item()
         bound = atol + rtol * want.float().abs().max().item()
         ok = bool(np.isfinite(err)) and err <= bound
-        iters = 5
-        ms = _time_ms(lambda: kern(*args), iters)
+        del got, want
+        ms = _time_ms(lambda: kern(*args), 5)
         plain_ms = _time_ms(lambda: plain(*args), 2)
+        lib_ms = _time_ms(library(*args), 5) if library is not None else None
+        flops, nbytes = cost(*args)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
         log(f"kernel {name} [{label}]: max_abs_err {err:.3e} (bound {bound:.3e}, "
-            f"atol {atol} + rtol {rtol}*max|ref|) {'ok' if ok else 'MISS'}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"atol {atol} + rtol {rtol}*max|ref|) {'ok' if ok else 'MISS'}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} op, "
+            f"{nbytes:.3e} B), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
         if not ok:
             failures.append(f"{name} [{label}]")
-        rec = records.setdefault(name, {"name": name, "route": route, "source": src,
-                                        "replaces": repl, "launches": 0,
-                                        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                        "cases": []})
+        rec = records.setdefault(name, {
+            "name": name, "route": route, "source": src, "replaces": repl, "launches": 0,
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": None, "library_ms": 0.0 if library is not None else None,
+            "cases": [], "_ops_ms": 0.0, "_bytes_ms": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if not label.startswith("ragged"):   # the record's times: main-path shapes only
             rec["ms"] += ms
             rec["plain_ms"] += plain_ms
-        rec["cases"].append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        del args, got, want
+            rec["bound_ms"] += bound_ms
+            rec["_ops_ms" if bound_by == "operations" else "_bytes_ms"] += bound_ms
+            if lib_ms is not None:
+                rec["library_ms"] += lib_ms
+        rec["cases"].append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        del args
         torch.cuda.empty_cache()
+    for rec in records.values():
+        ops_ms, bytes_ms = rec.pop("_ops_ms"), rec.pop("_bytes_ms")
+        rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return records
@@ -195,12 +317,10 @@ def main():
     phase_env()
     phase_build()
     records = phase_kernels()
-    counts = phase_main_path()
+    by_path = {"i2vgen-xl": phase_main_path(), "consisti2v": phase_consisti2v()}
     for rec in records.values():
-        rec["launches"] = counts[rec["name"]]
-    missing = [n for n, c in counts.items() if c <= 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched by the main path: {missing}")
+        rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -222,34 +342,59 @@ def _synthetic_video(rng, frames, size):
     return video
 
 
-def _reference_check():
-    """The port on the card (bf16, kernels) against the port's plain fp32
-    path on the CPU, same weights, one i2vgen-tiny UNet forward at the edit
-    batch with every PnP flag on."""
-    from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline, build_modules
+def _wrappers():
+    from anyv2v_torch.ops import ffn, flash_attention, folded_attention, frame_attention
+    from anyv2v_torch.ops import temporal_conv
 
-    cpu = build_i2vgen_pipeline("i2vgen-tiny", device="cpu", dtype=torch.float32, seed=1)
-    unet = build_modules("i2vgen-tiny", torch.bfloat16)["unet"]
+    return {"folded_attention": folded_attention.folded_attention,
+            "frame_attention": frame_attention.frame_attention,
+            "ffn_geglu": ffn.ffn_geglu,
+            "gn_silu_temporal_conv": temporal_conv.gn_silu_temporal_conv,
+            "flash_attention": flash_attention.flash_attention}
+
+
+def _reference_check(arch, build, args, kwargs):
+    """The port on the card (bf16, kernels) against the port's plain fp32
+    path on the CPU, same weights, one tiny UNet forward at the edit batch
+    with every PnP flag on."""
+    from anyv2v_torch.utils.model_zoo import build_modules
+
+    cpu = build(arch, device="cpu", dtype=torch.float32, seed=1)
+    unet = build_modules(arch, torch.bfloat16)["unet"]
     unet.to_empty(device="cuda").to(torch.bfloat16)
     unet.load_state_dict(cpu.unet.state_dict())
     unet.eval()
-    rng = np.random.RandomState(1)
-    args = [rng.randn(3, 8, 16, 16, 4).astype(np.float32), 501,
-            rng.randn(3, 77, 32).astype(np.float32), 8,
-            rng.randn(3, 8, 16, 16, 4).astype(np.float32),
-            rng.randn(3, 1, 32).astype(np.float32)]
     with torch.inference_mode():
         want = cpu.unet(*[torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args],
-                        pnp=(True, True, True)).float()
+                        **kwargs).float()
         got = unet(*[torch.from_numpy(a).cuda() if isinstance(a, np.ndarray) else a
-                     for a in args], pnp=(True, True, True)).float().cpu()
+                     for a in args], **kwargs).float().cpu()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     bound = 0.02 + 0.05 * want.abs().max().item()
-    log(f"reference check (i2vgen-tiny UNet, bf16 card vs fp32 CPU plain): max_abs_err "
+    log(f"reference check ({arch} UNet, bf16 card vs fp32 CPU plain): max_abs_err "
         f"{err:.3e}, bound {bound:.3e} (0.02 + 0.05*max|ref|)")
     if not (np.isfinite(err) and err <= bound):
-        raise RuntimeError("the port on the card disagrees with its CPU reference")
+        raise RuntimeError(f"the port on the card disagrees with its CPU reference ({arch})")
+
+
+def _check_outputs(checks):
+    log(f"output checks: {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"output checks failed: {checks}")
+
+
+def _read_back_cache(tmp, traj, inv_ts, times):
+    from anyv2v_torch.utils.io import load_ddim_trajectory
+
+    t0 = time.perf_counter()
+    traj_np, ts_np = load_ddim_trajectory(tmp, per_step_files=True)
+    times["read ddim_latents_{t}.npy"] = time.perf_counter() - t0
+    n_files = len([f for f in os.listdir(tmp) if f.startswith("ddim_latents_")])
+    if not (np.array_equal(ts_np, inv_ts) and n_files == len(inv_ts)
+            and np.array_equal(traj_np, traj.cpu().numpy())):
+        raise RuntimeError("latent cache files do not read back the trajectory")
+    return traj_np, ts_np
 
 
 def phase_main_path():
@@ -258,17 +403,17 @@ def phase_main_path():
     count over this run."""
     from anyv2v_torch.cli.run_group_ddim_inversion import invert_video
     from anyv2v_torch.cli.run_group_pnp_edit import edit_video, output_stem
-    from anyv2v_torch.ops import ffn, folded_attention, frame_attention, temporal_conv
     from anyv2v_torch.pipelines.i2vgen import PnPConfig
-    from anyv2v_torch.utils.io import load_ddim_trajectory
     from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline
 
-    _reference_check()
+    rng = np.random.RandomState(1)
+    _reference_check("i2vgen-tiny", build_i2vgen_pipeline,
+                     [rng.randn(3, 8, 16, 16, 4).astype(np.float32), 501,
+                      rng.randn(3, 77, 32).astype(np.float32), 8,
+                      rng.randn(3, 8, 16, 16, 4).astype(np.float32),
+                      rng.randn(3, 1, 32).astype(np.float32)], {"pnp": (True, True, True)})
 
-    wrappers = {"folded_attention": folded_attention.folded_attention,
-                "frame_attention": frame_attention.frame_attention,
-                "ffn_geglu": ffn.ffn_geglu,
-                "gn_silu_temporal_conv": temporal_conv.gn_silu_temporal_conv}
+    wrappers = _wrappers()
     t0 = time.perf_counter()
     pipe = build_i2vgen_pipeline("i2vgen-xl", device="cuda", seed=0, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -295,14 +440,7 @@ def phase_main_path():
                                                  fps=8, clip_width=512, output_dir=tmp)
         torch.cuda.synchronize()
         times["encode+invert+write cache"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        traj_np, ts_np = load_ddim_trajectory(tmp, per_step_files=True)
-        times["read ddim_latents_{t}.npy"] = time.perf_counter() - t0
-        n_files = len([f for f in os.listdir(tmp) if f.startswith("ddim_latents_")])
-        if not (np.array_equal(ts_np, inv_ts) and n_files == INV_STEPS
-                and np.array_equal(traj_np, traj.cpu().numpy())):
-            raise RuntimeError("latent cache files do not read back the trajectory")
+        traj_np, ts_np = _read_back_cache(tmp, traj, inv_ts, times)
 
         t0 = time.perf_counter()
         out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first,
@@ -313,7 +451,15 @@ def phase_main_path():
     counts = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    checks = {
+    for name, sec in times.items():
+        log(f"phase i2vgen-xl {name}: {sec:.3f} s")
+    log(f"i2vgen-xl main path: invert {INV_STEPS} steps (batch 1) + PnP edit {EDIT_STEPS} steps "
+        f"(thresholds 0.2/0.2/0.5: {int(EDIT_STEPS * 0.5)} batch-3 steps, "
+        f"{EDIT_STEPS - int(EDIT_STEPS * 0.5)} batch-2 steps); output name "
+        f"{output_stem(9.0, EDIT_STEPS, 0, 0.2, 0.2, 0.5)}")
+    log(f"i2vgen-xl peak device memory: {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"kernel launches in the i2vgen-xl main path: {counts}")
+    _check_outputs({
         "latents [1,16,64,64,4] finite": tuple(latents.shape) == (1, frames, 64, 64, 4)
         and bool(torch.isfinite(latents).all()),
         "trajectory finite": bool(torch.isfinite(traj).all()),
@@ -322,47 +468,209 @@ def phase_main_path():
         "video [16,512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
         and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
         and float(edited.max()) <= 1.0,
-    }
+        # the i2vgen-xl routes are K1-K4, as before K5 existed
+        "K1-K4 launched": all(counts[n] > 0 for n in counts if n != "flash_attention"),
+        "K5 not launched": counts["flash_attention"] == 0,
+    })
+
+    def i2vgen_args(batch, g):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        kw = {"pnp": (True, True, True)} if batch == 3 else {}
+        return (rn(batch, 16, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
+                rn(batch, 16, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), kw
+
+    phase_profile(pipe, "i2vgen-xl", i2vgen_args)
+    return counts
+
+
+class _RouteLog:
+    """Records which attention routes the ConsistI2V UNet takes: the roles
+    of K5's calls, the key axes of K2's, and the head widths of calls that
+    reach SDPA. It wraps the dispatcher's references and calls through, so the
+    wrappers' own launch counts are untouched."""
+
+    def __init__(self):
+        from anyv2v_torch.ops import attention
+
+        self.mod, self.k5, self.k2, self.sdpa = attention, {}, {}, {}
+        self.saved = {n: getattr(attention, n)
+                      for n in ("flash_attention", "frame_attention", "sdpa_attention")}
+
+    def _bump(self, table, key):
+        table[key] = table.get(key, 0) + 1
+
+    def __enter__(self):
+        saved = self.saved
+
+        def flash(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
+            dh = q.shape[-1] // heads
+            role = "split-KV" if k_ctx is not None else (
+                "spatial cross" if dh == 64 else "temporal cross")
+            self._bump(self.k5, role)
+            return saved["flash_attention"](q, k, v, heads, scale, k_ctx, v_ctx, frames)
+
+        def frame(q, k, v, heads, scale):
+            self._bump(self.k2, f"S{q.shape[1]} Sk{k.shape[1]} dh{q.shape[-1] // heads}")
+            return saved["frame_attention"](q, k, v, heads, scale)
+
+        def sdpa(q, k, v, heads, scale, causal=False):
+            self._bump(self.sdpa, q.shape[-1] // heads)
+            return saved["sdpa_attention"](q, k, v, heads, scale, causal)
+
+        self.mod.flash_attention, self.mod.frame_attention = flash, frame
+        self.mod.sdpa_attention = sdpa
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.mod, n, f)
+
+
+def phase_consisti2v():
+    """ConsistI2V at full width: invert -> cache files -> dual-CFG PnP edit ->
+    decode, through the CLIs' per-entry functions. Returns each kernel's
+    launch count over this run."""
+    from anyv2v_torch.cli.consisti2v_run_ddim_inversion import invert_video
+    from anyv2v_torch.cli.consisti2v_run_pnp_edit import edit_video, output_stem
+    from anyv2v_torch.pipelines.i2vgen import PnPConfig
+    from anyv2v_torch.utils.model_zoo import build_consisti2v_pipeline
+
+    rng = np.random.RandomState(2)
+    _reference_check("consisti2v-tiny", build_consisti2v_pipeline,
+                     [rng.randn(3, 8, 16, 16, 4).astype(np.float32), 501,
+                      rng.randn(3, 77, 32).astype(np.float32),
+                      rng.randn(3, 1, 16, 16, 4).astype(np.float32), 3],
+                     {"pnp": (True, True, True), "pnp_chunks": 3})
+
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    pipe = build_consisti2v_pipeline("consisti2v", device="cuda", seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder)
+                   for p in m.parameters())
+    log(f"pipeline consisti2v built with seeded random bf16 weights: {n_params} parameters "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    frames = 17           # the conditioning frame and 16 frames
+    video = _synthetic_video(np.random.RandomState(3), frames, 512)
+    edited_first = np.ascontiguousarray(video[0][:, :, ::-1])   # colour-swapped edit
+    ids = np.zeros((1, 77), np.int64)
+    pnp = PnPConfig(0.2, 0.2, 0.5)
+    cfg_txt, cfg_img = 35.0, 1.0
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp, _RouteLog() as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents, traj, inv_ts = invert_video(pipe, video, text_ids=ids, n_steps=INV_STEPS,
+                                             frame_stride=3, output_dir=tmp)
+        torch.cuda.synchronize()
+        times["encode+invert+write cache"] = time.perf_counter() - t0
+        traj_np, ts_np = _read_back_cache(tmp, traj, inv_ts, times)
+
+        t0 = time.perf_counter()
+        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first,
+                                 text_ids=(ids, ids, ids), n_steps=EDIT_STEPS, t_idx=0,
+                                 cfg_txt=cfg_txt, cfg_img=cfg_img, pnp=pnp, frame_stride=3)
+        torch.cuda.synchronize()
+        times["PnP edit+decode"] = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    edited_ff = pipe.encode_video(edited_first[None])
+
     for name, sec in times.items():
-        log(f"phase {name}: {sec:.3f} s")
-    log(f"main path: invert {INV_STEPS} steps (batch 1) + PnP edit {EDIT_STEPS} steps "
-        f"(thresholds 0.2/0.2/0.5: {int(EDIT_STEPS * 0.5)} batch-3 steps, "
-        f"{EDIT_STEPS - int(EDIT_STEPS * 0.5)} batch-2 steps); output name "
-        f"{output_stem(9.0, EDIT_STEPS, 0, 0.2, 0.2, 0.5)}")
-    log(f"peak device memory: {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    log(f"kernel launches in the main path: {counts}")
-    log(f"output checks: {checks}")
-    if not all(checks.values()):
-        raise RuntimeError(f"output checks failed: {checks}")
-    phase_profile(pipe)
+        log(f"phase consisti2v {name}: {sec:.3f} s")
+    n_pnp = int(EDIT_STEPS * 0.5)
+    log(f"consisti2v main path: invert {INV_STEPS} steps (batch 1, {frames} frames) + PnP edit "
+        f"{EDIT_STEPS} steps at cfg_txt {cfg_txt} / cfg_img {cfg_img} (guidance 'text': "
+        f"{n_pnp} batch-3 steps, {EDIT_STEPS - n_pnp} batch-2 steps); output name "
+        f"{output_stem(cfg_txt, cfg_img, EDIT_STEPS, 0)}")
+    log(f"consisti2v peak device memory: {peak / 2**30:.2f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    log(f"kernel launches in the consisti2v main path: {counts}")
+    log(f"consisti2v routes: K5 by role {routes.k5}; K2 by shape {routes.k2}; "
+        f"SDPA (UNet and VAE) by head width {routes.sdpa}")
+    shape = (1, frames, 64, 64, 4)
+    _check_outputs({
+        f"latents {list(shape)} finite": tuple(latents.shape) == shape
+        and bool(torch.isfinite(latents).all()),
+        "trajectory finite, clean frame 0 in every row": bool(torch.isfinite(traj).all())
+        and bool((traj[:, :, :1] == latents[:, :1].float()).all()),
+        "edited latents finite, frame 0 the edited image": tuple(out.shape) == shape
+        and bool(torch.isfinite(out).all())
+        and float((out[:, :1] - edited_ff).abs().max()) <= 1e-3,
+        f"video [{frames},512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
+        and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
+        and float(edited.max()) <= 1.0,
+        "K1-K5 launched": all(c > 0 for c in counts.values()),
+        "K5 in its three roles": set(routes.k5) == {"split-KV", "spatial cross",
+                                                   "temporal cross"},
+        "K2 with Sk 25": any(key.startswith("S17 Sk25") for key in routes.k2),
+        "no dh 40/64/80 attention on SDPA": not set(routes.sdpa) & {40, 64, 80},
+    })
+
+    def consisti2v_args(batch, g):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        kw = {"pnp": (True, True, True), "pnp_chunks": 3} if batch == 3 else {}
+        return (rn(batch, 16, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1),
+                rn(batch, 1, 64, 64, 4), 3), kw
+
+    phase_profile(pipe, "consisti2v", consisti2v_args)
     return counts
 
 
 _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel"),
-                  ("K2 frame_attention", "frame_attention_kernel"),
+                  ("K2 frame_attention", "frame_attention"),
                   ("K3 ffn_geglu", "ffn_geglu_kernel"),
-                  ("K4 temporal_conv", "temporal_conv_kernel"))
+                  ("K4 temporal_conv", "temporal_conv_kernel"),
+                  ("K5 flash_attention", "flash_attention_kernel"))
 
 
-def phase_profile(pipe):
-    """One i2vgen-xl UNet forward at the inversion batch (1) and at the edit
-    batch (3, every PnP flag on) under torch.profiler: device time by kernel
-    group and the device's busy share of the forward's wall time."""
+class _ClockSampler:
+    """nvidia-smi sampling the SM clock, power draw and temperature every
+    100 ms over the warm-up and the profiled forward; reports min and max of
+    each."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=10)
+        rows = [[float(x) for x in line.split(",")] for line in out.splitlines()
+                if line.count(",") == 2]
+        if rows:
+            cols = list(zip(*rows))
+            self.summary = ", ".join(f"{name} {min(c):g}-{max(c):g}" for name, c in
+                                     zip(("SM MHz", "W", "C"), cols))
+        else:
+            self.summary = "no nvidia-smi samples"
+
+
+def phase_profile(pipe, arch, make_args):
+    """One UNet forward at the inversion batch (1) and at the edit batch (3,
+    every PnP flag on) under torch.profiler: device time by kernel group and
+    the device's busy share of the forward's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    for batch, pnp in ((1, None), (3, (True, True, True))):
-        def rn(*shape, scale=1.0):
-            return torch.randn(*shape, generator=g, device="cuda") * scale
-
-        args = (rn(batch, 16, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
-                rn(batch, 16, 64, 64, 4), rn(batch, 1, 1024, scale=0.1))
-        with torch.inference_mode():
-            pipe.unet(*args, pnp=pnp)
+    for batch in (1, 3):
+        args, kw = make_args(batch, g)
+        with torch.inference_mode(), _ClockSampler() as clocks:
+            pipe.unet(*args, **kw)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                pipe.unet(*args, pnp=pnp)
+                pipe.unet(*args, **kw)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
@@ -373,9 +681,10 @@ def phase_profile(pipe):
         for e in events:
             label = next((lb for lb, key in _KERNEL_GROUPS if key in e.key), "other")
             groups[label] += e.self_device_time_total / 1e3
-        log(f"profile UNet forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
+        log(f"profile {arch} UNet forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); by group (ms): "
-            + ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
+            + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
+            + f"; nvidia-smi over warm-up and window: {clocks.summary}")
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         for e in top:
             log(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<4d} {e.key[:110]}")

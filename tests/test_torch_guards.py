@@ -1,6 +1,6 @@
-"""Guards of the PyTorch port: it never imports JAX, it never runs a CUDA
-request on the CPU, and its kernel wrappers never answer a non-CPU request
-with their plain versions."""
+"""Guards of the PyTorch port: it never imports JAX or the JAX package, it
+never runs a CUDA request on the CPU, and its kernel wrappers never answer a
+non-CPU request with their plain versions."""
 
 import os
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import anyv2v_torch
-from anyv2v_torch.ops import _build, ffn, folded_attention, frame_attention, temporal_conv
+from anyv2v_torch.ops import (_build, ffn, flash_attention, folded_attention, frame_attention,
+                               temporal_conv)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
@@ -23,7 +24,12 @@ PORT_MODULES = [
     "anyv2v_torch.pipelines.i2vgen", "anyv2v_torch.utils.model_zoo",
     "anyv2v_torch.utils.weights", "anyv2v_torch.utils.io", "anyv2v_torch.cli.common",
     "anyv2v_torch.cli.run_group_ddim_inversion", "anyv2v_torch.cli.run_group_pnp_edit",
+    "anyv2v_torch.ops.flash_attention", "anyv2v_torch.ops.rotary",
+    "anyv2v_torch.models.unet_videoldm", "anyv2v_torch.pipelines.consisti2v",
+    "anyv2v_torch.utils.config", "anyv2v_torch.utils.tokenizer", "anyv2v_torch.utils.metrics",
+    "anyv2v_torch.cli.consisti2v_run_ddim_inversion", "anyv2v_torch.cli.consisti2v_run_pnp_edit",
 ]
+FORBIDDEN = ("jax", "anyv2v_tpu")
 
 
 def _no_cuda():
@@ -32,9 +38,10 @@ def _no_cuda():
 
 
 def test_port_imports_no_jax():
+    """Importing every port module loads neither jax nor the JAX package."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -42,24 +49,40 @@ def test_port_imports_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def _imported_roots(line: str):
+    """The top-level packages an ``import`` or ``from ... import`` line names."""
+    words = line.split()
+    if words[:1] == ["import"]:
+        return [part.split()[0].split(".")[0] for part in line[len("import"):].split(",")]
+    if words[:1] == ["from"] and len(words) > 1:
+        return [words[1].split(".")[0]]
+    return []
+
+
 def test_port_sources_never_import_jax():
+    """No import statement of the port or of chip_smoke.py names jax or
+    anyv2v_tpu (comments and docstrings may)."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "anyv2v_torch")):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    for line in f:
-                        words = line.split()
-                        assert not (words[:2] == ["import", "jax"] or words[:1] == ["from"]
-                                    and words[1:2] and words[1].split(".")[0] == "jax"), \
-                            f"{name}: {line.strip()}"
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        assert "jax" not in f.read()
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                bad = [r for r in _imported_roots(line.strip()) if r in FORBIDDEN]
+                assert not bad, f"{path}: {line.strip()}"
+
+
+def test_import_scan_sees_both_forms():
+    assert _imported_roots("import jax.numpy as jnp") == ["jax"]
+    assert _imported_roots("from anyv2v_tpu.utils import io") == ["anyv2v_tpu"]
+    assert _imported_roots("import os, jax") == ["os", "jax"]
+    assert _imported_roots("# from anyv2v_tpu import x") == []
 
 
 def test_cuda_device_without_gpu_raises():
     _no_cuda()
     from anyv2v_torch.cli.common import build_pipeline_from_config
-    from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline
+    from anyv2v_torch.utils.model_zoo import build_consisti2v_pipeline, build_i2vgen_pipeline
 
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         anyv2v_torch.resolve_device("cuda")
@@ -67,6 +90,10 @@ def test_cuda_device_without_gpu_raises():
         build_i2vgen_pipeline("i2vgen-tiny", device="cuda", dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         build_pipeline_from_config({"model": {"arch": "i2vgen-tiny"}}, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_consisti2v_pipeline("consisti2v-tiny", device="cuda", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_pipeline_from_config({"model": {"arch": "consisti2v-tiny"}}, "cuda")
     with pytest.raises(ValueError, match="device is required"):
         anyv2v_torch.resolve_device(None)
 
@@ -77,7 +104,40 @@ def test_kernel_library_needs_a_gpu():
         _build.library()
 
 
-@pytest.mark.parametrize("name", ["folded", "frame", "ffn", "temporal_conv"])
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> {log}
+case "$*" in *{fail}*) exit 3 ;; esac
+while [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done
+"""
+
+
+@pytest.mark.parametrize("fail", [None, "ffn.cu"])
+def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch, fail):
+    """Every source compiles in its own nvcc process, then one nvcc links the
+    objects; a failed compile raises and no object or library is left behind.
+    (A stand-in nvcc script records its calls: no CUDA toolkit here.)"""
+    log, fake = tmp_path / "calls.txt", tmp_path / "nvcc"
+    fake.write_text(FAKE_NVCC.format(log=log, fail=fail or "no-such-source"))
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    so = str(tmp_path / "lib.so")
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc failed.*ffn.cu"):
+            _build._compile_and_link(so)
+    else:
+        _build._compile_and_link(so)
+    calls = [c.split() for c in log.read_text().splitlines()]
+    compiles = sorted(os.path.basename(c[-1]) for c in calls if "-c" in c)
+    assert compiles == sorted(_build.SOURCES)
+    links = [c for c in calls if "-shared" in c]
+    assert len(links) == (0 if fail else 1) and len(calls) == len(compiles) + len(links)
+    left = sorted(os.listdir(tmp_path))
+    assert left == sorted(["calls.txt", "nvcc"] + ([] if fail else ["lib.so"]))
+
+
+@pytest.mark.parametrize("name", ["folded", "frame", "ffn", "temporal_conv", "flash",
+                                  "flash_splitkv"])
 def test_wrappers_refuse_non_cpu_tensors(name):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper either launches its kernel (CUDA) or raises."""
@@ -93,10 +153,15 @@ def test_wrappers_refuse_non_cpu_tensors(name):
         "temporal_conv": lambda: temporal_conv.gn_silu_temporal_conv(
             t(1, 4, 8, 64), t(1, 64, dtype=torch.float32), t(1, 64, dtype=torch.float32),
             t(3, 64, 64), t(64)),
+        "flash": lambda: flash_attention.flash_attention(t(1, 16, 80), t(1, 7, 80),
+                                                         t(1, 7, 80), 2, 0.3),
+        "flash_splitkv": lambda: flash_attention.flash_attention(
+            t(4, 16, 64), t(4, 16, 64), t(4, 16, 64), 1, 0.3, t(2, 16, 64), t(2, 16, 64), 2),
     }
     before = {w: w.launches for w in (folded_attention.folded_attention,
                                       frame_attention.frame_attention, ffn.ffn_geglu,
-                                      temporal_conv.gn_silu_temporal_conv)}
+                                      temporal_conv.gn_silu_temporal_conv,
+                                      flash_attention.flash_attention)}
     with pytest.raises(ValueError, match="expected CUDA or CPU tensors"):
         calls[name]()
     assert all(w.launches == n for w, n in before.items())

@@ -1,11 +1,13 @@
-"""The port's four kernel functions against the JAX package's Pallas entries.
+"""The port's five kernel functions against the JAX package's Pallas entries.
 
 Each CUDA kernel of ``anyv2v_torch/csrc`` has a plain PyTorch version in its
 module; on CPU tensors the kernel's wrapper runs that version. Here the
 wrapper (so the plain version) and the Pallas entry it replaces run on the
 same numpy-seeded fp32 inputs; off-TPU the Pallas entries run in interpret
 mode. Shapes are small but cover each routed class: self and cross, padded
-head widths 8/16/32/64, 16 frames with a pixel count that tiles.
+head widths 8/16/32/64, 16 frames with a pixel count that tiles; for K5 the
+split-head flash (head widths 40/80/160, ragged Sq and Sk), split-KV and
+short-K/V cross classes; for K2 the augmented key axis Sk = S + 8.
 
 Tolerance: rtol 1e-4, atol 2e-5 (the block goldens' in
 tests/test_convert_golden.py). The kernels themselves are checked against the
@@ -18,12 +20,15 @@ import pytest
 import torch
 
 from anyv2v_tpu.ops import pallas_temporal_conv
+from anyv2v_tpu.ops.pallas_attention import flash_attention_bshd, flash_attention_splitkv
+from anyv2v_tpu.ops.pallas_cross_attention import cross_attention_short_kv
 from anyv2v_tpu.ops.pallas_ffn import fused_ffn
 from anyv2v_tpu.ops.pallas_packed_flash import packed_flash_attention
 from anyv2v_tpu.ops.pallas_short_attention import short_attention_bsc, short_attention_frames
 from anyv2v_tpu.ops.pallas_temporal_conv import temporal_conv3
 from anyv2v_tpu.ops.pallas_temporal_ew import temporal_ew_attention
 from anyv2v_torch.ops.ffn import ffn_geglu
+from anyv2v_torch.ops.flash_attention import flash_attention
 from anyv2v_torch.ops.folded_attention import folded_attention
 from anyv2v_torch.ops.frame_attention import frame_attention
 from anyv2v_torch.ops.temporal_conv import gn_silu_temporal_conv, groupnorm_scale_shift
@@ -115,6 +120,76 @@ def test_frame_attention_vs_short_attention_frames(b, s, hw, heads, dh, true_dh)
                                   heads=heads, scale=scale)
     got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                           heads, scale)
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "b,s,sk,hw,heads,dh",
+    [
+        (2, 17, 25, 16, 8, 40),    # ConsistI2V L0 temporal: 16 frames + conditioning, 8 window keys
+        (1, 17, 25, 8, 8, 80),     # L1 temporal
+        (1, 5, 13, 8, 2, 16),      # tiny arch
+    ],
+)
+def test_frame_attention_extra_keys_vs_short_attention_frames(b, s, sk, hw, heads, dh):
+    rng = np.random.RandomState(8)
+    c = heads * dh
+    q = _rand(rng, b, s, hw, c)
+    k, v = _rand(rng, b, sk, hw, c), _rand(rng, b, sk, hw, c)
+    want = short_attention_frames(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  heads=heads, scale=dh ** -0.5)
+    got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, dh ** -0.5)
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,heads,dh",
+    [
+        (1, 17 * 16, 77, 8, 40),    # temporal cross over [B, F*HW, C], dh 40
+        (2, 130, 77, 8, 80),        # dh 80, ragged Sq
+        (1, 100, 70, 2, 160),       # dh 160, ragged Sk
+    ],
+)
+def test_flash_attention_vs_flash_bshd(b, sq, sk, heads, dh):
+    rng = np.random.RandomState(9)
+    c = heads * dh
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    want = flash_attention_bshd(*(jnp.asarray(x.reshape(b, x.shape[1], heads, dh))
+                                  for x in (q, k, v)), scale=dh ** -0.5)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, dh ** -0.5)
+    _close(got, np.asarray(want).reshape(b, sq, c))
+
+
+@pytest.mark.parametrize("b,frames,s,heads,dh", [(2, 3, 64, 2, 64), (1, 4, 40, 1, 40)])
+def test_flash_attention_splitkv_vs_pallas(b, frames, s, heads, dh):
+    """First-frame K/V shared by each batch row's frames, one softmax."""
+    rng = np.random.RandomState(10)
+    c = heads * dh
+    q, k, v = (_rand(rng, b * frames, s, c) for _ in range(3))
+    kc, vc = _rand(rng, b, s, c), _rand(rng, b, s, c)
+
+    def heads_split(x):
+        return jnp.asarray(x.reshape(x.shape[0], x.shape[1], heads, dh))
+
+    want = flash_attention_splitkv(*(heads_split(x) for x in (q, k, v, kc, vc)),
+                                   frames=frames, scale=dh ** -0.5)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, dh ** -0.5, torch.from_numpy(kc), torch.from_numpy(vc), frames)
+    _close(got, np.asarray(want).reshape(b * frames, s, c))
+
+
+@pytest.mark.parametrize("b,sq,sk,heads", [(2, 256, 77, 5), (1, 200, 30, 2)])
+def test_flash_attention_vs_cross_short_kv(b, sq, sk, heads):
+    """The spatial cross-attention class: long queries over text, dh 64."""
+    rng = np.random.RandomState(11)
+    c = heads * 64
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    want = cross_attention_short_kv(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    heads=heads, scale=0.125)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, 0.125)
     _close(got, want)
 
 
