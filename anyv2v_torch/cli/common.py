@@ -15,7 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from ..models.clip import preprocess_clip_image
-from ..utils.model_zoo import build_consisti2v_pipeline, build_i2vgen_pipeline
+from ..utils.model_zoo import (
+    build_consisti2v_pipeline,
+    build_i2vgen_pipeline,
+    build_seine_pipeline,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -28,14 +32,23 @@ def setup_logging(debug: bool) -> None:
 
 def build_pipeline_from_config(cfg, device, default_arch: str = "i2vgen-xl"):
     """(pipeline, tokenizer or None) from a config's ``model:`` section: an
-    i2vgen or a ConsistI2V pipeline, by the ``arch`` it names."""
+    i2vgen, ConsistI2V or SEINE pipeline, by the ``arch`` it names. SEINE's
+    configs give the schedule's betas at their top level."""
     model = cfg.get("model", {})
     arch = model.get("arch", default_arch)
-    build = build_consisti2v_pipeline if arch.startswith("consisti2v") else build_i2vgen_pipeline
+    scheduler = dict(model.get("scheduler", {}))
+    if arch.startswith("seine"):
+        build = build_seine_pipeline
+        scheduler.update({k: cfg[k] for k in ("beta_start", "beta_end", "beta_schedule")
+                          if k in cfg})
+    elif arch.startswith("consisti2v"):
+        build = build_consisti2v_pipeline
+    else:
+        build = build_i2vgen_pipeline
     pipe = build(
         arch, device=device, init=model.get("init", "random"),
         seed=int(cfg.get("seed", 0)), dtype=_DTYPES[model.get("dtype", "bfloat16")],
-        scheduler_kwargs=dict(model.get("scheduler", {})))
+        scheduler_kwargs=scheduler)
     tokenizer = None
     tok_path = model.get("tokenizer_path")
     if tok_path:

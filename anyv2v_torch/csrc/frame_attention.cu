@@ -8,15 +8,24 @@
 //   pallas_temporal_ew.py     _ew_kernel      (L0 temporal, HW 4096, dh 8)
 //   pallas_short_attention.py _strided_kernel (L1/L2/mid temporal and
 //                                              transformer_in, dh 16/32/64;
-//                                              ConsistI2V, Sk = 25, dh 40/80)
+//                                              ConsistI2V, Sk = 25, dh 40/80;
+//                                              SEINE, bias, dh 40/80/160)
 // Both read the native [B, S, HW, C] layout so the temporal transformer never
 // transposes its tokens. These kernels do the same and compute no wasted
 // scores: S x Sk per (batch, pixel, head), as _ew_kernel did.
 //
+// Optional bias: an fp32 [H, S, Sk] table shared by every batch row and pixel
+// (SEINE's T5 relative-position bias, 8 KB at 8 heads x 16 x 16), added to the
+// scaled scores. Both bodies work in the exp2 domain, so each score gains
+// bias * log2(e) before the running max, as _ew_kernel adds it. The table is
+// read through __ldg (it stays in L1/L2); a null pointer means no bias, and
+// that instantiation is the bias-free code unchanged. Keys past Sk stay -inf.
+// The bias must be finite.
+//
 // What bounds it on the H100: bytes. q, k and v are read once and the output
 // written once (2 x B*(S+Sk)*HW*C*2 bytes, 400 MB for an i2vgen-xl L0 edit
 // call, 0.66 GB for ConsistI2V's); the S*Sk*DH multiply-adds per head are few
-// by comparison.
+// by comparison, and so is the bias table.
 //
 // Two bodies, one entry:
 //
@@ -45,11 +54,14 @@
 
 namespace {
 
-template <int SMAX, int LANES>
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int SMAX, int LANES, bool BIAS>
 __global__ void __launch_bounds__(256) frame_attention_kernel(
     const __nv_bfloat162* __restrict__ q, const __nv_bfloat162* __restrict__ k,
-    const __nv_bfloat162* __restrict__ v, __nv_bfloat162* __restrict__ o,
-    int S, int HW, int half, long long total, float scale_log2) {
+    const __nv_bfloat162* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat162* __restrict__ o, int S, int HW, int half, long long total,
+    float scale_log2) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = gid < total;
   // threads past the end form whole lane groups of their own (total is a
@@ -61,6 +73,8 @@ __global__ void __launch_bounds__(256) frame_attention_kernel(
   const long long b = bp / HW;
   const long long frame_stride = (long long)HW * half;
   const long long base = (b * S * HW + p) * half + c2;
+  // this channel pair's head: its [S, S] bias block
+  const float* hb = BIAS ? bias + (long long)(c2 / LANES) * S * S : nullptr;
 
   float2 kr[SMAX], vr[SMAX];
 #pragma unroll
@@ -87,6 +101,7 @@ __global__ void __launch_bounds__(256) frame_attention_kernel(
 #pragma unroll
         for (int off = LANES / 2; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (BIAS) part = fmaf(__ldg(hb + i * S + j), kLog2e, part);
         sc[j] = part;
         mx = fmaxf(mx, part);
       } else {
@@ -112,9 +127,9 @@ __global__ void __launch_bounds__(256) frame_attention_kernel(
 }
 
 template <int SMAX>
-cudaError_t launch_s(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int HW, int C, int DH, float scale_log2,
-                     cudaStream_t stream) {
+cudaError_t launch_s(const void* q, const void* k, const void* v,
+                     const float* bias, void* o, int B, int S, int HW, int C,
+                     int DH, float scale_log2, cudaStream_t stream) {
   const int half = C / 2;
   const long long total = (long long)B * HW * half;
   const int threads = 256;
@@ -125,10 +140,18 @@ cudaError_t launch_s(const void* q, const void* k, const void* v, void* o,
   auto v2 = (const __nv_bfloat162*)v;
   auto o2 = (__nv_bfloat162*)o;
   switch (DH / 2) {
-#define ANYV2V_CASE(L)                                                       \
-  case L:                                                                    \
-    frame_attention_kernel<SMAX, L><<<(unsigned)blocks, threads, 0, stream>>>( \
-        q2, k2, v2, o2, S, HW, half, total, scale_log2);                     \
+#define ANYV2V_CASE(L)                                                        \
+  case L:                                                                     \
+    if (bias)                                                                 \
+      frame_attention_kernel<SMAX, L, true>                                   \
+          <<<(unsigned)blocks, threads, 0, stream>>>(q2, k2, v2, bias, o2, S, \
+                                                     HW, half, total,         \
+                                                     scale_log2);             \
+    else                                                                      \
+      frame_attention_kernel<SMAX, L, false>                                  \
+          <<<(unsigned)blocks, threads, 0, stream>>>(q2, k2, v2, nullptr, o2, \
+                                                     S, HW, half, total,      \
+                                                     scale_log2);             \
     break;
     ANYV2V_CASE(1)
     ANYV2V_CASE(2)
@@ -143,11 +166,12 @@ cudaError_t launch_s(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int CW, int R>
+template <int CW, int R, bool BIAS>
 __global__ void __launch_bounds__(128) frame_attention_rows_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-    int Sk, int HW, int H, long long total, float scale_log2) {
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ o, int S, int Sk, int HW, int H, long long total,
+    float scale_log2) {
   constexpr int KCH = 8;
   constexpr int V8 = CW / 8;   // 16-byte loads per lane and frame
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -187,6 +211,8 @@ __global__ void __launch_bounds__(128) frame_attention_rows_kernel(
   float m = -INFINITY, l = 0.f;
   const __nv_bfloat16* kb = k + (b * Sk * HW + p) * C + c0;
   const __nv_bfloat16* vb = v + (b * Sk * HW + p) * C + c0;
+  // this row's bias: bias[h, i, :]
+  const float* rb = BIAS ? bias + ((long long)h * S + i) * Sk : nullptr;
 
   for (int j0 = 0; j0 < Sk; j0 += KCH) {
     float s[KCH];
@@ -211,7 +237,9 @@ __global__ void __launch_bounds__(128) frame_attention_rows_kernel(
 #pragma unroll
       for (int off = R / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      s[jj] = j0 + jj < Sk ? dot : -INFINITY;
+      float sv = -INFINITY;
+      if (j0 + jj < Sk) sv = BIAS ? fmaf(__ldg(rb + j0 + jj), kLog2e, dot) : dot;
+      s[jj] = sv;
       cmax = fmaxf(cmax, s[jj]);
     }
     // j0 < Sk: the chunk holds a real key, so cmax is finite
@@ -258,26 +286,35 @@ __global__ void __launch_bounds__(128) frame_attention_rows_kernel(
 }
 
 template <int CW, int R>
-cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int Sk, int HW, int H, float scale_log2,
-                        cudaStream_t stream) {
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        const float* bias, void* o, int B, int S, int Sk, int HW,
+                        int H, float scale_log2, cudaStream_t stream) {
   const long long total = (long long)B * HW * H * S * R;
   const int threads = 128;
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  frame_attention_rows_kernel<CW, R><<<(unsigned)blocks, threads, 0, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, S, Sk, HW, H, total, scale_log2);
+  auto qb = (const __nv_bfloat16*)q;
+  auto kb = (const __nv_bfloat16*)k;
+  auto vb = (const __nv_bfloat16*)v;
+  auto ob = (__nv_bfloat16*)o;
+  if (bias)
+    frame_attention_rows_kernel<CW, R, true><<<(unsigned)blocks, threads, 0, stream>>>(
+        qb, kb, vb, bias, ob, S, Sk, HW, H, total, scale_log2);
+  else
+    frame_attention_rows_kernel<CW, R, false><<<(unsigned)blocks, threads, 0, stream>>>(
+        qb, kb, vb, nullptr, ob, S, Sk, HW, H, total, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// S <= Sk <= S + 16, DH 8/16/40/80/160; pointers 16-byte aligned.
+// S <= Sk <= S + 16, DH 8/16/40/80/160; pointers 16-byte aligned. bias: fp32
+// [C / DH, S, Sk], or null.
 extern "C" int anyv2v_frame_attention_rows(const void* q, const void* k,
-                                           const void* v, void* o, int B, int S,
-                                           int Sk, int HW, int C, int DH,
-                                           float scale, void* stream) {
+                                           const void* v, const float* bias,
+                                           void* o, int B, int S, int Sk, int HW,
+                                           int C, int DH, float scale,
+                                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || S <= 0 || Sk < S || Sk > S + 16 || HW <= 0 || DH <= 0 ||
       C % DH != 0)
@@ -285,24 +322,25 @@ extern "C" int anyv2v_frame_attention_rows(const void* q, const void* k,
   const int H = C / DH;
   const float sl = scale * 1.4426950408889634f;
   switch (DH) {
-    case 8: return (int)launch_rows<8, 1>(q, k, v, o, B, S, Sk, HW, H, sl, s);
-    case 16: return (int)launch_rows<16, 1>(q, k, v, o, B, S, Sk, HW, H, sl, s);
-    case 40: return (int)launch_rows<40, 1>(q, k, v, o, B, S, Sk, HW, H, sl, s);
-    case 80: return (int)launch_rows<40, 2>(q, k, v, o, B, S, Sk, HW, H, sl, s);
-    case 160: return (int)launch_rows<40, 4>(q, k, v, o, B, S, Sk, HW, H, sl, s);
+    case 8: return (int)launch_rows<8, 1>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 16: return (int)launch_rows<16, 1>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 40: return (int)launch_rows<40, 1>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 80: return (int)launch_rows<40, 2>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 160: return (int)launch_rows<40, 4>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// Sk == S <= 32, DH a power of two 2..64. bias: fp32 [C / DH, S, S], or null.
 extern "C" int anyv2v_frame_attention(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int HW, int C, int DH, float scale,
-                                      void* stream) {
+                                      const void* v, const float* bias, void* o,
+                                      int B, int S, int HW, int C, int DH,
+                                      float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || S <= 0 || S > 32 || HW <= 0 || DH < 2 || C % DH != 0)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   if (S <= 16)
-    return (int)launch_s<16>(q, k, v, o, B, S, HW, C, DH, scale_log2, s);
-  return (int)launch_s<32>(q, k, v, o, B, S, HW, C, DH, scale_log2, s);
+    return (int)launch_s<16>(q, k, v, bias, o, B, S, HW, C, DH, scale_log2, s);
+  return (int)launch_s<32>(q, k, v, bias, o, B, S, HW, C, DH, scale_log2, s);
 }

@@ -19,9 +19,15 @@ short self / cross (Sq, Sk <= 128)             dh 8/16/32/64           K1
 other attention, not causal                    dh 8/16/40/64/80/160    K5
   (ConsistI2V spatial cross, 5/10/20 heads
   of 64; temporal cross over [B, F*HW, C],
-  8 heads of 40/80/160)
+  8 heads of 40/80/160; SEINE spatial self
+  at HW 4096/1024/256, mid self at HW 64
+  and cross over 77 text tokens, 8 heads
+  of 40/80/160)
 :func:`spatial_attention_ffconcat`             dh as K5                K5 split-KV
 :func:`temporal_attention` (frame axis)        S <= 32, Sk <= S + 16   K2
+:func:`temporal_attention` with ``bias``       the same, bias          K2 + bias
+  (SEINE: S = Sk = 16, 8 heads of              ``[H, S, Sk]`` fp32
+  40/80/160, T5 relative positions)
 everything else (the VAE's 512-wide head)                              SDPA
 =============================================  ======================  =========
 
@@ -35,6 +41,8 @@ takes the kernel's plain version.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -110,12 +118,15 @@ def spatial_attention_ffconcat(query: torch.Tensor, k_self: torch.Tensor,
 
 
 def temporal_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                       heads: int, scale: float) -> torch.Tensor:
+                       heads: int, scale: float,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over the frame axis S of ``[B, S, HW, C]`` tokens; keys
-    and values ``[B, Sk, HW, C]`` may carry up to 16 extra frames."""
+    and values ``[B, Sk, HW, C]`` may carry up to 16 extra frames. ``bias``:
+    an fp32 ``[heads, S, Sk]`` table added to the scaled scores of every
+    batch row and pixel (SEINE's relative-position bias)."""
     s, sk = query.shape[1], key.shape[1]
     if not frame_kernel_takes(s, sk, query.shape[-1] // heads):
         raise NotImplementedError(
             f"frame-axis attention of {s} query frames over {sk} key frames at head "
             f"width {query.shape[-1] // heads} is not ported yet")
-    return frame_attention(query, key, value, heads, scale)
+    return frame_attention(query, key, value, heads, scale, bias)

@@ -8,8 +8,9 @@ transposes its tokens; ``csrc/frame_attention.cu`` does the same.
 
 Keys and values may carry up to 16 frames more than the queries (ConsistI2V's
 8 first-frame window keys, appended on the frame axis with their rotary
-positions already applied). There is no bias operand: SEINE's per-head bias
-is not ported yet.
+positions already applied). An optional fp32 ``bias [heads, S, Sk]``, shared by
+every batch row and pixel (SEINE's T5 relative-position bias), is added to the
+scaled scores before the softmax, as the Pallas kernels add it.
 
 Two kernel bodies sit behind the one wrapper and its one launch count:
 ``Sk == S`` with a power-of-two head width up to 64 (i2vgen-xl) takes the
@@ -20,6 +21,7 @@ channel-pair body; every other shape (``S <= Sk <= S + 16``, head widths
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -32,8 +34,9 @@ ROW_HEAD_DIMS = (8, 16, 40, 80, 160)
 
 
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          heads: int, scale: float) -> torch.Tensor:
-    """Plain PyTorch version on a transposed view, fp32 softmax."""
+                          heads: int, scale: float,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version on a transposed view, fp32 scores and softmax."""
     b, s, hw, c = q.shape
     dh = c // heads
 
@@ -42,6 +45,8 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return x.permute(0, 2, 1, 3).reshape(b * hw, n, heads, dh).transpose(1, 2).float()
 
     scores = torch.matmul(t(q), t(k).transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias.float()
     out = torch.matmul(torch.softmax(scores, dim=-1), t(v))     # [b*hw, H, s, dh]
     out = out.transpose(1, 2).reshape(b, hw, s, c).permute(0, 2, 1, 3)
     return out.to(q.dtype).contiguous()
@@ -54,12 +59,26 @@ def takes(s: int, sk: int, head_dim: int) -> bool:
     return (sk == s and head_dim in PAIR_HEAD_DIMS) or head_dim in ROW_HEAD_DIMS
 
 
+def _check_bias(bias: torch.Tensor, q: torch.Tensor, k: torch.Tensor, heads: int) -> None:
+    """The bias operand: fp32, contiguous, on q's device, ``[heads, S, Sk]``."""
+    want = (heads, q.shape[1], k.shape[1])
+    if (bias.dtype != torch.float32 or not bias.is_contiguous() or bias.device != q.device
+            or tuple(bias.shape) != want):
+        raise ValueError(f"frame_attention: bias must be a contiguous float32 tensor of shape "
+                         f"{list(want)} on {q.device}; got {bias.dtype} {list(bias.shape)} on "
+                         f"{bias.device}{'' if bias.is_contiguous() else ', not contiguous'}")
+
+
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    heads: int, scale: float) -> torch.Tensor:
+                    heads: int, scale: float,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q ``[B, S, HW, C]``, k/v ``[B, Sk, HW, C]`` -> ``[B, S, HW, C]``,
-    attending over the frame axis."""
+    attending over the frame axis; ``bias [heads, S, Sk]`` (fp32) is added to
+    the scaled scores."""
+    if bias is not None:
+        _check_bias(bias, q, k, heads)
     if q.device.type == "cpu":
-        return frame_attention_plain(q, k, v, heads, scale)
+        return frame_attention_plain(q, k, v, heads, scale, bias)
     _build.require_cuda("frame_attention", q, k, v)
     _build.require_aligned("frame_attention", q, k, v)
     b, s, hw, c = q.shape
@@ -76,8 +95,9 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{ROW_HEAD_DIMS}")
     out = torch.empty_like(q)
     lib = _build.library()
-    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), ctypes.c_int(b),
-            ctypes.c_int(s))
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v),
+            ctypes.c_void_p(None) if bias is None else _build.ptr(bias), _build.ptr(out),
+            ctypes.c_int(b), ctypes.c_int(s))
     if sk == s and dh in PAIR_HEAD_DIMS:
         rc = lib.anyv2v_frame_attention(*args, ctypes.c_int(hw), ctypes.c_int(c),
                                         ctypes.c_int(dh), ctypes.c_float(scale),

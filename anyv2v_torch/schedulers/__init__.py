@@ -1,4 +1,5 @@
 from .ddim import ddim_inverse_step, ddim_step, ddim_transfer
+from .ddpm import ddpm_step
 from .schedules import (
     DiffusionSchedule,
     inversion_timesteps,
@@ -7,6 +8,6 @@ from .schedules import (
 )
 
 __all__ = [
-    "DiffusionSchedule", "ddim_inverse_step", "ddim_step", "ddim_transfer",
+    "DiffusionSchedule", "ddim_inverse_step", "ddim_step", "ddim_transfer", "ddpm_step",
     "inversion_timesteps", "make_schedule", "sampling_timesteps",
 ]

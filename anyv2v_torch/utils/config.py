@@ -52,6 +52,21 @@ def load_yaml(path: str) -> ConfigNode:
         return ConfigNode.wrap(yaml.safe_load(f) or {})
 
 
+def to_yaml(cfg: Any) -> str:
+    """A (possibly ConfigNode-nested) config as YAML, for provenance files."""
+
+    def plain(obj: Any) -> Any:
+        if isinstance(obj, Mapping):
+            return {k: plain(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [plain(v) for v in obj]
+        return obj
+
+    import yaml
+
+    return yaml.safe_dump(plain(cfg), sort_keys=False)
+
+
 def load_json(path: str) -> Any:
     with open(path) as f:
         return ConfigNode.wrap(json.load(f))

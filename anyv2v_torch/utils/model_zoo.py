@@ -1,11 +1,13 @@
-"""i2vgen-xl and ConsistI2V model configurations and pipeline construction
-(counterpart of ``anyv2v_tpu/utils/model_zoo.py``).
+"""i2vgen-xl, ConsistI2V and SEINE model configurations and pipeline
+construction (counterpart of ``anyv2v_tpu/utils/model_zoo.py``).
 
 Parameters come from ``init``:
 
 - ``"random"``: seeded random weights, drawn on the target device with a
   ``torch.Generator``: normal with std ``fan_in ** -0.5`` for matrices and
-  kernels, 0.02 for embeddings, ones for norm scales, zeros for biases, the
+  kernels, 0.02 for embeddings, 1 for SEINE's relative-position tables (at
+  0.02 the bias would shift the temporal logits by a few hundredths and
+  change nothing), ones for norm scales, zeros for biases, the
   last conv of every i2vgen temporal conv layer zero (the layer starts as the
   identity, as in the JAX package), and ConsistI2V's temporal gates
   ``alpha`` at 0.5 (the JAX package starts them at 1, which bypasses the
@@ -30,10 +32,12 @@ import torch.nn as nn
 from .. import resolve_device
 from ..models.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig, CLIPVisionModel
 from ..models.unet_i2vgen import I2VGenUNet, I2VGenUNetConfig
+from ..models.unet_seine import SeineUNet, SeineUNetConfig
 from ..models.unet_videoldm import VideoLDMUNet, VideoLDMUNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..pipelines.consisti2v import ConsistI2VPipeline
 from ..pipelines.i2vgen import I2VGenPipeline
+from ..pipelines.seine import SeinePipeline
 from ..schedulers import make_schedule
 
 # ali-vilab/i2vgen-xl: the checkpoint's attention_head_dim=64 is the HEAD
@@ -87,12 +91,36 @@ CONSISTI2V_TINY = dict(
     text=I2VGEN_TINY["text"],
 )
 
+# SEINE (Vchitect/SEINE, seine.pt's EMA weights on SD1.4): the 9-channel
+# masked-video UNet with 8 heads of 40/80/160, the SD VAE and SD1.4's text
+# encoder (openai/clip-vit-large-patch14: 768 wide, quick_gelu)
+SEINE = dict(
+    unet=SeineUNetConfig(),
+    vae=VAEConfig(),
+    text=CLIPTextConfig(hidden_size=768, intermediate_size=3072, num_layers=12,
+                        num_heads=12, hidden_act="quick_gelu", projection_dim=None),
+)
+SEINE_TINY = dict(
+    unet=SeineUNetConfig(
+        block_out_channels=(8, 16, 16, 16), layers_per_block=1,
+        cross_attention_dim=16, num_attention_heads=2, norm_num_groups=4,
+        pnp_attn_targets=((1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1)),
+        pnp_conv_target=(1, 1),
+    ),
+    vae=VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, norm_num_groups=4),
+    text=CLIPTextConfig(vocab_size=49408, hidden_size=16, intermediate_size=32,
+                        num_layers=1, num_heads=2, projection_dim=None),
+)
+# SEINE's schedule: plain linear betas 1e-4..0.02 (configs/seine/*.yaml)
+SEINE_SCHEDULER = dict(beta_start=1e-4, beta_end=0.02, beta_schedule="linear")
+
 ARCHS = {"i2vgen-xl": I2VGEN_XL, "i2vgen-tiny": I2VGEN_TINY,
-         "consisti2v": CONSISTI2V, "consisti2v-tiny": CONSISTI2V_TINY}
+         "consisti2v": CONSISTI2V, "consisti2v-tiny": CONSISTI2V_TINY,
+         "seine": SEINE, "seine-tiny": SEINE_TINY}
 
 _MODULES = {I2VGenUNetConfig: I2VGenUNet, VideoLDMUNetConfig: VideoLDMUNet,
-            VAEConfig: AutoencoderKL, CLIPTextConfig: CLIPTextModel,
-            CLIPVisionConfig: CLIPVisionModel}
+            SeineUNetConfig: SeineUNet, VAEConfig: AutoencoderKL,
+            CLIPTextConfig: CLIPTextModel, CLIPVisionConfig: CLIPVisionModel}
 
 
 def build_modules(arch: str, dtype: torch.dtype, device="meta") -> Dict[str, nn.Module]:
@@ -106,6 +134,7 @@ def build_modules(arch: str, dtype: torch.dtype, device="meta") -> Dict[str, nn.
 
 # CLIP's token / position tables and class token
 _EMBEDDINGS = ("token_embedding.weight", "position_embedding.weight", "class_embedding")
+_RELPOS_TABLES = "relative_attention_bias.weight"   # SEINE's T5 bias tables
 
 
 def random_state_dict(module: nn.Module, generator: torch.Generator,
@@ -123,7 +152,7 @@ def random_state_dict(module: nn.Module, generator: torch.Generator,
         elif name.endswith("alpha"):
             t = torch.full(ref.shape, 0.5, device=device)
         else:
-            std = (0.02 if name.endswith(_EMBEDDINGS)
+            std = (0.02 if name.endswith(_EMBEDDINGS) else 1.0 if name.endswith(_RELPOS_TABLES)
                    else float(np.prod(ref.shape[1:])) ** -0.5)
             t = torch.randn(ref.shape, generator=generator, device=device) * std
         out[name] = t
@@ -175,3 +204,16 @@ def build_consisti2v_pipeline(arch: str = "consisti2v", *, device, init: str = "
     return ConsistI2VPipeline(unet=modules["unet"], vae=modules["vae"],
                               text_encoder=modules["text"], schedule=schedule,
                               device=dev, dtype=dtype)
+
+
+def build_seine_pipeline(arch: str = "seine", *, device, init: str = "random", seed: int = 0,
+                         dtype: torch.dtype = torch.bfloat16,
+                         scheduler_kwargs: Optional[dict] = None) -> SeinePipeline:
+    """SEINE with its linear-beta schedule (``scheduler_kwargs`` override it)."""
+    if not isinstance(ARCHS[arch]["unet"], SeineUNetConfig):
+        raise ValueError(f"{arch} is not a SEINE architecture")
+    dev = resolve_device(device)
+    modules = _load_modules(arch, dev, init, seed, dtype)
+    schedule = make_schedule(**{**SEINE_SCHEDULER, **(scheduler_kwargs or {})}, device=dev)
+    return SeinePipeline(unet=modules["unet"], vae=modules["vae"], text_encoder=modules["text"],
+                         schedule=schedule, device=dev, dtype=dtype)

@@ -2,10 +2,11 @@
 
 :func:`state_dict_from_jax` is the exact inverse of the converters in
 ``anyv2v_tpu/utils/convert.py`` (``convert_unet_i2vgen``,
-``convert_unet_videoldm``, ``convert_vae``, ``convert_clip_text``,
-``convert_clip_vision``): the port's modules use the diffusers / Hugging Face
-(and, for ConsistI2V's UNet, the reference checkpoint's) key names, so the
-output also has a real checkpoint's layout. Attention projections lose the zero columns that
+``convert_unet_videoldm``, ``convert_unet_seine``, ``convert_vae``,
+``convert_clip_text``, ``convert_clip_vision``): the port's modules use the
+diffusers / Hugging Face (and, for the ConsistI2V and SEINE UNets, the
+reference checkpoints') key names, so the output also has a real
+checkpoint's layout. Attention projections lose the zero columns that
 ``pad_attention_heads`` added (checked to be zero); the port pads them back
 when the state dict is loaded (``models.layers.Attention``).
 
@@ -199,10 +200,13 @@ def _alpha_temporal_resnet(sd: StateDict, p: str, t: Tree) -> None:
     sd[f"{p}.alpha"] = np.asarray(t["alpha"]).reshape(1)
 
 
-def _flat_attn(sd: StateDict, p: str, t: Tree, name: str) -> None:
+def _flat_attn(sd: StateDict, p: str, t: Tree, name: str, key: str = "") -> None:
+    """Attention ``p.name`` from the JAX block's flat ``{key}_to_q`` ...
+    entries (``key`` defaults to ``name``)."""
+    key = key or name
     for n in ("to_q", "to_k", "to_v"):
-        _linear(sd, f"{p}.{name}.{n}", t[f"{name}_{n}"])
-    _linear(sd, f"{p}.{name}.to_out.0", t[f"{name}_to_out"])
+        _linear(sd, f"{p}.{name}.{n}", t[f"{key}_{n}"])
+    _linear(sd, f"{p}.{name}.to_out.0", t[f"{key}_to_out"])
 
 
 def _videoldm_spatial(sd: StateDict, p: str, t: Tree) -> None:
@@ -281,6 +285,55 @@ def videoldm_unet_state_dict(tree: Tree, cfg) -> StateDict:
             layer(base, key, j, i > 0)
         if i < n - 1:
             _conv(sd, f"{base}.upsamplers.0.conv", p[f"{key}_upsample"]["conv"])
+    return sd
+
+
+def _seine_transformer(sd: StateDict, p: str, t: Tree) -> None:
+    _norm(sd, f"{p}.norm", t["norm"])
+    _conv(sd, f"{p}.proj_in", t["proj_in"])
+    _conv(sd, f"{p}.proj_out", t["proj_out"])
+    b, bt = f"{p}.transformer_blocks.0", t["block"]
+    for n in ("norm1", "norm2", "norm_temp", "norm3"):
+        _norm(sd, f"{b}.{n}", bt[n])
+    _ff(sd, f"{b}.ff", bt["ff"])
+    _flat_attn(sd, b, bt, "attn1")
+    _flat_attn(sd, b, bt, "attn2")
+    _flat_attn(sd, b, bt, "attn_temp", "temp")
+    sd[f"{b}.attn_temp.time_rel_pos_bias.relative_attention_bias.weight"] = np.asarray(
+        bt["time_rel_pos_bias"])
+
+
+def seine_unet_state_dict(tree: Tree, cfg) -> StateDict:
+    """SeineUNet params -> the SEINE reference checkpoint's keys (the inverse
+    of ``convert_unet_seine``); ``cfg`` a
+    :class:`~anyv2v_torch.models.unet_seine.SeineUNetConfig`."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    for name in ("linear_1", "linear_2"):
+        _linear(sd, f"time_embedding.{name}", p["time_embedding"][name])
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    n = len(cfg.block_out_channels)
+    for i in range(n):
+        base = f"down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            _resnet(sd, f"{base}.resnets.{j}", p[f"down_{i}_resnet_{j}"])
+            if i < n - 1:
+                _seine_transformer(sd, f"{base}.attentions.{j}", p[f"down_{i}_attn_{j}"])
+        if i < n - 1:
+            _conv(sd, f"{base}.downsamplers.0.conv", p[f"down_{i}_downsample"]["conv"])
+    for j in range(2):
+        _resnet(sd, f"mid_block.resnets.{j}", p[f"mid_resnet_{j}"])
+    _seine_transformer(sd, "mid_block.attentions.0", p["mid_attn"])
+    for i in range(n):
+        base = f"up_blocks.{i}"
+        for j in range(cfg.layers_per_block + 1):
+            _resnet(sd, f"{base}.resnets.{j}", p[f"up_{i}_resnet_{j}"])
+            if i > 0:
+                _seine_transformer(sd, f"{base}.attentions.{j}", p[f"up_{i}_attn_{j}"])
+        if i < n - 1:
+            _conv(sd, f"{base}.upsamplers.0.conv", p[f"up_{i}_upsample"]["conv"])
     return sd
 
 
@@ -363,13 +416,14 @@ def clip_vision_state_dict(tree: Tree, cfg) -> StateDict:
 def state_dict_from_jax(params: Tree, arch: str) -> Dict[str, StateDict]:
     """``{"unet", "vae", "text", "vision"}`` JAX param trees (numpy leaves) ->
     the port's state dicts for the same components, for ``ARCHS[arch]``
-    (i2vgen-xl or ConsistI2V)."""
+    (i2vgen-xl, ConsistI2V or SEINE)."""
+    from ..models.unet_seine import SeineUNetConfig
     from ..models.unet_videoldm import VideoLDMUNetConfig
     from .model_zoo import ARCHS
 
     spec = ARCHS[arch]
-    unet = (videoldm_unet_state_dict if isinstance(spec["unet"], VideoLDMUNetConfig)
-            else unet_state_dict)
+    unet = {VideoLDMUNetConfig: videoldm_unet_state_dict,
+            SeineUNetConfig: seine_unet_state_dict}.get(type(spec["unet"]), unet_state_dict)
     convert = {"unet": unet, "vae": vae_state_dict,
                "text": clip_text_state_dict, "vision": clip_vision_state_dict}
     return {name: convert[name](params[name], spec[name])

@@ -10,6 +10,9 @@ Phases:
     (the least time the card could take: bytes over 3.35 TB/s or bf16
     operations over 989 TFLOP/s, whichever is larger) and, where one PyTorch
     call computes the same function, that call (``scaled_dot_product_attention``);
+    each attention kernel and its plain version also against the fp32 truth;
+    K1 also at the shapes of the seine-tiny reference check (untimed);
+    then the bounds of the Pallas kernels not ported yet, at their shapes;
  4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
@@ -23,7 +26,19 @@ Phases:
     cache files, the dual-CFG PnP edit at cfg_txt 35 / cfg_img 1 (batch 3,
     then the batch-2 tail) and decode; K1-K5 must all launch, K5 in its three
     roles, K2 with the augmented key axis, and no UNet attention of head
-    width 40/64/80 may reach SDPA; then its profile at batch 1 and 3.
+    width 40/64/80 may reach SDPA; then its profile at batch 1 and 3;
+ 6. the SEINE main path at full width (SD1.4 widths, 8 heads, 16 frames,
+    512x512): a seine-tiny reference check (the pair body with the bias),
+    then VAE encode, the masked conditioning, inversion with every step on
+    the save grid, the cache files, a DDPM PnP edit at cfg 4 with thresholds
+    0.2/0.2/0.5/0.0 (batch 3, then the batch-2 tail) and decode; K2 must
+    launch with the relative-position bias on every temporal attention, K3
+    and K5 (spatial self, mid self, cross) must launch, K1 and K4 must not,
+    and the dispatcher may send only the VAE's 512-wide head to SDPA; then
+    its profile at batch 1 and 3.
+
+Each tiny-arch reference check runs the card's bf16 UNet against the plain
+fp32 path on the CPU with the same bf16-rounded weights and inputs.
 
 Prints the card's name and power limit, one JSON line with the kernel
 records, then, as the last line, ``{"ok": true, "device": {...}}``. Exits
@@ -97,9 +112,9 @@ def _attn_cost(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
     return 4 * b * sq * sk * c, _nbytes(q, q, k, v, k_ctx, v_ctx)
 
 
-def _frame_cost(q, k, v, heads, scale):
+def _frame_cost(q, k, v, heads, scale, bias=None):
     b, s, hw, c = q.shape
-    return 4 * b * hw * s * k.shape[1] * c, _nbytes(q, q, k, v)
+    return 4 * b * hw * s * k.shape[1] * c, _nbytes(q, q, k, v, bias)
 
 
 def _ffn_cost(x, w1, b1, w2, b2):
@@ -125,15 +140,17 @@ def _attn_library(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
         scale=scale)
 
 
-def _frame_library(q, k, v, heads, scale):
-    """SDPA on the frame-axis view ``[B*HW, H, S, dh]`` of ``[B, S, HW, C]``."""
+def _frame_library(q, k, v, heads, scale, bias=None):
+    """SDPA on the frame-axis view ``[B*HW, H, S, dh]`` of ``[B, S, HW, C]``;
+    the bias becomes a float ``attn_mask`` (in q's dtype, cast beforehand)."""
     b, s, hw, c = q.shape
+    mask = None if bias is None else bias.to(q.dtype)
 
     def view(x):
         return x.permute(0, 2, 1, 3).reshape(b * hw, x.shape[1], heads, c // heads).transpose(1, 2)
 
-    return lambda: torch.nn.functional.scaled_dot_product_attention(view(q), view(k), view(v),
-                                                                    scale=scale)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        view(q), view(k), view(v), attn_mask=mask, scale=scale)
 
 
 def _kernels():
@@ -183,11 +200,12 @@ def _kernel_cases():
                     rn(rows // frames, s, c), rn(rows // frames, s, c), frames)
         return make
 
-    def frames(b, s, hw, heads, dh, true_dh, sk=None):
+    def frames(b, s, hw, heads, dh, true_dh, sk=None, bias=False):
         def make():
             c = heads * dh
-            return (rn(b, s, hw, c), rn(b, sk or s, hw, c), rn(b, sk or s, hw, c), heads,
+            args = (rn(b, s, hw, c), rn(b, sk or s, hw, c), rn(b, sk or s, hw, c), heads,
                     true_dh ** -0.5)
+            return args + (rn(heads, s, sk or s, dtype=torch.float32),) if bias else args
         return make
 
     def ffn_args(n, c):
@@ -241,6 +259,13 @@ def _kernel_cases():
         (k5, "temporal cross L0 b3 Sq17*4096 Sk77 h8 dh40", attn(3, 17 * 4096, 77, 8, 40, 40)),
         (k5, "temporal cross L1 b3 Sq17*1024 Sk77 h8 dh80", attn(3, 17 * 1024, 77, 8, 80, 80)),
         (k5, "temporal cross L2 b3 Sq17*256 Sk77 h8 dh160", attn(3, 17 * 256, 77, 8, 160, 160)),
+        (k2, "SEINE L0 temporal b3 S16 HW4096 h8 dh40 bias",
+         frames(3, 16, 4096, 8, 40, 40, bias=True)),
+        (k2, "SEINE L1 temporal b3 S16 HW1024 h8 dh80 bias",
+         frames(3, 16, 1024, 8, 80, 80, bias=True)),
+        (k2, "SEINE L2 temporal b3 S16 HW256 h8 dh160 bias",
+         frames(3, 16, 256, 8, 160, 160, bias=True)),
+        (k2, "pair body bias b1 S16 HW4096 h64 dh8", frames(1, 16, 4096, 64, 8, 5, bias=True)),
         # edge masking, off the main paths: rows, keys, channels not multiples of the tiles
         (k3, "ragged rows 1000 C320", ffn_args(1000, 320)),
         (k4, "ragged C36 P30 F5 b2", tconv_args(2, 5, 30, 36)),
@@ -248,13 +273,28 @@ def _kernel_cases():
          lambda: (rn(6, 1000, 240), rn(6, 999, 240), rn(6, 999, 240), 3, 80 ** -0.5,
                   rn(2, 77, 240), rn(2, 77, 240), 3)),
         (k2, "ragged b2 S7 Sk13 HW37 h2 dh40", frames(2, 7, 37, 2, 40, 40, sk=13)),
+        (k2, "ragged bias b2 S7 Sk13 HW37 h2 dh80", frames(2, 7, 37, 2, 80, 80, sk=13, bias=True)),
+        # seine-tiny's reference check (3 rows x 8 frames, 2 heads of 8): its K1 calls
+        (k1, "seine-tiny self b24 S64 h2 dh8", attn(24, 64, 64, 2, 8, 8)),
+        (k1, "seine-tiny cross b24 Sq64 Sk77 h2 dh8", attn(24, 64, 77, 2, 8, 8)),
+        (k1, "seine-tiny self b24 S16 h2 dh8", attn(24, 16, 16, 2, 8, 8)),
+        (k1, "seine-tiny cross b24 Sq16 Sk77 h2 dh8", attn(24, 16, 77, 2, 8, 8)),
+        (k1, "seine-tiny self b24 S4 h2 dh8", attn(24, 4, 4, 2, 8, 8)),
+        (k1, "seine-tiny cross b24 Sq4 Sk77 h2 dh8", attn(24, 4, 77, 2, 8, 8)),
     ]
+
+
+_OFF_PATH = ("ragged", "seine-tiny")   # case labels checked but not timed into the records
+_ATTENTION = ("folded_attention", "frame_attention", "flash_attention")
 
 
 def phase_kernels():
     """Each kernel against its plain version (max error within ``0.01 +
     0.02*max|ref|``); returns {name: record} with the worst error and, over
-    the main-path cases, the summed times and bounds."""
+    the main-path cases, the summed times and bounds. An attention kernel and
+    its plain version are also each held against the fp32 truth (the plain
+    version on the inputs cast to fp32, output unrounded), which tells a
+    kernel's own error from bf16 rounding of the output."""
     kernels = _kernels()
     records, failures = {}, []
     atol, rtol = 1e-2, 2e-2
@@ -268,6 +308,11 @@ def phase_kernels():
         err = (got.float() - want.float()).abs().max().item()
         bound = atol + rtol * want.float().abs().max().item()
         ok = bool(np.isfinite(err)) and err <= bound
+        vs_fp32 = None
+        if name in _ATTENTION:
+            truth = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+            vs_fp32 = [(x.float() - truth).abs().max().item() for x in (got, want)]
+            del truth
         del got, want
         ms = _time_ms(lambda: kern(*args), 5)
         plain_ms = _time_ms(lambda: plain(*args), 2)
@@ -278,7 +323,9 @@ def phase_kernels():
         log(f"kernel {name} [{label}]: max_abs_err {err:.3e} (bound {bound:.3e}, "
             f"atol {atol} + rtol {rtol}*max|ref|) {'ok' if ok else 'MISS'}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} op, "
-            f"{nbytes:.3e} B), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+            f"{nbytes:.3e} B), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            + ("" if vs_fp32 is None else
+               f"; vs fp32 truth: kernel {vs_fp32[0]:.3e}, plain {vs_fp32[1]:.3e}"))
         if not ok:
             failures.append(f"{name} [{label}]")
         rec = records.setdefault(name, {
@@ -287,7 +334,7 @@ def phase_kernels():
             "bound_by": None, "library_ms": 0.0 if library is not None else None,
             "cases": [], "_ops_ms": 0.0, "_bytes_ms": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if not label.startswith("ragged"):   # the record's times: main-path shapes only
+        if not label.startswith(_OFF_PATH):   # the record's times: main-path shapes only
             rec["ms"] += ms
             rec["plain_ms"] += plain_ms
             rec["bound_ms"] += bound_ms
@@ -295,7 +342,8 @@ def phase_kernels():
             if lib_ms is not None:
                 rec["library_ms"] += lib_ms
         rec["cases"].append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                             "vs_fp32": vs_fp32})
         del args
         torch.cuda.empty_cache()
     for rec in records.values():
@@ -304,6 +352,23 @@ def phase_kernels():
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return records
+
+
+def phase_open_kernel_bounds():
+    """The bound of each Pallas kernel that is not ported yet, at the shape
+    class it was routed for: softmax attention on folded heads, 2 rows of 64
+    heads of dh 8 (as stored); row 4 ``_packed_whole_kernel`` at i2vgen-xl's
+    L0 self-attention (Sq = Sk = 4096), row 5 ``_packed_kernel`` at the top
+    of its class 4096 < Sk <= 8192 (Sq = Sk = 8192, a 1024x512 clip).
+    Arithmetic on the shapes only; nothing runs."""
+    for row, fn, s in ((4, "pallas_packed_flash.py:280 _packed_whole_kernel", 4096),
+                       (5, "pallas_packed_flash.py:413 _packed_kernel", 8192)):
+        b, c = 2, 64 * 8
+        ops, nbytes = 4 * b * s * s * c, 4 * b * s * c * 2   # q, k, v read, o written, bf16
+        t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        log(f"open kernel, row {row} {fn} (b {b}, Sq = Sk = {s}, 64 heads of dh 8): bound "
+            f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+            f"{ops:.3e} op, {nbytes:.3e} B)")
 
 
 def main():
@@ -317,7 +382,9 @@ def main():
     phase_env()
     phase_build()
     records = phase_kernels()
-    by_path = {"i2vgen-xl": phase_main_path(), "consisti2v": phase_consisti2v()}
+    phase_open_kernel_bounds()
+    by_path = {"i2vgen-xl": phase_main_path(), "consisti2v": phase_consisti2v(),
+               "seine": phase_seine()}
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -353,27 +420,38 @@ def _wrappers():
             "flash_attention": flash_attention.flash_attention}
 
 
-def _reference_check(arch, build, args, kwargs):
-    """The port on the card (bf16, kernels) against the port's plain fp32
-    path on the CPU, same weights, one tiny UNet forward at the edit batch
-    with every PnP flag on."""
+def _reference_error(arch, build, args, kwargs, rounded=True):
+    """(max error, mean error, bound) of the port on the card (bf16, kernels)
+    against the port's plain fp32 path on the CPU: one tiny UNet forward at
+    the edit batch with every PnP flag on. The reference gets the card's own
+    weights and inputs, each rounded to bf16 once (unless ``rounded`` is
+    false), so that the error is what the card's arithmetic adds, not the
+    rounding of its parameters."""
     from anyv2v_torch.utils.model_zoo import build_modules
 
     cpu = build(arch, device="cpu", dtype=torch.float32, seed=1)
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if rounded else (lambda t: t)
+    with torch.no_grad():
+        for p in cpu.unet.parameters():
+            p.copy_(rnd(p))
     unet = build_modules(arch, torch.bfloat16)["unet"]
     unet.to_empty(device="cuda").to(torch.bfloat16)
     unet.load_state_dict(cpu.unet.state_dict())
     unet.eval()
+    args = [rnd(torch.from_numpy(a)) if isinstance(a, np.ndarray) else a for a in args]
     with torch.inference_mode():
-        want = cpu.unet(*[torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args],
-                        **kwargs).float()
-        got = unet(*[torch.from_numpy(a).cuda() if isinstance(a, np.ndarray) else a
-                     for a in args], **kwargs).float().cpu()
+        want = cpu.unet(*args, **kwargs).float()
+        got = unet(*[a.cuda() if torch.is_tensor(a) else a for a in args], **kwargs).float().cpu()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    bound = 0.02 + 0.05 * want.abs().max().item()
-    log(f"reference check ({arch} UNet, bf16 card vs fp32 CPU plain): max_abs_err "
-        f"{err:.3e}, bound {bound:.3e} (0.02 + 0.05*max|ref|)")
+    diff = (got - want).abs()
+    return diff.max().item(), diff.mean().item(), 0.02 + 0.05 * want.abs().max().item()
+
+
+def _reference_check(arch, build, args, kwargs):
+    err, mean, bound = _reference_error(arch, build, args, kwargs)
+    log(f"reference check ({arch} UNet, bf16 card vs fp32 CPU plain on the card's weights "
+        f"and inputs): max_abs_err {err:.3e}, bound {bound:.3e} (0.02 + 0.05*max|ref|); "
+        f"mean_abs_err {mean:.3e}")
     if not (np.isfinite(err) and err <= bound):
         raise RuntimeError(f"the port on the card disagrees with its CPU reference ({arch})")
 
@@ -484,16 +562,24 @@ def phase_main_path():
     return counts
 
 
-class _RouteLog:
-    """Records which attention routes the ConsistI2V UNet takes: the roles
-    of K5's calls, the key axes of K2's, and the head widths of calls that
-    reach SDPA. It wraps the dispatcher's references and calls through, so the
-    wrappers' own launch counts are untouched."""
+def _consisti2v_k5_role(q, k, heads, k_ctx):
+    if k_ctx is not None:
+        return "split-KV"
+    return "spatial cross" if q.shape[-1] // heads == 64 else "temporal cross"
 
-    def __init__(self):
+
+class _RouteLog:
+    """Records which attention routes a UNet takes: the roles of K5's calls
+    (``k5_role(q, k, heads, k_ctx)``), the key axes and bias of K2's, and the
+    head widths of calls that reach the dispatcher's SDPA (CLIP calls SDPA
+    directly and is not seen). It wraps the dispatcher's references and calls
+    through, so the wrappers' own launch counts are untouched."""
+
+    def __init__(self, k5_role=_consisti2v_k5_role):
         from anyv2v_torch.ops import attention
 
         self.mod, self.k5, self.k2, self.sdpa = attention, {}, {}, {}
+        self.k5_role = k5_role
         self.saved = {n: getattr(attention, n)
                       for n in ("flash_attention", "frame_attention", "sdpa_attention")}
 
@@ -504,15 +590,13 @@ class _RouteLog:
         saved = self.saved
 
         def flash(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
-            dh = q.shape[-1] // heads
-            role = "split-KV" if k_ctx is not None else (
-                "spatial cross" if dh == 64 else "temporal cross")
-            self._bump(self.k5, role)
+            self._bump(self.k5, self.k5_role(q, k, heads, k_ctx))
             return saved["flash_attention"](q, k, v, heads, scale, k_ctx, v_ctx, frames)
 
-        def frame(q, k, v, heads, scale):
-            self._bump(self.k2, f"S{q.shape[1]} Sk{k.shape[1]} dh{q.shape[-1] // heads}")
-            return saved["frame_attention"](q, k, v, heads, scale)
+        def frame(q, k, v, heads, scale, bias=None):
+            self._bump(self.k2, f"S{q.shape[1]} Sk{k.shape[1]} dh{q.shape[-1] // heads}"
+                       + ("" if bias is None else " bias"))
+            return saved["frame_attention"](q, k, v, heads, scale, bias)
 
         def sdpa(q, k, v, heads, scale, causal=False):
             self._bump(self.sdpa, q.shape[-1] // heads)
@@ -624,6 +708,113 @@ def phase_consisti2v():
     return counts
 
 
+def _seine_k5_role(q, k, heads, k_ctx):
+    if k.shape[1] != q.shape[1]:
+        return "cross"
+    return "mid self" if q.shape[1] == 64 else "spatial self"
+
+
+def seine_tiny_args(seed):
+    """The seine-tiny reference check's UNet inputs: 3 rows of 8 frames of
+    16x16 9-channel latents, timestep 501, 77 context tokens of 16."""
+    rng = np.random.RandomState(seed)
+    return [rng.randn(3, 8, 16, 16, 9).astype(np.float32), 501,
+            rng.randn(3, 77, 16).astype(np.float32)]
+
+
+def phase_seine():
+    """SEINE at full width: invert (every step on the save grid) -> cache
+    files -> DDPM PnP edit -> decode, through the CLIs' per-entry functions.
+    Returns each kernel's launch count over this run."""
+    from anyv2v_torch.cli.seine_run_ddim_inversion import invert_video
+    from anyv2v_torch.cli.seine_run_pnp_edit import edit_video
+    from anyv2v_torch.pipelines.seine import SeinePnPConfig
+    from anyv2v_torch.utils.model_zoo import build_seine_pipeline
+
+    _reference_check("seine-tiny", build_seine_pipeline, seine_tiny_args(4),
+                     {"pnp": (True, True, True, True)})
+
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    pipe = build_seine_pipeline("seine", device="cuda", seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder)
+                   for p in m.parameters())
+    log(f"pipeline seine built with seeded random bf16 weights: {n_params} parameters "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    frames = 16
+    video = _synthetic_video(np.random.RandomState(5), frames, 512)
+    edited_first = np.ascontiguousarray(video[0][:, :, ::-1])   # colour-swapped edit
+    ids = np.zeros((1, 77), np.int64)
+    pnp = SeinePnPConfig(conv=0.2, spatial=0.2, temporal=0.5, cross=0.0)
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp, _RouteLog(_seine_k5_role) as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents, traj, traj_ts = invert_video(pipe, video, text_ids=ids, n_steps=INV_STEPS,
+                                              n_save_steps=INV_STEPS, output_dir=tmp)
+        torch.cuda.synchronize()
+        times["encode+invert+write cache"] = time.perf_counter() - t0
+        traj_np, ts_np = _read_back_cache(tmp, traj, traj_ts, times)
+
+        t0 = time.perf_counter()
+        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first, n_frames=frames,
+                                 text_ids=(ids, ids, ids), n_steps=EDIT_STEPS, cfg_scale=4.0,
+                                 sampler="ddpm", pnp=pnp, seed=1)
+        torch.cuda.synchronize()
+        times["DDPM PnP edit+decode"] = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    for name, sec in times.items():
+        log(f"phase seine {name}: {sec:.3f} s")
+    log(f"seine main path: invert {INV_STEPS} steps (batch 1, {frames} frames, save grid "
+        f"{INV_STEPS} steps) + DDPM PnP edit {EDIT_STEPS} steps at cfg 4, thresholds "
+        f"conv 0.2 / spatial 0.2 / temporal 0.5 / cross 0.0 (2 steps conv+spatial+temporal, "
+        f"3 temporal only, 5 at batch 2)")
+    log(f"seine peak device memory: {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"kernel launches in the seine main path: {counts}")
+    log(f"seine routes: K5 by role {routes.k5}; K2 by shape {routes.k2}; SDPA through the "
+        f"dispatcher by head width {routes.sdpa} (CLIP calls SDPA directly)")
+    shape = (1, frames, 64, 64, 4)
+    n_temporal = 16 * (INV_STEPS + EDIT_STEPS)   # 16 temporal attentions per UNet forward
+    _check_outputs({
+        f"latents {list(shape)} finite": tuple(latents.shape) == shape
+        and bool(torch.isfinite(latents).all()),
+        f"trajectory [{INV_STEPS},1,16,64,64,4] finite": tuple(traj.shape) == (INV_STEPS,) + shape
+        and bool(torch.isfinite(traj).all()),
+        "edited latents finite": tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
+        f"video [{frames},512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
+        and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
+        and float(edited.max()) <= 1.0,
+        "K2, K3, K5 launched; K1, K4 not": all(counts[n] > 0 for n in (
+            "frame_attention", "ffn_geglu", "flash_attention"))
+        and counts["folded_attention"] == 0 and counts["gn_silu_temporal_conv"] == 0,
+        "K5 in its three roles": set(routes.k5) == {"spatial self", "mid self", "cross"},
+        f"K2 with the bias on all {n_temporal} temporal attentions":
+        all(key.endswith(" bias") for key in routes.k2)
+        and sum(routes.k2.values()) == n_temporal == counts["frame_attention"],
+        "only the VAE's 512-wide head on SDPA": set(routes.sdpa) <= {512},
+    })
+
+    phase_profile(pipe, "seine", seine_forward_args)
+    return counts
+
+
+def seine_forward_args(batch, g):
+    """A full-width SEINE UNet forward's inputs for the profile: 16 frames
+    of 64x64 9-channel latents, every PnP flag on at the edit batch 3."""
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+    kw = {"pnp": (True, True, True, True)} if batch == 3 else {}
+    return (rn(batch, 16, 64, 64, 9), 501, rn(batch, 77, 768, scale=0.1)), kw
+
+
 _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel"),
                   ("K2 frame_attention", "frame_attention"),
                   ("K3 ffn_geglu", "ffn_geglu_kernel"),
@@ -658,8 +849,10 @@ class _ClockSampler:
 
 def phase_profile(pipe, arch, make_args):
     """One UNet forward at the inversion batch (1) and at the edit batch (3,
-    every PnP flag on) under torch.profiler: device time by kernel group and
-    the device's busy share of the forward's wall time."""
+    every PnP flag on) under torch.profiler: device time by kernel group, the
+    device's busy share of the forward's wall time, the number of device ops
+    and the host's waits on the device (stream syncs, host-to-device copies)
+    inside the forward."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -673,9 +866,11 @@ def phase_profile(pipe, arch, make_args):
                 pipe.unet(*args, **kw)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        averages = prof.key_averages()
+        events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
+        h2d = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
         groups = {label: 0.0 for label, _ in _KERNEL_GROUPS}
         groups["other"] = 0.0
         for e in events:
@@ -684,6 +879,8 @@ def phase_profile(pipe, arch, make_args):
         log(f"profile {arch} UNet forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); by group (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
+            + f"; {sum(e.count for e in events)} device ops, host waits: {syncs} "
+            f"cudaStreamSynchronize, {h2d} host-to-device copies"
             + f"; nvidia-smi over warm-up and window: {clocks.summary}")
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         for e in top:

@@ -1,0 +1,51 @@
+"""Profiles one SEINE UNet forward at full width on one NVIDIA GPU, at
+batch 1 (inversion) and batch 3 (edit, every PnP flag on), twice.
+
+    python3 scripts/torch_seine_profile.py [TREE]
+
+``anyv2v_torch`` is imported from TREE (default: this checkout) and the
+profiler from this checkout's ``chip_smoke.py``, so two trees can be
+compared in one call: run it once per tree, in the order parent, change,
+change, parent. Each line gives wall time, device busy share, device time
+by kernel group, the number of device ops and the host's waits on the
+device. Weights are seeded random bf16, as in ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+    if not torch.cuda.is_available():
+        print("no CUDA GPU: torch.cuda.is_available() is False")
+        return 1
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import anyv2v_torch
+    from anyv2v_torch.ops import _build
+    from anyv2v_torch.utils.model_zoo import build_seine_pipeline
+
+    if not anyv2v_torch.__file__.startswith(tree):
+        raise RuntimeError(f"anyv2v_torch came from {anyv2v_torch.__file__}, not {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    pipe = build_seine_pipeline("seine", device="cuda", seed=0, dtype=torch.bfloat16)
+
+    print(f"anyv2v_torch from {tree}")
+    for _ in range(2):
+        smoke.phase_profile(pipe, "seine", smoke.seine_forward_args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,9 @@ PORT_MODULES = [
     "anyv2v_torch.models.unet_videoldm", "anyv2v_torch.pipelines.consisti2v",
     "anyv2v_torch.utils.config", "anyv2v_torch.utils.tokenizer", "anyv2v_torch.utils.metrics",
     "anyv2v_torch.cli.consisti2v_run_ddim_inversion", "anyv2v_torch.cli.consisti2v_run_pnp_edit",
+    "anyv2v_torch.ops.relpos", "anyv2v_torch.schedulers.ddpm", "anyv2v_torch.models.unet_seine",
+    "anyv2v_torch.pipelines.seine", "anyv2v_torch.cli.seine_run_ddim_inversion",
+    "anyv2v_torch.cli.seine_run_pnp_edit",
 ]
 FORBIDDEN = ("jax", "anyv2v_tpu")
 
@@ -60,9 +63,12 @@ def _imported_roots(line: str):
 
 
 def test_port_sources_never_import_jax():
-    """No import statement of the port or of chip_smoke.py names jax or
-    anyv2v_tpu (comments and docstrings may)."""
+    """No import statement of the port, of chip_smoke.py or of the port's
+    GPU scripts (``scripts/torch_*.py``) names jax or anyv2v_tpu (comments
+    and docstrings may)."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "anyv2v_torch")):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
     for path in paths:
@@ -82,7 +88,8 @@ def test_import_scan_sees_both_forms():
 def test_cuda_device_without_gpu_raises():
     _no_cuda()
     from anyv2v_torch.cli.common import build_pipeline_from_config
-    from anyv2v_torch.utils.model_zoo import build_consisti2v_pipeline, build_i2vgen_pipeline
+    from anyv2v_torch.utils.model_zoo import (build_consisti2v_pipeline, build_i2vgen_pipeline,
+                                              build_seine_pipeline)
 
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         anyv2v_torch.resolve_device("cuda")
@@ -94,6 +101,10 @@ def test_cuda_device_without_gpu_raises():
         build_consisti2v_pipeline("consisti2v-tiny", device="cuda", dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         build_pipeline_from_config({"model": {"arch": "consisti2v-tiny"}}, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_seine_pipeline("seine-tiny", device="cuda", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_pipeline_from_config({"model": {"arch": "seine-tiny"}}, "cuda")
     with pytest.raises(ValueError, match="device is required"):
         anyv2v_torch.resolve_device(None)
 
@@ -165,6 +176,20 @@ def test_wrappers_refuse_non_cpu_tensors(name):
     with pytest.raises(ValueError, match="expected CUDA or CPU tensors"):
         calls[name]()
     assert all(w.launches == n for w, n in before.items())
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "layout", "device"])
+def test_frame_attention_refuses_a_bad_bias(bad):
+    """The bias operand is fp32, contiguous, ``[heads, S, Sk]`` and on q's
+    device; anything else raises and is never dropped."""
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 6, 8, 16)
+    bias = {"shape": torch.zeros(2, 4, 4), "dtype": torch.zeros(2, 4, 6, dtype=torch.bfloat16),
+            "layout": torch.zeros(2, 6, 4).transpose(1, 2),
+            "device": torch.zeros(2, 4, 6, device="meta")}[bad]
+    with pytest.raises(ValueError, match="bias must be"):
+        frame_attention.frame_attention(q, k, k, 2, 0.3, bias)
+    assert frame_attention.frame_attention.launches == 0
 
 
 def test_cpu_tensors_take_the_plain_version():

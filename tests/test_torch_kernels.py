@@ -7,7 +7,8 @@ same numpy-seeded fp32 inputs; off-TPU the Pallas entries run in interpret
 mode. Shapes are small but cover each routed class: self and cross, padded
 head widths 8/16/32/64, 16 frames with a pixel count that tiles; for K5 the
 split-head flash (head widths 40/80/160, ragged Sq and Sk), split-KV and
-short-K/V cross classes; for K2 the augmented key axis Sk = S + 8.
+short-K/V cross classes; for K2 the augmented key axis Sk = S + 8 and the
+per-head score bias (SEINE's relative-position bias) in both Pallas forms.
 
 Tolerance: rtol 1e-4, atol 2e-5 (the block goldens' in
 tests/test_convert_golden.py). The kernels themselves are checked against the
@@ -140,6 +141,48 @@ def test_frame_attention_extra_keys_vs_short_attention_frames(b, s, sk, hw, head
                                   heads=heads, scale=dh ** -0.5)
     got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                           heads, dh ** -0.5)
+    _close(got, want)
+
+
+def _bias(rng, heads, s, sk):
+    return _rand(rng, heads, s, sk)
+
+
+@pytest.mark.parametrize(
+    "b,s,hw,heads,dh",
+    [
+        (3, 16, 16, 8, 40),    # SEINE L0 temporal class: 8 heads of 40, T5 bias
+        (3, 16, 8, 8, 80),     # L1
+        (1, 16, 8, 8, 160),    # L2 and mid
+        (3, 4, 16, 2, 8),      # seine-tiny (dh 4 stored as 8): the pair body
+    ],
+)
+def test_frame_attention_bias_vs_short_attention_frames(b, s, hw, heads, dh):
+    """The per-head score bias [heads, S, S], added after the scale."""
+    rng = np.random.RandomState(12)
+    c = heads * dh
+    q, k, v = (_rand(rng, b, s, hw, c) for _ in range(3))
+    bias = _bias(rng, heads, s, s)
+    want = short_attention_frames(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  heads=heads, scale=dh ** -0.5, bias=jnp.asarray(bias))
+    got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, dh ** -0.5, torch.from_numpy(bias))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,s,sk,hw,heads,dh", [(1, 16, 16, 64, 64, 8), (2, 5, 13, 16, 2, 8)])
+def test_frame_attention_bias_vs_temporal_ew(b, s, sk, hw, heads, dh):
+    """The elementwise kernel's bias (folded with log2 e), Sk == S and the
+    augmented key axis."""
+    rng = np.random.RandomState(13)
+    c = heads * dh
+    q = _rand(rng, b, s, hw, c, scale=0.3)
+    k, v = _rand(rng, b, sk, hw, c, scale=0.3), _rand(rng, b, sk, hw, c, scale=0.3)
+    bias = _bias(rng, heads, s, sk)
+    want = temporal_ew_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=heads,
+                                 scale=dh ** -0.5, bias=jnp.asarray(bias))
+    got = frame_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, dh ** -0.5, torch.from_numpy(bias))
     _close(got, want)
 
 
