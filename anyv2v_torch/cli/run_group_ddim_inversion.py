@@ -22,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from ..pipelines.common import host_array
 from ..utils.io import save_ddim_trajectory
 from .common import (build_pipeline_from_config, clip_input, load_frames_for_config,
                      prompt_ids, setup_logging)
@@ -31,10 +32,14 @@ logger = logging.getLogger("anyv2v_torch.inversion")
 
 def invert_video(pipe, frames01: np.ndarray, *, text_ids: np.ndarray, n_steps: int,
                  fps: int = 8, clip_width: int | None = None, output_dir: str | None = None,
-                 static_video: bool = False, null_image: bool = False):
+                 static_video: bool = False, null_image: bool = False,
+                 chunk_steps: int | None = None, traj_store: str = "device"):
     """One entry: VAE-encode ``frames01 [F, H, W, 3]``, invert ``n_steps``, and
-    (with ``output_dir``) write the latent cache. Returns (latents, trajectory,
-    inversion timesteps, text embeds, image latents, image embeds)."""
+    (with ``output_dir``) write the latent cache. ``traj_store="host"`` keeps
+    the trajectory in host memory (``chunk_steps`` steps per device -> host
+    copy), the long-video route; the cache is then written from there.
+    Returns (latents, trajectory, inversion timesteps, text embeds, image
+    latents, image embeds)."""
     frames01 = np.asarray(frames01, np.float32)
     if static_video:
         frames01 = np.repeat(frames01[:1], len(frames01), axis=0)
@@ -44,9 +49,10 @@ def invert_video(pipe, frames01: np.ndarray, *, text_ids: np.ndarray, n_steps: i
     img_lat = pipe.prepare_image_latents(first, len(frames01))
     img_emb = pipe.encode_image_clip(clip_input(pipe, first, clip_width or frames01.shape[2]))
     traj, inv_ts = pipe.invert(latents, text, img_lat, img_emb,
-                               num_inversion_steps=n_steps, fps=fps)
+                               num_inversion_steps=n_steps, fps=fps,
+                               chunk_steps=chunk_steps, traj_store=traj_store)
     if output_dir is not None:
-        save_ddim_trajectory(output_dir, traj.cpu().numpy(), inv_ts)
+        save_ddim_trajectory(output_dir, host_array(traj), inv_ts)
         logger.info("saved %d-step trajectory to %s", len(inv_ts), output_dir)
     return latents, traj, inv_ts, text, img_lat, img_emb
 
@@ -114,7 +120,9 @@ def main(argv=None):
             n_steps=int(inv.n_steps), fps=int(inv.get("target_fps", 8)),
             clip_width=int(cfg.image_size[0]), output_dir=inv.output_dir,
             static_video=bool(inv.get("inverse_static_video", False)),
-            null_image=bool(inv.get("null_image_inversion", False)))
+            null_image=bool(inv.get("null_image_inversion", False)),
+            chunk_steps=None if inv.get("chunk_steps") is None else int(inv.chunk_steps),
+            traj_store=str(inv.get("traj_store", "device")))
         if cfg.get("recon_config", {}).get("enable_recon", False):
             reconstruct(pipe, tokenizer, cfg, latents, traj, inv_ts, img_lat, img_emb)
 

@@ -21,6 +21,7 @@ import os
 import numpy as np
 import torch
 
+from ..pipelines.common import HostTrajectory
 from ..pipelines.i2vgen import PnPConfig
 from ..schedulers import sampling_timesteps
 from ..utils.io import load_ddim_trajectory
@@ -43,8 +44,10 @@ def edit_video(pipe, traj, inv_ts: np.ndarray, src01: np.ndarray, edited01: np.n
     """One entry: the PnP edit of a cached trajectory, conditioned on the
     source first frame ``src01`` and the edited first frame ``edited01``
     (``[H, W, 3]`` in [0, 1]). ``text_ids``: token ids of (inversion prompt,
-    negative prompt, edit prompt). Returns (latents ``[1, F, h, w, 4]``,
-    video ``[F, H, W, 3]``)."""
+    negative prompt, edit prompt). ``traj``: a host array (the cache as read
+    from disk) or a :class:`HostTrajectory`, of which only the rows the edit
+    reads reach the device, or a device tensor. Returns (latents ``[1, F, h,
+    w, 4]``, video ``[F, H, W, 3]``)."""
     width = clip_width or src01.shape[1]
     text_all = torch.cat([pipe.encode_text(ids) for ids in text_ids])
     lat_src = pipe.prepare_image_latents(src01, n_frames)
@@ -52,7 +55,9 @@ def edit_video(pipe, traj, inv_ts: np.ndarray, src01: np.ndarray, edited01: np.n
     emb_src = pipe.encode_image_clip(clip_input(pipe, src01, width))
     emb_edit = pipe.encode_image_clip(clip_input(pipe, edited01, width))
 
-    traj = torch.as_tensor(traj, dtype=torch.float32, device=pipe.device)
+    if not torch.is_tensor(traj) and not isinstance(traj, HostTrajectory):
+        # a cache read from disk: the edit moves only the rows it reads
+        traj = HostTrajectory.from_array(traj, pipe.device)
     start_t = int(sampling_timesteps(pipe.schedule, n_steps)[t_idx])
     init_latent = traj[int(np.where(inv_ts == start_t)[0][0])]
     if random_ratio > 0.0:

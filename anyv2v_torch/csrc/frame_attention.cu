@@ -10,44 +10,60 @@
 //                                              transformer_in, dh 16/32/64;
 //                                              ConsistI2V, Sk = 25, dh 40/80;
 //                                              SEINE, bias, dh 40/80/160)
-// Both read the native [B, S, HW, C] layout so the temporal transformer never
-// transposes its tokens. These kernels do the same and compute no wasted
-// scores: S x Sk per (batch, pixel, head), as _ew_kernel did.
+//   pallas_short_attention.py _short_kernel   (as short_attention_frames
+//                                              calls it past 32 frames: the
+//                                              128-frame long-video path)
+// The first two read the native [B, S, HW, C] layout so the temporal
+// transformer never transposes its tokens; past 32 frames the JAX package
+// transposes to [B*HW, S, C] for _short_kernel. These kernels read the native
+// layout at every S and compute no wasted scores: S x Sk per (batch, pixel,
+// head), as _ew_kernel did.
 //
 // Optional bias: an fp32 [H, S, Sk] table shared by every batch row and pixel
-// (SEINE's T5 relative-position bias, 8 KB at 8 heads x 16 x 16), added to the
-// scaled scores. Both bodies work in the exp2 domain, so each score gains
-// bias * log2(e) before the running max, as _ew_kernel adds it. The table is
-// read through __ldg (it stays in L1/L2); a null pointer means no bias, and
-// that instantiation is the bias-free code unchanged. Keys past Sk stay -inf.
-// The bias must be finite.
+// (SEINE's T5 relative-position bias: 8 KB at 8 heads x 16 x 16, 590 KB at
+// 8 heads x 128 x 144), added to the scaled scores. Every body works in the
+// exp2 domain, so each score gains bias * log2(e) before the running max, as
+// _ew_kernel adds it. The table is read through __ldg (a 16-frame table stays
+// in L1, a 128-frame one in L2); a null pointer means no bias, and that
+// instantiation is the bias-free code unchanged. Keys past Sk stay -inf. The
+// bias must be finite.
 //
-// What bounds it on the H100: bytes. q, k and v are read once and the output
-// written once (2 x B*(S+Sk)*HW*C*2 bytes, 400 MB for an i2vgen-xl L0 edit
-// call, 0.66 GB for ConsistI2V's); the S*Sk*DH multiply-adds per head are few
-// by comparison, and so is the bias table.
+// What bounds it on the H100: bytes up to 32 frames, q, k and v read once and
+// the output written once (2 x B*(S+Sk)*HW*C*2 bytes, 400 MB for an
+// i2vgen-xl L0 edit call at 16 frames, 0.66 GB for ConsistI2V's); the
+// S*Sk*DH multiply-adds per head are few by comparison. At 128 frames the
+// multiply-adds grow 64-fold (2.1e11 for an L0 edit call, 3.2 GB of bytes):
+// on CUDA cores in fp32 the long route is bound by its operations, and
+// tensor-core mma is the way to the byte bound (a later change).
 //
-// Two bodies, one entry:
+// Three kernels, two bodies:
 //
-// frame_attention_kernel (Sk == S, DH a power of two <= 64: i2vgen-xl's
+// frame_attention_kernel (Sk == S <= 32, DH a power of two <= 64: i2vgen-xl's
 // temporal layers). One thread per (batch, pixel, channel pair); neighbouring
 // threads hold neighbouring channels, so each warp reads 128 contiguous bytes
 // per frame (coalesced bf16x2 loads). A head spans DH/2 consecutive lanes, and
 // the per-head q.k sum over DH is a butterfly of warp shuffles inside that
 // lane group. Each thread keeps its two channels of k and v for all S frames
 // in registers and loops over query frames: S scores, fp32 softmax with
-// exp2f, then p.v for its two channels.
+// exp2f, then p.v for its two channels. It cannot go past 32 frames: at 128
+// that is 512 registers of keys and values per thread.
 //
-// frame_attention_rows_kernel (S <= Sk <= S + 16, DH 8/16/40/80/160:
-// ConsistI2V's temporal layers, 8 heads of 40/80/160 over 17 frames plus
-// 8 augmented first-frame keys). DH/2 lanes is no power of two there, and 48
-// keys of two channels would not fit in registers, so the work is cut the
-// other way: R lanes own one query row (b, pixel, head, frame), each holding
-// CW = DH/R channels of q and of the fp32 accumulator (CW <= 40). Neighbouring
-// row groups are the S query frames of one (pixel, head), so a key or value
-// load is one address broadcast to all of them (two addresses per warp) and
-// device memory is read once.
-// Keys run in chunks of 8 with one online-softmax rescale per chunk.
+// frame_attention_rows_kernel (S <= 32, S <= Sk <= S + 16, DH
+// 8/16/40/80/160: ConsistI2V's temporal layers, 8 heads of 40/80/160 over 17
+// frames plus 8 augmented first-frame keys) and frame_attention_long_kernel
+// (K2 long: 32 < S <= 128, the same Sk range, DH 8/16/32/40/64/80/160:
+// i2vgen-xl at 128 frames, transformer_in's 64, the row body's 40/80/160)
+// share one body, rows_body; two kernel names keep the routes apart in a
+// profile. DH/2 lanes is no power of two at DH 40, and 48 keys of two channels
+// would not fit in registers, so the work is cut the other way: R lanes own
+// one query row (b, pixel, head, frame), each holding CW = DH/R channels of q
+// and of the fp32 accumulator (CW <= 40). Neighbouring row groups are the S
+// query frames of one (pixel, head): at S = 128 and R = 1 a warp is 32 query
+// frames of one (pixel, head) and a 128-thread block all 128 of them, so a
+// key or value load is one address broadcast to the warp, the block's four
+// warps share it through L1, and device memory is read once.
+// Keys stream in chunks of 8 with one online-softmax rescale per chunk, so
+// nothing in the body grows with S.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -166,8 +182,9 @@ cudaError_t launch_s(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// One query row (b, pixel, head, frame) per R lanes; see the header.
 template <int CW, int R, bool BIAS>
-__global__ void __launch_bounds__(128) frame_attention_rows_kernel(
+__device__ __forceinline__ void rows_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     __nv_bfloat16* __restrict__ o, int S, int Sk, int HW, int H, long long total,
@@ -285,7 +302,28 @@ __global__ void __launch_bounds__(128) frame_attention_rows_kernel(
   }
 }
 
-template <int CW, int R>
+// S <= 32 (K2's row body)
+template <int CW, int R, bool BIAS>
+__global__ void __launch_bounds__(128) frame_attention_rows_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ o, int S, int Sk, int HW, int H, long long total,
+    float scale_log2) {
+  rows_body<CW, R, BIAS>(q, k, v, bias, o, S, Sk, HW, H, total, scale_log2);
+}
+
+// 32 < S <= 128 (K2 long): the same body, a kernel of its own so that a
+// profile tells the two routes apart
+template <int CW, int R, bool BIAS>
+__global__ void __launch_bounds__(128) frame_attention_long_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ o, int S, int Sk, int HW, int H, long long total,
+    float scale_log2) {
+  rows_body<CW, R, BIAS>(q, k, v, bias, o, S, Sk, HW, H, total, scale_log2);
+}
+
+template <int CW, int R, bool LONG>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
                         const float* bias, void* o, int B, int S, int Sk, int HW,
                         int H, float scale_log2, cudaStream_t stream) {
@@ -297,38 +335,71 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
   auto kb = (const __nv_bfloat16*)k;
   auto vb = (const __nv_bfloat16*)v;
   auto ob = (__nv_bfloat16*)o;
-  if (bias)
-    frame_attention_rows_kernel<CW, R, true><<<(unsigned)blocks, threads, 0, stream>>>(
-        qb, kb, vb, bias, ob, S, Sk, HW, H, total, scale_log2);
-  else
-    frame_attention_rows_kernel<CW, R, false><<<(unsigned)blocks, threads, 0, stream>>>(
-        qb, kb, vb, nullptr, ob, S, Sk, HW, H, total, scale_log2);
+  const unsigned grid = (unsigned)blocks;
+  if constexpr (LONG) {
+    if (bias)
+      frame_attention_long_kernel<CW, R, true><<<grid, threads, 0, stream>>>(
+          qb, kb, vb, bias, ob, S, Sk, HW, H, total, scale_log2);
+    else
+      frame_attention_long_kernel<CW, R, false><<<grid, threads, 0, stream>>>(
+          qb, kb, vb, nullptr, ob, S, Sk, HW, H, total, scale_log2);
+  } else {
+    if (bias)
+      frame_attention_rows_kernel<CW, R, true><<<grid, threads, 0, stream>>>(
+          qb, kb, vb, bias, ob, S, Sk, HW, H, total, scale_log2);
+    else
+      frame_attention_rows_kernel<CW, R, false><<<grid, threads, 0, stream>>>(
+          qb, kb, vb, nullptr, ob, S, Sk, HW, H, total, scale_log2);
+  }
   return cudaGetLastError();
+}
+
+template <bool LONG>
+int launch_rows_dh(const void* q, const void* k, const void* v, const float* bias,
+                   void* o, int B, int S, int Sk, int HW, int C, int DH, float scale,
+                   cudaStream_t s) {
+  const int H = C / DH;
+  const float sl = scale * kLog2e;
+  switch (DH) {
+    case 8: return (int)launch_rows<8, 1, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 16: return (int)launch_rows<16, 1, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 32: return (int)launch_rows<32, 1, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 40: return (int)launch_rows<40, 1, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 64: return (int)launch_rows<32, 2, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 80: return (int)launch_rows<40, 2, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    case 160: return (int)launch_rows<40, 4, LONG>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// S <= Sk <= S + 16, DH 8/16/40/80/160; pointers 16-byte aligned. bias: fp32
-// [C / DH, S, Sk], or null.
+// S <= 32, S <= Sk <= S + 16, DH 8/16/32/40/64/80/160; pointers 16-byte
+// aligned. bias: fp32 [C / DH, S, Sk], or null.
 extern "C" int anyv2v_frame_attention_rows(const void* q, const void* k,
                                            const void* v, const float* bias,
                                            void* o, int B, int S, int Sk, int HW,
                                            int C, int DH, float scale,
                                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || S <= 0 || Sk < S || Sk > S + 16 || HW <= 0 || DH <= 0 ||
+  if (B <= 0 || S <= 0 || S > 32 || Sk < S || Sk > S + 16 || HW <= 0 || DH <= 0 ||
       C % DH != 0)
     return (int)cudaErrorInvalidValue;
-  const int H = C / DH;
-  const float sl = scale * 1.4426950408889634f;
-  switch (DH) {
-    case 8: return (int)launch_rows<8, 1>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
-    case 16: return (int)launch_rows<16, 1>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
-    case 40: return (int)launch_rows<40, 1>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
-    case 80: return (int)launch_rows<40, 2>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
-    case 160: return (int)launch_rows<40, 4>(q, k, v, bias, o, B, S, Sk, HW, H, sl, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_rows_dh<false>(q, k, v, bias, o, B, S, Sk, HW, C, DH, scale,
+                               (cudaStream_t)stream);
+}
+
+// K2 long: 32 < S <= 128, S <= Sk <= S + 16, DH 8/16/32/40/64/80/160;
+// pointers 16-byte aligned. bias: fp32 [C / DH, S, Sk], or null.
+extern "C" int anyv2v_frame_attention_long(const void* q, const void* k,
+                                           const void* v, const float* bias,
+                                           void* o, int B, int S, int Sk, int HW,
+                                           int C, int DH, float scale,
+                                           void* stream) {
+  if (B <= 0 || S <= 32 || S > 128 || Sk < S || Sk > S + 16 || HW <= 0 || DH <= 0 ||
+      C % DH != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_rows_dh<true>(q, k, v, bias, o, B, S, Sk, HW, C, DH, scale,
+                              (cudaStream_t)stream);
 }
 
 // Sk == S <= 32, DH a power of two 2..64. bias: fp32 [C / DH, S, S], or null.

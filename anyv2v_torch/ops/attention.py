@@ -28,14 +28,20 @@ other attention, not causal                    dh 8/16/40/64/80/160    K5
 :func:`temporal_attention` with ``bias``       the same, bias          K2 + bias
   (SEINE: S = Sk = 16, 8 heads of              ``[H, S, Sk]`` fp32
   40/80/160, T5 relative positions)
+:func:`temporal_attention`, long video         32 < S <= 128,          K2 long
+  (i2vgen-xl at 128 frames: 64 heads of        Sk <= S + 16,
+  8/16/32, transformer_in 8 of 64)             bias optional
 everything else (the VAE's 512-wide head)                              SDPA
 =============================================  ======================  =========
 
 K1 takes what it took before K5 existed except window-packed heads of 64,
 which no i2vgen-xl call has (its windowed calls are 64 heads of 8/16/32);
 the JAX package likewise sends only heads narrower than 64 to its packed
-kernels. CLIP's text and vision encoders call :func:`sdpa_attention`
-directly, as the JAX package left them to XLA. The JAX row and length
+kernels. Past 32 frames the JAX package transposes the temporal tokens to
+``[B*HW, S, C]`` for ``_short_kernel``; K2 long reads them in place. Frame
+counts past 128 raise, as the JAX kernel's cap. CLIP's text and vision
+encoders call :func:`sdpa_attention` directly, as the JAX package left them
+to XLA. The JAX row and length
 thresholds were tuned on a TPU and are not copied. On CPU tensors every route
 takes the kernel's plain version.
 """
@@ -49,7 +55,7 @@ import torch.nn.functional as F
 
 from .flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention
 from .folded_attention import HEAD_DIMS, folded_attention
-from .frame_attention import frame_attention, takes as frame_kernel_takes
+from .frame_attention import frame_attention, frame_attention_long, takes, takes_long
 
 
 def padded_head_dim(d: int) -> int:
@@ -124,9 +130,11 @@ def temporal_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tens
     and values ``[B, Sk, HW, C]`` may carry up to 16 extra frames. ``bias``:
     an fp32 ``[heads, S, Sk]`` table added to the scaled scores of every
     batch row and pixel (SEINE's relative-position bias)."""
-    s, sk = query.shape[1], key.shape[1]
-    if not frame_kernel_takes(s, sk, query.shape[-1] // heads):
-        raise NotImplementedError(
-            f"frame-axis attention of {s} query frames over {sk} key frames at head "
-            f"width {query.shape[-1] // heads} is not ported yet")
-    return frame_attention(query, key, value, heads, scale, bias)
+    s, sk, dh = query.shape[1], key.shape[1], query.shape[-1] // heads
+    if takes(s, sk, dh):
+        return frame_attention(query, key, value, heads, scale, bias)
+    if takes_long(s, sk, dh):
+        return frame_attention_long(query, key, value, heads, scale, bias)
+    raise NotImplementedError(
+        f"frame-axis attention of {s} query frames over {sk} key frames at head width {dh} "
+        f"has no kernel: K2 takes S <= 32, K2 long 32 < S <= 128, Sk <= S + 16")

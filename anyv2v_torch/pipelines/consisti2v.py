@@ -22,8 +22,11 @@ last injection has expired, drops the source row (one UNet row less), as its
 eps is discarded by the CFG combine. The carries and the trajectory are fp32;
 the UNet computes in its configured dtype (bf16 on the GPU).
 
-Not ported yet (``ROADMAP.md``): FreeInit, pyoco noise, camera motion, the
-host-resident trajectory and the multi-chip path.
+``traj_store="host"`` keeps the trajectory in host memory, chunk by chunk
+(as ``I2VGenPipeline.invert``); the edit then moves only the rows it reads.
+
+Not ported yet (``ROADMAP.md``): FreeInit, pyoco noise, camera motion and the
+multi-chip path.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
-from .common import LatentCodecMixin, group_constant_runs
+from .common import (HostTrajectory, LatentCodecMixin, device_rows_for_scan,
+                     group_constant_runs, run_inversion)
 from .i2vgen import PnPConfig
 
 _UNCOND_ROWS = {None: 1, "text": 2, "both": 3}   # CFG rows besides the source
@@ -112,22 +116,27 @@ class ConsistI2VPipeline(LatentCodecMixin):
 
     @torch.inference_mode()
     def invert(self, video_latents, text_embeds, num_inversion_steps: int = 500,
-               frame_stride: int = 3):
+               frame_stride: int = 3, chunk_steps: Optional[int] = None,
+               traj_store: str = "device"):
         """cfg_txt = cfg_img = 1 inversion of ``[1, F, h, w, 4]`` latents (frame
-        0 included). Returns (trajectory ``[n, 1, F, h, w, 4]`` fp32 on the
-        device, every row with the clean frame 0 in front; ascending timesteps
-        ``[n]``)."""
+        0 included). Returns (trajectory ``[n, 1, F, h, w, 4]`` fp32, every
+        row with the clean frame 0 in front; ascending timesteps ``[n]``): a
+        device tensor, or with ``traj_store="host"`` a :class:`HostTrajectory`
+        filled one chunk of ``chunk_steps`` steps at a time."""
         inv_ts = inversion_timesteps(self.schedule, num_inversion_steps)
         lat = self._tensor(video_latents)
         ff, x = lat[:, :1], lat[:, 1:]
         text = self._tensor(text_embeds)
-        traj = torch.empty((len(inv_ts),) + tuple(lat.shape), dtype=torch.float32,
-                           device=self.device)
-        traj[:, :, :1] = ff
-        for i, t in enumerate(inv_ts):
-            eps = self._eps(x, int(t), text, ff, frame_stride)
-            x = ddim_inverse_step(self.schedule, x, eps, int(t), num_inversion_steps)
-            traj[i, :, 1:] = x
+
+        def step(i):
+            nonlocal x
+            t = int(inv_ts[i])
+            x = ddim_inverse_step(self.schedule, x, self._eps(x, t, text, ff, frame_stride), t,
+                                  num_inversion_steps)
+            return torch.cat([ff, x], dim=1)
+
+        traj = run_inversion(step, np.ones(len(inv_ts), bool), lat.shape, self.device,
+                             traj_store, chunk_steps)
         return traj, inv_ts
 
     # ------------------------------------------------------------------
@@ -158,7 +167,8 @@ class ConsistI2VPipeline(LatentCodecMixin):
             raise ValueError(f"timestep {missing[0]} not on the inversion grid")
         cache_idx = [t_to_row[int(t)] for t in ts_run]
 
-        traj = self._tensor(traj)
+        if not isinstance(traj, HostTrajectory):
+            traj = self._tensor(traj)
         init_row = traj[cache_idx[0]]
         cache_ff = init_row[:, :1]
         x = init_row[:, 1:] if init_latent is None else self._tensor(init_latent)
@@ -172,6 +182,8 @@ class ConsistI2VPipeline(LatentCodecMixin):
         k_inj = int(np.max(np.nonzero(m_any)[0])) + 1 if m_any.any() else 0
         if not split_scan:
             k_inj = n_run
+        # a host store: only the rows of the injection steps go to the device
+        traj, cache_idx = device_rows_for_scan(traj, cache_idx, k_inj)
         ffl = torch.cat([ff_src] + ff_rows, dim=0)
         for start, pat, stop in group_constant_runs(masks, k_inj):
             for i in range(start, stop):

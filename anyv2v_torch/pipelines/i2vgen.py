@@ -3,8 +3,12 @@
 
 The JAX package's ``lax.scan`` programs become Python step loops:
 
-- inversion writes every step's latent into a preallocated fp32 trajectory
-  tensor on the device, ``[n, 1, F, h, w, 4]`` in ascending-t order;
+- inversion writes every step's latent (or, with ``num_save_steps``, those on
+  the coarser save grid) into a preallocated fp32 trajectory tensor on the
+  device, ``[n, 1, F, h, w, 4]`` in ascending-t order; with
+  ``traj_store="host"`` it fills one chunk of ``chunk_steps`` steps at a time
+  and moves each to a :class:`~anyv2v_torch.pipelines.common.HostTrajectory`
+  (the long-video route: the edit then moves back only the rows it reads);
 - the edit runs the CFG batch ``[src, uncond, cond]`` (src row re-read from
   the trajectory each step) in static segments of constant injection flags,
   then drops to a batch of 2 ``[uncond, cond]`` once the last injection has
@@ -30,7 +34,8 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
-from .common import LatentCodecMixin, group_constant_runs
+from .common import (HostTrajectory, LatentCodecMixin, device_rows_for_scan,
+                     group_constant_runs, run_inversion)
 
 
 @dataclasses.dataclass
@@ -80,19 +85,34 @@ class I2VGenPipeline(LatentCodecMixin):
 
     @torch.inference_mode()
     def invert(self, video_latents, text_embeds, image_latents, image_embeds,
-               num_inversion_steps: int = 500, fps: int = 8):
-        """Returns (trajectory ``[n, 1, F, h, w, 4]`` fp32 on the device,
-        ascending timesteps ``[n]``)."""
+               num_inversion_steps: int = 500, fps: int = 8,
+               chunk_steps: Optional[int] = None, num_save_steps: Optional[int] = None,
+               traj_store: str = "device"):
+        """Returns (trajectory ``[n, 1, F, h, w, 4]`` fp32, its ascending
+        timesteps ``[n]``).
+
+        ``num_save_steps``: keep only the rows whose timesteps lie on the
+        ``num_save_steps`` inversion grid (a 50-step edit grid nests in any
+        save grid that is a multiple of 50). ``traj_store="host"``: the rows
+        go to a :class:`HostTrajectory`, one copy per chunk of
+        ``chunk_steps`` steps (:func:`resolve_chunk_steps`), so the device
+        holds one chunk at a time; ``"device"`` returns a device tensor."""
         inv_ts = inversion_timesteps(self.schedule, num_inversion_steps)
+        keep = np.ones(len(inv_ts), bool)
+        if num_save_steps is not None and num_save_steps < num_inversion_steps:
+            keep = np.isin(inv_ts, inversion_timesteps(self.schedule, num_save_steps))
         x = self._tensor(video_latents)
         text, il, ie = (self._tensor(a) for a in (text_embeds, image_latents, image_embeds))
-        traj = torch.empty((len(inv_ts),) + tuple(x.shape), dtype=torch.float32,
-                           device=self.device)
-        for i, t in enumerate(inv_ts):
-            eps = self._eps(x, int(t), text, fps, il, ie)
-            x = ddim_inverse_step(self.schedule, x, eps, int(t), num_inversion_steps)
-            traj[i] = x
-        return traj, inv_ts
+
+        def step(i):
+            nonlocal x
+            t = int(inv_ts[i])
+            x = ddim_inverse_step(self.schedule, x, self._eps(x, t, text, fps, il, ie), t,
+                                  num_inversion_steps)
+            return x
+
+        traj = run_inversion(step, keep, x.shape, self.device, traj_store, chunk_steps)
+        return traj, inv_ts[keep]
 
     # ------------------------------------------------------------------
     # PnP edit / plain sampling
@@ -105,6 +125,9 @@ class I2VGenPipeline(LatentCodecMixin):
                         fps: int = 8, init_latent=None, split_scan: bool = True) -> torch.Tensor:
         """PnP editing loop from the cached inverted latent at
         ``timesteps[t_idx]`` (or ``init_latent``) over ``timesteps[t_idx:]``.
+        ``traj``: a trajectory tensor or array (moved to the device whole),
+        or a :class:`HostTrajectory`, from which only the rows the injection
+        steps read reach the device (the batch-2 tail reads none).
 
         ``split_scan`` (default): once every injection schedule has expired
         the remaining steps run at batch 2 without the source row — the same
@@ -124,7 +147,8 @@ class I2VGenPipeline(LatentCodecMixin):
                 f"a step count that is a multiple of {num_inference_steps}")
         cache_idx = [t_to_row[int(t)] for t in ts_run]
 
-        traj = self._tensor(traj)
+        if not isinstance(traj, HostTrajectory):
+            traj = self._tensor(traj)
         x = traj[cache_idx[0]] if init_latent is None else self._tensor(init_latent)
         text3, il3, ie3 = (self._tensor(a) for a in
                            (text_embeds_all, image_latents_all, image_embeds_all))
@@ -134,6 +158,8 @@ class I2VGenPipeline(LatentCodecMixin):
         k_inj = int(np.max(np.nonzero(m_any)[0])) + 1 if m_any.any() else 0
         if not split_scan:
             k_inj = n_run
+        # a host store: only the rows of the injection steps go to the device
+        traj, cache_idx = device_rows_for_scan(traj, cache_idx, k_inj)
         # static segments: each run of steps has one Python-bool flag pattern
         for start, pat, stop in group_constant_runs(masks, k_inj):
             for i in range(start, stop):

@@ -22,8 +22,11 @@ expired, a source-free tail at batch 2, since the source row's eps is
 discarded by the CFG combine. The carries and the trajectory are fp32; the
 UNet computes in its configured dtype (bf16 on the GPU).
 
-Not ported yet (``ROADMAP.md``): the host-resident trajectory and the
-multi-chip path.
+``traj_store="host"`` keeps the save-grid rows in host memory, chunk by
+chunk (as ``I2VGenPipeline.invert``); the edit then moves only the rows it
+reads.
+
+Not ported yet (``ROADMAP.md``): the multi-chip path.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
-from .common import LatentCodecMixin, group_constant_runs
+from .common import (HostTrajectory, LatentCodecMixin, device_rows_for_scan,
+                     group_constant_runs, run_inversion)
 
 
 @dataclasses.dataclass
@@ -119,28 +123,26 @@ class SeinePipeline(LatentCodecMixin):
     @torch.inference_mode()
     def invert(self, video_latents, mask, masked_latent, text_embeds,
                num_inversion_steps: int = 500, num_save_steps: int = 250,
-               traj_store: str = "device"):
+               chunk_steps: Optional[int] = None, traj_store: str = "device"):
         """Inversion of ``[1, F, h, w, 4]`` latents. Returns (trajectory at the
-        save grid ``[n, 1, F, h, w, 4]`` fp32 on the device, its ascending
-        timesteps ``[n]``)."""
-        if traj_store != "device":
-            raise NotImplementedError(
-                f"traj_store={traj_store!r}: the host-resident trajectory is not ported yet "
-                "(ROADMAP.md queue 1, item 8)")
+        save grid ``[n, 1, F, h, w, 4]`` fp32, its ascending timesteps
+        ``[n]``): a device tensor, or with ``traj_store="host"`` a
+        :class:`HostTrajectory` filled one chunk of ``chunk_steps`` steps at
+        a time."""
         inv_ts = inversion_timesteps(self.schedule, num_inversion_steps)
         keep = np.isin(inv_ts, sampling_timesteps(self.schedule, num_save_steps))
         x = self._tensor(video_latents)
         mask, masked = self._tensor(mask), self._tensor(masked_latent)
         text = self._tensor(text_embeds)
-        traj = torch.empty((int(keep.sum()),) + tuple(x.shape), dtype=torch.float32,
-                           device=self.device)
-        row = 0
-        for t, kept in zip(inv_ts, keep):
-            eps = self._eps(self._nine_channel(x, mask, masked), int(t), text)
-            x = ddim_inverse_step(self.schedule, x, eps, int(t), num_inversion_steps)
-            if kept:
-                traj[row] = x
-                row += 1
+
+        def step(i):
+            nonlocal x
+            t = int(inv_ts[i])
+            eps = self._eps(self._nine_channel(x, mask, masked), t, text)
+            x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
+            return x
+
+        traj = run_inversion(step, keep, x.shape, self.device, traj_store, chunk_steps)
         return traj, inv_ts[keep]
 
     # ------------------------------------------------------------------
@@ -184,7 +186,8 @@ class SeinePipeline(LatentCodecMixin):
             raise ValueError(f"timestep {missing[0]} not in the saved trajectory grid")
         cache_idx = [t_to_row[int(t)] for t in lookup]
 
-        traj = self._tensor(traj)
+        if not isinstance(traj, HostTrajectory):
+            traj = self._tensor(traj)
         x = traj[cache_idx[0]] if init_latent is None else self._tensor(init_latent)
         if noises is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -203,6 +206,8 @@ class SeinePipeline(LatentCodecMixin):
         k_inj = int(np.max(np.nonzero(m_any)[0])) + 1 if m_any.any() else 0
         if not split_scan:
             k_inj = len(ts)
+        # a host store: only the rows of the injection steps go to the device
+        traj, cache_idx = device_rows_for_scan(traj, cache_idx, k_inj)
         for start, pat, stop in group_constant_runs(masks, k_inj):
             for i in range(start, stop):
                 x_in = self._nine_channel(x, mask, m_edit)

@@ -9,10 +9,15 @@ Phases:
     the main paths give it, and time it beside its plain version, its bound
     (the least time the card could take: bytes over 3.35 TB/s or bf16
     operations over 989 TFLOP/s, whichever is larger) and, where one PyTorch
-    call computes the same function, that call (``scaled_dot_product_attention``);
-    each attention kernel and its plain version also against the fp32 truth;
-    K1 also at the shapes of the seine-tiny reference check (untimed);
-    then the bounds of the Pallas kernels not ported yet, at their shapes;
+    call computes the same function, that call (``scaled_dot_product_attention``;
+    for K2 long on copies transposed to ``[B*HW, H, S, dh]`` beforehand, the
+    transposes timed apart); each attention kernel and its plain version also
+    against the fp32 truth; K1 also at the shapes of the seine-tiny reference
+    check (untimed) and at the class of the Pallas ``_packed_kernel``, keys
+    past 4096 (2 rows, Sq = Sk = 8192); K2 long at the 128-frame i2vgen-xl shapes
+    (L0-L3 temporal and transformer_in, batch 1 and 3), at SEINE's widths
+    with a relative-position bias (S 64) and at Sk = S + 8; K1, K3 and K4 at
+    128-frame shapes;
  4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
@@ -21,13 +26,22 @@ Phases:
     then one i2vgen-xl UNet forward at batch 1 and at batch 3 under
     torch.profiler: device time by kernel group, the device's busy share and
     the 12 kernels that take the most time;
- 5. the ConsistI2V main path at full width (16 frames plus the conditioning
+ 5. the i2vgen-xl long-video path at full width (128 frames, 512x512, the
+    same pipeline): an i2vgen-tiny reference check at 40 frames, then VAE
+    encode, a 4-step inversion into host memory (``traj_store="host"``, two
+    chunks of 2), the cache files, a 2-step PnP edit (one batch-3 injection
+    step, one batch-2 tail step) and decode; K2 long must launch on all 34
+    temporal attentions of every UNet forward and the S <= 32 K2 bodies
+    never, K1, K3 and K4 must launch, K5 must not, the outputs must be finite
+    and the peak device memory under 80 GB; then one batch-3 UNet forward
+    under torch.profiler;
+ 6. the ConsistI2V main path at full width (16 frames plus the conditioning
     frame, 512x512): a consisti2v-tiny reference check, then inversion, the
     cache files, the dual-CFG PnP edit at cfg_txt 35 / cfg_img 1 (batch 3,
     then the batch-2 tail) and decode; K1-K5 must all launch, K5 in its three
     roles, K2 with the augmented key axis, and no UNet attention of head
     width 40/64/80 may reach SDPA; then its profile at batch 1 and 3;
- 6. the SEINE main path at full width (SD1.4 widths, 8 heads, 16 frames,
+ 7. the SEINE main path at full width (SD1.4 widths, 8 heads, 16 frames,
     512x512): a seine-tiny reference check (the pair body with the bias),
     then VAE encode, the masked conditioning, inversion with every step on
     the save grid, the cache files, a DDPM PnP edit at cfg 4 with thresholds
@@ -140,17 +154,42 @@ def _attn_library(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
         scale=scale)
 
 
+def _frame_view(x, heads):
+    """The frame-axis view ``[B*HW, H, S, dh]`` of ``[B, S, HW, C]``."""
+    b, s, hw, c = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * hw, s, heads, c // heads).transpose(1, 2)
+
+
 def _frame_library(q, k, v, heads, scale, bias=None):
-    """SDPA on the frame-axis view ``[B*HW, H, S, dh]`` of ``[B, S, HW, C]``;
-    the bias becomes a float ``attn_mask`` (in q's dtype, cast beforehand)."""
-    b, s, hw, c = q.shape
+    """SDPA on the frame-axis view of ``[B, S, HW, C]``; the bias becomes a
+    float ``attn_mask`` (in q's dtype, cast beforehand)."""
     mask = None if bias is None else bias.to(q.dtype)
-
-    def view(x):
-        return x.permute(0, 2, 1, 3).reshape(b * hw, x.shape[1], heads, c // heads).transpose(1, 2)
-
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        view(q), view(k), view(v), attn_mask=mask, scale=scale)
+        _frame_view(q, heads), _frame_view(k, heads), _frame_view(v, heads), attn_mask=mask,
+        scale=scale)
+
+
+def _frame_long_library(q, k, v, heads, scale, bias=None):
+    """SDPA on contiguous ``[B*HW, H, S, dh]`` copies of q, k and v made
+    beforehand: the transposes that the JAX package pays past 32 frames are
+    not in this time (``_frame_transposes`` times them)."""
+    mask = None if bias is None else bias.to(q.dtype)
+    qt, kt, vt = (_frame_view(x, heads).contiguous() for x in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                    scale=scale)
+
+
+def _frame_transposes(q, k, v, heads):
+    """The four transposes around SDPA on the frame axis: q, k and v to
+    ``[B*HW, H, S, dh]`` and an output-sized tensor back to ``[B, S, HW, C]``."""
+    b, s, hw, c = q.shape
+    back = _frame_view(q, heads).contiguous()
+
+    def run():
+        for x in (q, k, v):
+            _frame_view(x, heads).contiguous()
+        back.transpose(1, 2).reshape(b, hw, s, c).permute(0, 2, 1, 3).contiguous()
+    return run
 
 
 def _kernels():
@@ -166,6 +205,11 @@ def _kernels():
         "frame_attention": ("cuda", "anyv2v_torch/csrc/frame_attention.cu",
                             "anyv2v_tpu/ops/pallas_short_attention.py:223", fr.frame_attention,
                             fr.frame_attention_plain, _frame_cost, _frame_library),
+        # K2 long: the >32-frame route
+        "frame_attention_long": ("cuda", "anyv2v_torch/csrc/frame_attention.cu",
+                                 "anyv2v_tpu/ops/pallas_short_attention.py:125",
+                                 fr.frame_attention_long, fr.frame_attention_plain, _frame_cost,
+                                 _frame_long_library),
         "ffn_geglu": ("cuda", "anyv2v_torch/csrc/ffn.cu", "anyv2v_tpu/ops/pallas_ffn.py:64",
                       ffn.ffn_geglu, ffn.ffn_geglu_plain, _ffn_cost, None),
         "gn_silu_temporal_conv": ("cuda", "anyv2v_torch/csrc/temporal_conv.cu",
@@ -208,6 +252,17 @@ def _kernel_cases():
             return args + (rn(heads, s, sk or s, dtype=torch.float32),) if bias else args
         return make
 
+    def relpos_frames(b, s, hw, heads, dh):
+        """SEINE's temporal attention with its T5 relative-position bias
+        (32 buckets, max distance 32) from a seeded table."""
+        from anyv2v_torch.ops.relpos import relative_position_bias
+
+        def make():
+            table = torch.randn(32, heads, generator=g, device="cuda")
+            bias = relative_position_bias(table, s, s, num_buckets=32, max_distance=32)
+            return frames(b, s, hw, heads, dh, dh)() + (bias.contiguous(),)
+        return make
+
     def ffn_args(n, c):
         i = 4 * c
 
@@ -225,6 +280,7 @@ def _kernel_cases():
 
     k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
                           "gn_silu_temporal_conv", "flash_attention")
+    k2l = "frame_attention_long"
     return [
         (k1, "L0 self b2 S4096 h64 dh8", attn(2, 4096, 4096, 64, 8, 5)),
         (k1, "L0 cross b2 Sq4096 Sk157 dh8", attn(2, 4096, 157, 64, 8, 5)),
@@ -281,11 +337,37 @@ def _kernel_cases():
         (k1, "seine-tiny cross b24 Sq16 Sk77 h2 dh8", attn(24, 16, 77, 2, 8, 8)),
         (k1, "seine-tiny self b24 S4 h2 dh8", attn(24, 4, 4, 2, 8, 8)),
         (k1, "seine-tiny cross b24 Sq4 Sk77 h2 dh8", attn(24, 4, 77, 2, 8, 8)),
+        # the 128-frame long-video path (i2vgen-xl, 512^2): K2 long on every
+        # temporal attention (64 heads of 5/10/20 stored as 8/16/32; L3 is the
+        # mid block at 8x8), K1 on the image-latent encoder, K3 and K4 at L0
+        *[(k2l, f"{lv} temporal b{b} S128 HW{hw} h{h} dh{dh}",
+           frames(b, 128, hw, h, dh, true_dh))
+          for b in (1, 3)
+          for lv, hw, h, dh, true_dh in (("L0", 4096, 64, 8, 5), ("L1", 1024, 64, 16, 10),
+                                         ("L2", 256, 64, 32, 20), ("L3 (mid)", 64, 64, 32, 20),
+                                         ("transformer_in", 4096, 8, 64, 64))],
+        (k1, "long image-latent encoder b3*4096 S128 h2 dh8", attn(3 * 4096, 128, 128, 2, 8, 4)),
+        (k3, "long L0 C320 rows 3*128*4096", ffn_args(3 * 128 * 4096, 320)),
+        (k4, "long L0 C320 P4096 F128 b3", tconv_args(3, 128, 4096, 320)),
+        (k4, "long L2 C1280 P256 F128 b3", tconv_args(3, 128, 256, 1280)),
+        # K2 long off the paths: SEINE's widths with its bias at 64 frames, the
+        # augmented key axis at 128, a ragged shape
+        *[(k2l, f"off-path SEINE {lv} temporal b3 S64 HW{hw} h8 dh{dh} relpos bias",
+           relpos_frames(3, 64, hw, 8, dh))
+          for lv, hw, dh in (("L0", 4096, 40), ("L1", 1024, 80), ("L2", 256, 160))],
+        (k2l, "off-path Sk=S+8 b1 S128 Sk136 HW1024 h8 dh40",
+         frames(1, 128, 1024, 8, 40, 40, sk=136)),
+        (k2l, "ragged bias b2 S40 Sk47 HW37 h2 dh80",
+         frames(2, 40, 37, 2, 80, 80, sk=47, bias=True)),
+        # K1 at the class of the Pallas _packed_kernel, which took Sk past
+        # 4096: 2 rows, 64 heads of dh 8, Sq = Sk = 8192
+        (k1, "off-path row 5 class b2 S8192 h64 dh8", attn(2, 8192, 8192, 64, 8, 5)),
     ]
 
 
-_OFF_PATH = ("ragged", "seine-tiny")   # case labels checked but not timed into the records
-_ATTENTION = ("folded_attention", "frame_attention", "flash_attention")
+# case labels checked and timed, but not summed into the records' times
+_OFF_PATH = ("ragged", "seine-tiny", "off-path")
+_ATTENTION = ("folded_attention", "frame_attention", "frame_attention_long", "flash_attention")
 
 
 def phase_kernels():
@@ -317,6 +399,8 @@ def phase_kernels():
         ms = _time_ms(lambda: kern(*args), 5)
         plain_ms = _time_ms(lambda: plain(*args), 2)
         lib_ms = _time_ms(library(*args), 5) if library is not None else None
+        transpose_ms = (_time_ms(_frame_transposes(*args[:4]), 5)
+                        if name == "frame_attention_long" else None)
         flops, nbytes = cost(*args)
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -324,6 +408,8 @@ def phase_kernels():
             f"atol {atol} + rtol {rtol}*max|ref|) {'ok' if ok else 'MISS'}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} op, "
             f"{nbytes:.3e} B), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            + ("" if transpose_ms is None else
+               f" (on transposed copies; the transposes {transpose_ms:.4f} ms)")
             + ("" if vs_fp32 is None else
                f"; vs fp32 truth: kernel {vs_fp32[0]:.3e}, plain {vs_fp32[1]:.3e}"))
         if not ok:
@@ -343,7 +429,7 @@ def phase_kernels():
                 rec["library_ms"] += lib_ms
         rec["cases"].append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                             "vs_fp32": vs_fp32})
+                             "transpose_ms": transpose_ms, "vs_fp32": vs_fp32})
         del args
         torch.cuda.empty_cache()
     for rec in records.values():
@@ -352,23 +438,6 @@ def phase_kernels():
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return records
-
-
-def phase_open_kernel_bounds():
-    """The bound of each Pallas kernel that is not ported yet, at the shape
-    class it was routed for: softmax attention on folded heads, 2 rows of 64
-    heads of dh 8 (as stored); row 4 ``_packed_whole_kernel`` at i2vgen-xl's
-    L0 self-attention (Sq = Sk = 4096), row 5 ``_packed_kernel`` at the top
-    of its class 4096 < Sk <= 8192 (Sq = Sk = 8192, a 1024x512 clip).
-    Arithmetic on the shapes only; nothing runs."""
-    for row, fn, s in ((4, "pallas_packed_flash.py:280 _packed_whole_kernel", 4096),
-                       (5, "pallas_packed_flash.py:413 _packed_kernel", 8192)):
-        b, c = 2, 64 * 8
-        ops, nbytes = 4 * b * s * s * c, 4 * b * s * c * 2   # q, k, v read, o written, bf16
-        t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        log(f"open kernel, row {row} {fn} (b {b}, Sq = Sk = {s}, 64 heads of dh 8): bound "
-            f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-            f"{ops:.3e} op, {nbytes:.3e} B)")
 
 
 def main():
@@ -382,9 +451,13 @@ def main():
     phase_env()
     phase_build()
     records = phase_kernels()
-    phase_open_kernel_bounds()
-    by_path = {"i2vgen-xl": phase_main_path(), "consisti2v": phase_consisti2v(),
-               "seine": phase_seine()}
+    by_path = {}
+    by_path["i2vgen-xl"], pipe = phase_main_path()
+    by_path["i2vgen-xl long video"] = phase_long_video(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    by_path["consisti2v"] = phase_consisti2v()
+    by_path["seine"] = phase_seine()
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -397,14 +470,15 @@ def main():
 
 def _synthetic_video(rng, frames, size):
     """A seeded moving pattern: smooth colour gradients plus a bright square
-    drifting across the frame, [F, H, W, 3] in [0, 1]."""
+    drifting across the frame (and round again past frame 22), [F, H, W, 3]
+    in [0, 1]."""
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     phase = rng.rand(3).astype(np.float32) * 6.28
     video = np.empty((frames, size, size, 3), np.float32)
     for f in range(frames):
         for c in range(3):
             video[f, :, :, c] = 0.5 + 0.4 * np.sin(6.0 * xx + 4.0 * yy + phase[c] + 0.2 * f)
-        x0 = int(size * (0.1 + 0.04 * f))
+        x0 = int(size * ((0.1 + 0.04 * f) % 1.0))
         video[f, size // 3:size // 3 + size // 5, x0:x0 + size // 5] = (0.95, 0.85, 0.2)
     return video
 
@@ -415,6 +489,7 @@ def _wrappers():
 
     return {"folded_attention": folded_attention.folded_attention,
             "frame_attention": frame_attention.frame_attention,
+            "frame_attention_long": frame_attention.frame_attention_long,
             "ffn_geglu": ffn.ffn_geglu,
             "gn_silu_temporal_conv": temporal_conv.gn_silu_temporal_conv,
             "flash_attention": flash_attention.flash_attention}
@@ -463,6 +538,7 @@ def _check_outputs(checks):
 
 
 def _read_back_cache(tmp, traj, inv_ts, times):
+    from anyv2v_torch.pipelines.common import host_array
     from anyv2v_torch.utils.io import load_ddim_trajectory
 
     t0 = time.perf_counter()
@@ -470,7 +546,7 @@ def _read_back_cache(tmp, traj, inv_ts, times):
     times["read ddim_latents_{t}.npy"] = time.perf_counter() - t0
     n_files = len([f for f in os.listdir(tmp) if f.startswith("ddim_latents_")])
     if not (np.array_equal(ts_np, inv_ts) and n_files == len(inv_ts)
-            and np.array_equal(traj_np, traj.cpu().numpy())):
+            and np.array_equal(traj_np, host_array(traj))):
         raise RuntimeError("latent cache files do not read back the trajectory")
     return traj_np, ts_np
 
@@ -478,7 +554,7 @@ def _read_back_cache(tmp, traj, inv_ts, times):
 def phase_main_path():
     """i2vgen-xl at full width: invert -> cache files -> PnP edit -> decode,
     through the CLIs' per-entry functions. Returns each kernel's launch
-    count over this run."""
+    count over this run, and the pipeline (the long-video path reuses it)."""
     from anyv2v_torch.cli.run_group_ddim_inversion import invert_video
     from anyv2v_torch.cli.run_group_pnp_edit import edit_video, output_stem
     from anyv2v_torch.pipelines.i2vgen import PnPConfig
@@ -547,8 +623,10 @@ def phase_main_path():
         and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
         and float(edited.max()) <= 1.0,
         # the i2vgen-xl routes are K1-K4, as before K5 existed
-        "K1-K4 launched": all(counts[n] > 0 for n in counts if n != "flash_attention"),
-        "K5 not launched": counts["flash_attention"] == 0,
+        "K1-K4 launched": all(counts[n] > 0 for n in counts
+                              if n not in ("flash_attention", "frame_attention_long")),
+        "K5 and K2 long not launched": counts["flash_attention"] == 0
+        and counts["frame_attention_long"] == 0,
     })
 
     def i2vgen_args(batch, g):
@@ -559,6 +637,155 @@ def phase_main_path():
                 rn(batch, 16, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), kw
 
     phase_profile(pipe, "i2vgen-xl", i2vgen_args)
+    return counts, pipe
+
+
+LONG_FRAMES = 128
+LONG_INV_STEPS, LONG_CHUNK, LONG_EDIT_STEPS = 4, 2, 2
+TEMPORAL_PER_FORWARD = 34   # i2vgen-xl: 17 temporal transformers of 2 attentions
+
+
+class _PhaseTimer:
+    """Wall seconds of a pipeline's encode, UNet forwards (by batch), decode
+    and host-store copies, each between two synchronisations, by wrapping
+    the pipeline instance's methods and ``HostTrajectory.append``."""
+
+    def __init__(self, pipe):
+        self.pipe, self.times = pipe, {}
+
+    def _add(self, key, sec):
+        self.times.setdefault(key, []).append(sec)
+
+    def _wrap(self, fn, key_of):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self._add(key_of(*a), time.perf_counter() - t0)
+            return out
+        return call
+
+    def __enter__(self):
+        from anyv2v_torch.pipelines.common import HostTrajectory
+
+        p = self.pipe
+        p.encode_video = self._wrap(p.encode_video, lambda *a: "VAE encode")
+        p.decode_latents = self._wrap(p.decode_latents, lambda *a: "VAE decode")
+        p._eps = self._wrap(p._eps, lambda x, *a: f"UNet forward batch {x.shape[0]}")
+        self.append = HostTrajectory.append
+        HostTrajectory.append = self._wrap(self.append, lambda *a: "copy a chunk to the host")
+        return self
+
+    def __exit__(self, *exc):
+        from anyv2v_torch.pipelines.common import HostTrajectory
+
+        for name in ("encode_video", "decode_latents", "_eps"):
+            del self.pipe.__dict__[name]
+        HostTrajectory.append = self.append
+
+
+def phase_long_video(pipe):
+    """i2vgen-xl long video at full width: 128 frames at 512^2 through the
+    CLIs' per-entry functions, the trajectory in host memory (two chunks of
+    2 steps), the cache files, a PnP edit of one batch-3 injection step and
+    one batch-2 tail step, decode. Returns each kernel's launch count over
+    this run."""
+    from anyv2v_torch.cli.run_group_ddim_inversion import invert_video
+    from anyv2v_torch.cli.run_group_pnp_edit import edit_video
+    from anyv2v_torch.pipelines.common import HostTrajectory
+    from anyv2v_torch.pipelines.i2vgen import PnPConfig
+    from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline
+
+    rng = np.random.RandomState(6)
+    _reference_check("i2vgen-tiny", build_i2vgen_pipeline,
+                     [rng.randn(3, 40, 16, 16, 4).astype(np.float32), 501,
+                      rng.randn(3, 77, 32).astype(np.float32), 8,
+                      rng.randn(3, 40, 16, 16, 4).astype(np.float32),
+                      rng.randn(3, 1, 32).astype(np.float32)], {"pnp": (True, True, True)})
+
+    frames = LONG_FRAMES
+    video = _synthetic_video(np.random.RandomState(7), frames, 512)
+    edited_first = np.ascontiguousarray(video[0][:, :, ::-1])   # colour-swapped edit
+    ids = np.zeros((1, 77), np.int64)
+    pnp = PnPConfig(0.5, 0.5, 0.5)   # 2 steps: step 0 injects every family, step 1 is the tail
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp, _RouteLog() as routes, _PhaseTimer(pipe) as pt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents, store, inv_ts, *_ = invert_video(
+            pipe, video, text_ids=ids, n_steps=LONG_INV_STEPS, fps=8, clip_width=512,
+            output_dir=tmp, chunk_steps=LONG_CHUNK, traj_store="host")
+        torch.cuda.synchronize()
+        times["encode+invert+write cache"] = time.perf_counter() - t0
+        traj_np, ts_np = _read_back_cache(tmp, store, inv_ts, times)
+
+        t0 = time.perf_counter()
+        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first,
+                                 text_ids=(ids, ids, ids), n_frames=frames,
+                                 n_steps=LONG_EDIT_STEPS, t_idx=0, guidance_scale=9.0, pnp=pnp,
+                                 fps=8, clip_width=512)
+        torch.cuda.synchronize()
+        times["PnP edit+decode"] = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    for name, sec in times.items():
+        log(f"phase i2vgen-xl long video {name}: {sec:.3f} s")
+    for name, secs in pt.times.items():
+        log(f"phase i2vgen-xl long video {name}: {len(secs)} x, "
+            + ", ".join(f"{s:.3f}" for s in secs) + " s")
+    n_forwards = LONG_INV_STEPS + LONG_EDIT_STEPS
+    n_chunks = len(pt.times.get("copy a chunk to the host", []))
+    log(f"i2vgen-xl long video: {frames} frames at 512x512, invert {LONG_INV_STEPS} steps "
+        f"(batch 1, host store, chunks of {LONG_CHUNK}: {store.nbytes} bytes in "
+        f"{n_chunks} chunks) + PnP edit {LONG_EDIT_STEPS} steps (thresholds "
+        f"0.5/0.5/0.5: 1 batch-3 step, 1 batch-2 step)")
+    log(f"i2vgen-xl long video peak device memory: {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; the card holds "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB)")
+    log(f"kernel launches in the i2vgen-xl long-video path: {counts}")
+    log(f"i2vgen-xl long video routes: K2 by shape {routes.k2}; K5 by role {routes.k5}; "
+        f"SDPA through the dispatcher by head width {routes.sdpa}")
+    shape = (1, frames, 64, 64, 4)
+    _check_outputs({
+        f"latents {list(shape)} finite": tuple(latents.shape) == shape
+        and bool(torch.isfinite(latents).all()),
+        f"host store of {LONG_INV_STEPS} rows in {LONG_INV_STEPS // LONG_CHUNK} chunks, finite":
+        isinstance(store, HostTrajectory) and store.shape == (LONG_INV_STEPS,) + shape
+        and n_chunks == LONG_INV_STEPS // LONG_CHUNK
+        and bool(np.isfinite(np.asarray(store)).all()),
+        "edited latents finite": tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
+        f"video [{frames},512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
+        and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
+        and float(edited.max()) <= 1.0,
+        f"UNet forwards: {LONG_INV_STEPS} at batch 1, 1 at batch 3, 1 at batch 2":
+        [len(pt.times.get(f"UNet forward batch {b}", [])) for b in (1, 3, 2)]
+        == [LONG_INV_STEPS, 1, 1],
+        f"K2 long on all {TEMPORAL_PER_FORWARD} temporal attentions of {n_forwards} forwards":
+        counts["frame_attention_long"] == TEMPORAL_PER_FORWARD * n_forwards
+        and sum(routes.k2.values()) == counts["frame_attention_long"]
+        and all(key.startswith("long S128 Sk128") for key in routes.k2),
+        "K2's S <= 32 bodies not launched": counts["frame_attention"] == 0,
+        "K1, K3, K4 launched; K5 not": all(counts[n] > 0 for n in (
+            "folded_attention", "ffn_geglu", "gn_silu_temporal_conv"))
+        and counts["flash_attention"] == 0,
+        "peak device memory under 80 GB": peak < 80e9,
+    })
+
+    def long_args(batch, g):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        return (rn(batch, frames, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
+                rn(batch, frames, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), {
+                    "pnp": (True, True, True)}
+
+    phase_profile(pipe, "i2vgen-xl 128 frames", long_args, batches=(3,))
     return counts
 
 
@@ -570,7 +797,8 @@ def _consisti2v_k5_role(q, k, heads, k_ctx):
 
 class _RouteLog:
     """Records which attention routes a UNet takes: the roles of K5's calls
-    (``k5_role(q, k, heads, k_ctx)``), the key axes and bias of K2's, and the
+    (``k5_role(q, k, heads, k_ctx)``), the key axes and bias of K2's (K2
+    long's with a "long " prefix), and the
     head widths of calls that reach the dispatcher's SDPA (CLIP calls SDPA
     directly and is not seen). It wraps the dispatcher's references and calls
     through, so the wrappers' own launch counts are untouched."""
@@ -580,8 +808,8 @@ class _RouteLog:
 
         self.mod, self.k5, self.k2, self.sdpa = attention, {}, {}, {}
         self.k5_role = k5_role
-        self.saved = {n: getattr(attention, n)
-                      for n in ("flash_attention", "frame_attention", "sdpa_attention")}
+        self.saved = {n: getattr(attention, n) for n in (
+            "flash_attention", "frame_attention", "frame_attention_long", "sdpa_attention")}
 
     def _bump(self, table, key):
         table[key] = table.get(key, 0) + 1
@@ -593,17 +821,21 @@ class _RouteLog:
             self._bump(self.k5, self.k5_role(q, k, heads, k_ctx))
             return saved["flash_attention"](q, k, v, heads, scale, k_ctx, v_ctx, frames)
 
-        def frame(q, k, v, heads, scale, bias=None):
-            self._bump(self.k2, f"S{q.shape[1]} Sk{k.shape[1]} dh{q.shape[-1] // heads}"
-                       + ("" if bias is None else " bias"))
-            return saved["frame_attention"](q, k, v, heads, scale, bias)
+        def frame(name):
+            def call(q, k, v, heads, scale, bias=None):
+                self._bump(self.k2, ("long " if name.endswith("long") else "")
+                           + f"S{q.shape[1]} Sk{k.shape[1]} dh{q.shape[-1] // heads}"
+                           + ("" if bias is None else " bias"))
+                return saved[name](q, k, v, heads, scale, bias)
+            return call
 
         def sdpa(q, k, v, heads, scale, causal=False):
             self._bump(self.sdpa, q.shape[-1] // heads)
             return saved["sdpa_attention"](q, k, v, heads, scale, causal)
 
-        self.mod.flash_attention, self.mod.frame_attention = flash, frame
-        self.mod.sdpa_attention = sdpa
+        self.mod.flash_attention, self.mod.sdpa_attention = flash, sdpa
+        self.mod.frame_attention = frame("frame_attention")
+        self.mod.frame_attention_long = frame("frame_attention_long")
         return self
 
     def __exit__(self, *exc):
@@ -690,7 +922,7 @@ def phase_consisti2v():
         f"video [{frames},512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
         and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
         and float(edited.max()) <= 1.0,
-        "K1-K5 launched": all(c > 0 for c in counts.values()),
+        "K1-K5 launched": all(c > 0 for n, c in counts.items() if n != "frame_attention_long"),
         "K5 in its three roles": set(routes.k5) == {"split-KV", "spatial cross",
                                                    "temporal cross"},
         "K2 with Sk 25": any(key.startswith("S17 Sk25") for key in routes.k2),
@@ -816,6 +1048,7 @@ def seine_forward_args(batch, g):
 
 
 _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel"),
+                  ("K2 long", "frame_attention_long_kernel"),
                   ("K2 frame_attention", "frame_attention"),
                   ("K3 ffn_geglu", "ffn_geglu_kernel"),
                   ("K4 temporal_conv", "temporal_conv_kernel"),
@@ -847,16 +1080,16 @@ class _ClockSampler:
             self.summary = "no nvidia-smi samples"
 
 
-def phase_profile(pipe, arch, make_args):
+def phase_profile(pipe, arch, make_args, batches=(1, 3)):
     """One UNet forward at the inversion batch (1) and at the edit batch (3,
-    every PnP flag on) under torch.profiler: device time by kernel group, the
+    every PnP flag on), or at ``batches``, under torch.profiler: device time by kernel group, the
     device's busy share of the forward's wall time, the number of device ops
     and the host's waits on the device (stream syncs, host-to-device copies)
     inside the forward."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    for batch in (1, 3):
+    for batch in batches:
         args, kw = make_args(batch, g)
         with torch.inference_mode(), _ClockSampler() as clocks:
             pipe.unet(*args, **kw)

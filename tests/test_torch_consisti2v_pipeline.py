@@ -10,7 +10,9 @@ test. The random UNet's output conv is scaled by 0.1 so guided latents stay
 of order one (see tests/test_torch_pipeline.py). The JAX pipeline runs its
 edit with traced PnP flags and without the split tail
 (``ANYV2V_PNP_STATIC=0``, ``split_scan=False``): one compile per mode, and
-the port's split tail is also held against its own monolithic run.
+the port's split tail is also held against its own monolithic run. The
+host trajectory store is held against the device trajectory bit for bit.
+The port's torch ops run on one thread (``one_torch_thread``).
 """
 
 import dataclasses
@@ -28,10 +30,12 @@ from anyv2v_tpu.pipelines.consisti2v import ConsistI2VPipeline as JPipeline
 from anyv2v_tpu.pipelines.i2vgen import PnPConfig as JPnP
 from anyv2v_tpu.schedulers import make_schedule as jax_make_schedule
 from anyv2v_tpu.utils import model_zoo as jzoo
+from anyv2v_torch.pipelines.common import HostTrajectory
 from anyv2v_torch.pipelines.consisti2v import ConsistI2VPipeline
 from anyv2v_torch.pipelines.i2vgen import PnPConfig
 from anyv2v_torch.schedulers import make_schedule
 from test_torch_consisti2v import TOL, tiny_trees
+from test_torch_seine import one_torch_thread  # noqa: F401 (fixture)
 
 F, HW, INV_STEPS, EDIT_STEPS = 3, 64, 10, 5
 MODES = {None: (1.0, 1.0), "text": (7.5, 1.0), "both": (7.5, 1.5)}   # (cfg_txt, cfg_img)
@@ -116,6 +120,34 @@ def test_pnp_edit_matches_jax(runs, mode, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # the source-free tail (2 of the 5 steps here) gives the monolithic result
     np.testing.assert_allclose(mono.numpy(), got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_host_trajectory_equals_device(runs, monkeypatch):
+    """``traj_store="host"`` (chunks of 4 steps) keeps the same rows, clean
+    frame 0 included, bit for bit; an edit from the host store reads only
+    the rows of its injection steps and equals the edit from the device
+    trajectory."""
+    port = runs["port"]
+    with torch.no_grad():
+        store, ts = port.invert(runs["lat"], port.encode_text(runs["ids"]),
+                                num_inversion_steps=INV_STEPS, chunk_steps=4, traj_store="host")
+    assert isinstance(store, HostTrajectory) and len(store) == INV_STEPS
+    np.testing.assert_array_equal(ts, runs["inv_ts"])
+    np.testing.assert_array_equal(np.asarray(store), runs["traj"].numpy())
+    gathered = []
+    orig = HostTrajectory.gather_rows
+    monkeypatch.setattr(HostTrajectory, "gather_rows",
+                        lambda self, rows: gathered.append(list(rows)) or orig(self, rows))
+    kw = dict(num_inference_steps=EDIT_STEPS, t_idx=0, cfg_txt=7.5, cfg_img=1.0,
+              frame_stride=3, pnp=PnPConfig(0.2, 0.2, 0.5))
+    with torch.no_grad():
+        text_all = _text_rows(port, torch.cat, runs["ids"], runs["ids_edit"], "text")
+        ffs = (port.encode_video(runs["edited"][None]), port.encode_video(runs["frames"][:1]))
+        from_host = port.sample_with_pnp(store, ts, text_all, *ffs, **kw)
+        from_device = port.sample_with_pnp(runs["traj"], ts, text_all, *ffs, **kw)
+    # 2 injection steps, t 801 and 601: rows 8 and 6 of the 10-step grid
+    assert gathered == [[6, 8]]
+    np.testing.assert_array_equal(from_host.numpy(), from_device.numpy())
 
 
 def test_plain_sample_matches_jax(runs):

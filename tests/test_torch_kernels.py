@@ -45,16 +45,34 @@ def _close(got: torch.Tensor, want) -> None:
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _case(b, sq, sk, heads, dh, true_dh, variant=None):
+    """A case of the packed-flash test; the default route keeps its old id."""
+    ident = "-".join(str(x) for x in (b, sq, sk, heads, dh, true_dh))
+    return pytest.param(b, sq, sk, heads, dh, true_dh, variant,
+                        id=ident if variant is None else f"{ident}-{variant}")
+
+
 @pytest.mark.parametrize(
-    "b,sq,sk,heads,dh,true_dh",
+    "b,sq,sk,heads,dh,true_dh,variant",
     [
-        (1, 256, 256, 64, 8, 5),      # L0 self class (dh 5 -> 8)
-        (1, 256, 157, 64, 8, 5),      # L0 cross: text + image context
-        (1, 256, 256, 32, 16, 10),    # L1 self class (dh 10 -> 16)
-        (2, 256, 157, 16, 32, 20),    # L2 cross class (dh 20 -> 32)
+        _case(1, 256, 256, 64, 8, 5),      # L0 self class (dh 5 -> 8)
+        _case(1, 256, 157, 64, 8, 5),      # L0 cross: text + image context
+        _case(1, 256, 256, 32, 16, 10),    # L1 self class (dh 10 -> 16)
+        _case(2, 256, 157, 16, 32, 20),    # L2 cross class (dh 20 -> 32)
+        # _packed_whole_kernel (pipe=False): the whole K/V window, no online state
+        _case(1, 256, 256, 64, 8, 5, "whole"),
+        _case(1, 128, 200, 32, 16, 10, "whole"),
+        # _packed_kernel: the online-softmax form; Sk > 512 with a ragged tail
+        _case(1, 256, 256, 64, 8, 5, "online"),
+        _case(1, 200, 600, 16, 32, 20, "online"),
     ],
 )
-def test_folded_attention_vs_packed_flash(b, sq, sk, heads, dh, true_dh):
+def test_folded_attention_vs_packed_flash(b, sq, sk, heads, dh, true_dh, variant, monkeypatch):
+    """``variant`` sets ``ANYV2V_PACKED_VARIANT``, which alone reaches the
+    Pallas kernels of PERF.md rows 4 (``whole``) and 5 (``online``); K1
+    computes their function."""
+    if variant is not None:
+        monkeypatch.setenv("ANYV2V_PACKED_VARIANT", variant)
     rng = np.random.RandomState(0)
     c = heads * dh
     q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)

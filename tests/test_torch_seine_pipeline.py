@@ -27,6 +27,7 @@ from anyv2v_tpu.models.vae import AutoencoderKL as JVAE
 from anyv2v_tpu.pipelines.seine import SeinePipeline as JPipeline, SeinePnPConfig as JPnP
 from anyv2v_tpu.schedulers import make_schedule as jax_make_schedule
 from anyv2v_tpu.utils import model_zoo as jzoo
+from anyv2v_torch.pipelines.common import HostTrajectory
 from anyv2v_torch.pipelines.seine import SeinePipeline, SeinePnPConfig
 from anyv2v_torch.schedulers import make_schedule
 from anyv2v_torch.utils.model_zoo import SEINE_SCHEDULER
@@ -98,10 +99,41 @@ def test_invert_matches_jax(runs):
 
 
 def test_invert_refuses_the_host_trajectory(runs):
+    """Only "device" and "host" are trajectory stores; "host" is taken."""
     port = runs["port"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.invert(runs["lat"], runs["mask"], runs["masked"], torch.zeros(1, 77, 16),
-                    num_inversion_steps=2, num_save_steps=2, traj_store="host")
+    args = (runs["lat"], runs["mask"], runs["masked"], torch.zeros(1, 77, 16))
+    with pytest.raises(ValueError, match="traj_store"):
+        port.invert(*args, num_inversion_steps=2, num_save_steps=2, traj_store="disk")
+    store, _ = port.invert(*args, num_inversion_steps=2, num_save_steps=2, traj_store="host")
+    assert isinstance(store, HostTrajectory) and len(store) == 2
+
+
+def test_host_trajectory_equals_device(runs, monkeypatch):
+    """``traj_store="host"`` (chunks of 3 steps) keeps the same save-grid rows
+    bit for bit, and a DDPM edit from the host store reads only the rows of
+    its injection steps and equals the edit from the device trajectory."""
+    port = runs["port"]
+    with torch.no_grad():
+        text = port.encode_text(runs["ids"])
+        store, ts = port.invert(runs["lat"], runs["mask"], runs["masked"], text,
+                                num_inversion_steps=INV_STEPS, num_save_steps=SAVE_STEPS,
+                                chunk_steps=3, traj_store="host")
+    np.testing.assert_array_equal(ts, runs["traj_ts"])
+    np.testing.assert_array_equal(np.asarray(store), runs["traj"].numpy())
+    gathered = []
+    orig = HostTrajectory.gather_rows
+    monkeypatch.setattr(HostTrajectory, "gather_rows",
+                        lambda self, rows: gathered.append(list(rows)) or orig(self, rows))
+    with torch.no_grad():
+        text_all = _text_rows(port, torch.cat, runs["ids"], runs["ids_edit"])
+        kw = dict(num_inference_steps=EDIT_STEPS, cfg_scale=4.0, sampler="ddpm",
+                  pnp=SeinePnPConfig(**THRESHOLDS), seed=3)
+        rest = (text_all, runs["mask"], runs["masked_edit"], runs["masked"])
+        from_host = port.sample_with_pnp(store, ts, *rest, **kw)
+        from_device = port.sample_with_pnp(runs["traj"], ts, *rest, **kw)
+    # 2 injection steps at t 750 and 500 read the cache at t + 1: rows 3 and 2
+    assert gathered == [[2, 3]]
+    np.testing.assert_array_equal(from_host.numpy(), from_device.numpy())
 
 
 def _text_rows(p, cat, ids, ids_edit):
