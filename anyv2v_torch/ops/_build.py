@@ -3,9 +3,13 @@
 All sources under ``anyv2v_torch/csrc`` compile into one shared library with a
 plain C interface (no PyTorch headers). Each source compiles in its own nvcc
 process, all started together, and one more nvcc links the objects. The build
-lands in ``build/anyv2v_torch/`` at the repository root, named by a hash of the
-sources, so an edited source rebuilds and an unchanged one loads the cached
-library. Nothing is built at import time: the first kernel launch builds.
+lands in ``build/anyv2v_torch/`` at the repository root, named by a hash of
+every ``*.cu`` and ``*.cuh`` file there (the shared header ``hopper.cuh`` is
+never compiled alone, but an edit to it rebuilds), so an edited source
+rebuilds and an unchanged one loads the cached library. ptxas reports each
+kernel's registers, spills and shared memory into ``libanyv2v_<hash>.ptxas.txt``
+beside the library (:func:`ptxas_report`). Nothing is built at import time: the
+first kernel launch builds.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero code into an exception.
@@ -28,6 +32,10 @@ SOURCES = ("folded_attention.cu", "frame_attention.cu", "ffn.cu", "temporal_conv
            "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
+PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile steps only: registers, spills, shared memory
+
+SMEM_LIMIT = 232448                        # dynamic shared memory of one H100 block
+GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)  # grid x, y, z
 
 _lib = None
 build_seconds = None   # wall time of the nvcc build in this process, if any
@@ -42,41 +50,66 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
+    """A hash of the flags and of every ``*.cu`` and ``*.cuh`` under CSRC."""
+    names = sorted(n for n in os.listdir(CSRC) if n.endswith((".cu", ".cuh")))
     h = hashlib.sha256()
-    for name in SOURCES + tuple(NVCC_FLAGS):
+    for name in tuple(NVCC_FLAGS) + PTXAS_VERBOSE:
         h.update(name.encode())
-    for name in SOURCES:
+    for name in names:
+        h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds) -> str:
     """Run the commands as parallel processes and wait for every one; raise
-    with the output of the first that failed."""
+    with the output of the first that failed, else return their stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
         out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}\n{err}")
     if failed:
         raise RuntimeError(f"nvcc failed: {failed[0]}")
+    return "".join(errs)
 
 
 def _compile_and_link(so: str) -> None:
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    report = _report_path(so)
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
-                  for src, obj in zip(SOURCES, objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", "-o", obj,
+                         os.path.join(CSRC, src)] for src, obj in zip(SOURCES, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{so}.{tag}", *objs]])
+        if log:
+            with open(f"{report}.{tag}", "w") as f:
+                f.write(log)
+            os.replace(f"{report}.{tag}", report)
         os.replace(f"{so}.{tag}", so)
     finally:
-        for path in objs + [f"{so}.{tag}"]:
+        for path in objs + [f"{so}.{tag}", f"{report}.{tag}"]:
             if os.path.exists(path):
                 os.remove(path)
+
+
+def _report_path(so: str) -> str:
+    return os.path.splitext(so)[0] + ".ptxas.txt"
+
+
+def ptxas_report() -> str:
+    """ptxas's report of the loaded library's build (registers, spills and
+    shared memory of every kernel), or "" when the library was built without
+    one."""
+    path = _report_path(os.path.join(BUILD_DIR, f"libanyv2v_{_source_hash()}.so"))
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def library() -> ctypes.CDLL:
@@ -130,6 +163,14 @@ def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16) -> Non
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
+
+
+def check_plan(name: str, plan: dict) -> None:
+    """Raise unless a launch plan's block fits one H100 SM's shared memory
+    and its grid the launch limits."""
+    if plan["smem_bytes"] > SMEM_LIMIT or any(
+            g > lim for g, lim in zip(plan["grid"], GRID_LIMITS)):
+        raise ValueError(f"{name}: no launch for this shape: {plan}")
 
 
 def require_aligned(name: str, *tensors: torch.Tensor) -> None:

@@ -3,7 +3,9 @@ into the channel dim ``[B, S, H*dh]``, with an optional split-KV context.
 
 Replaces ``anyv2v_tpu/ops/pallas_attention.py`` (``_flash_kernel``,
 ``_flash_splitkv_kernel``) and ``anyv2v_tpu/ops/pallas_cross_attention.py``
-(``_cross_kernel``); ``csrc/flash_attention.cu`` is one body for the three:
+(``_cross_kernel``); ``csrc/flash_attention.cu`` is one body for the three,
+``wgmma`` on tiles that TMA loads into an mbarrier-guarded ring
+(:func:`flash_plan` sizes it):
 
 - long self or cross attention at head widths 40/64/80/160 (ConsistI2V's
   spatial cross-attention, 5/10/20 heads of 64, and its temporal
@@ -28,6 +30,25 @@ from . import _build
 from .folded_attention import folded_attention_plain
 
 HEAD_DIMS = (8, 16, 40, 64, 80, 160)
+BLOCK_ROWS = 128   # query rows per block: two consumer warpgroups of 64
+BLOCK_KEYS = 128   # keys per K/V tile
+THREADS = 384      # two consumer warpgroups and one producer warpgroup
+
+
+def flash_plan(b: int, sq: int, heads: int, head_dim: int) -> dict:
+    """The launch of K5's kernel: one block per (128 query rows, head, batch
+    row); shared memory holds Q (the score depth padded to 16) and a ring of
+    K/V tiles of 128 keys, 3 stages (2 at head widths past 80), plus one
+    mbarrier per stage and direction, one for Q, and 128 bytes of alignment
+    slack. ``csrc/flash_attention.cu`` refuses a plan whose bytes differ
+    from its own layout."""
+    dp = -(-head_dim // 16) * 16
+    stages = 2 if head_dim > 80 else 3
+    q_bytes = BLOCK_ROWS * dp * 2
+    kv_bytes = BLOCK_KEYS * (dp + head_dim) * 2
+    return {"stages": stages, "threads": THREADS,
+            "smem_bytes": q_bytes + stages * kv_bytes + (2 * stages + 1) * 8 + 128,
+            "grid": (-(-sq // BLOCK_ROWS), heads, b)}
 
 
 def _with_context(k: torch.Tensor, k_ctx: Optional[torch.Tensor], frames: int) -> torch.Tensor:
@@ -75,6 +96,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
         raise ValueError(f"flash_attention: head width {dh} not in {HEAD_DIMS}")
     if sq == 0 or sk == 0:
         raise ValueError("flash_attention: empty query or key axis")
+    plan = flash_plan(b, sq, heads, dh)
+    _build.check_plan("flash_attention", plan)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(0)
     rc = _build.library().anyv2v_flash_attention(
@@ -83,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
         null if v_ctx is None else _build.ptr(v_ctx), _build.ptr(out),
         ctypes.c_int(b), ctypes.c_int(sq), ctypes.c_int(sk), ctypes.c_int(sk2),
         ctypes.c_int(frames), ctypes.c_int(heads), ctypes.c_int(dh),
-        ctypes.c_float(scale), _build.stream())
+        ctypes.c_float(scale), ctypes.c_int(plan["smem_bytes"]), _build.stream())
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -21,10 +21,13 @@ Two wrappers, each with its own launch count:
   width up to 64 (i2vgen-xl) takes the channel-pair body; every other shape
   (``S <= Sk <= S + 16``, head widths 8/16/40/80/160, the ConsistI2V archs'
   temporal heads) takes the row body.
-- :func:`frame_attention_long` ("K2 long", 32 < S <= 128): the row body as a
-  kernel of its own, head widths 8/16/32/40/64/80/160. It keeps the JAX
-  kernel's cap of 128 frames (``_short_kernel`` takes S, Sk <= 128) and
-  raises past it.
+- :func:`frame_attention_long` ("K2 long", 32 < S <= 128): a tensor-core
+  body (``mma.sync`` on operands brought in by ``cp.async``), head widths
+  8/16/32/40/64/80/160. A block holds one pixel's Q, K and V for a group of
+  whole heads in shared memory; :func:`long_plan` sizes that group and the
+  launch, and the C entry refuses a plan that does not match the shape. It
+  keeps the JAX kernel's cap of 128 frames (``_short_kernel`` takes S, Sk <=
+  128) and raises past it.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ PAIR_HEAD_DIMS = (2, 4, 8, 16, 32, 64)
 ROW_HEAD_DIMS = (8, 16, 40, 80, 160)
 LONG_MAX_FRAMES = 128
 LONG_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 160)
+LONG_GROUP_CHANNELS = 128   # channels per K2 long block (one head where it is wider)
+LONG_MAX_WARPS = 8
 
 
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,6 +89,26 @@ def takes_long(s: int, sk: int, head_dim: int) -> bool:
     """The shapes :func:`frame_attention_long` takes (32 < S <= 128)."""
     return (MAX_FRAMES < s <= LONG_MAX_FRAMES and s <= sk <= s + MAX_EXTRA_KEYS
             and head_dim in LONG_HEAD_DIMS)
+
+
+def long_plan(b: int, s: int, sk: int, hw: int, heads: int, head_dim: int) -> dict:
+    """The launch of K2 long's kernel for one shape: one block per (batch row,
+    pixel, group of heads). The group is the most whole heads that fit in
+    ``LONG_GROUP_CHANNELS`` channels (one head if it is wider). The block
+    holds Q ``[S, G]``, K and V ``[Sk, G]`` (G = group channels) in shared
+    memory, rows padded to 16 and each row strided by an odd number of
+    16-byte units (no ldmatrix bank conflict); one warp per (head, 16 query
+    frames), at most ``LONG_MAX_WARPS``. ``csrc/frame_attention.cu``
+    recomputes the shared bytes and refuses a plan that differs."""
+    hb = max(d for d in range(1, heads + 1)
+             if heads % d == 0 and d * head_dim <= max(LONG_GROUP_CHANNELS, head_dim))
+    g = hb * head_dim
+    row_stride = g + 8 + 8 * ((g // 8) % 2)
+    rows_q, rows_k = -(-s // 16) * 16, -(-sk // 16) * 16
+    return {"heads_per_block": hb, "row_stride": row_stride,
+            "smem_bytes": (rows_q + 2 * rows_k) * row_stride * 2,
+            "threads": 32 * min(LONG_MAX_WARPS, hb * rows_q // 16),
+            "grid": (b * hw, heads // hb)}
 
 
 def _check_bias(bias: torch.Tensor, q: torch.Tensor, k: torch.Tensor, heads: int) -> None:
@@ -166,11 +191,15 @@ def frame_attention_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "frame_attention_long", q, k, v, heads, takes_long,
         f"{MAX_FRAMES} < S <= {LONG_MAX_FRAMES}, S <= Sk <= S + {MAX_EXTRA_KEYS}, "
         f"widths {LONG_HEAD_DIMS}")
+    plan = long_plan(b, s, sk, hw, heads, dh)
+    _build.check_plan("frame_attention_long", plan)
     out = torch.empty_like(q)
     rc = _build.library().anyv2v_frame_attention_long(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _bias_ptr(bias), _build.ptr(out),
         ctypes.c_int(b), ctypes.c_int(s), ctypes.c_int(sk), ctypes.c_int(hw),
-        ctypes.c_int(c), ctypes.c_int(dh), ctypes.c_float(scale), _build.stream())
+        ctypes.c_int(c), ctypes.c_int(dh), ctypes.c_float(scale),
+        ctypes.c_int(plan["heads_per_block"]), ctypes.c_int(plan["threads"]),
+        ctypes.c_int(plan["smem_bytes"]), _build.stream())
     _build.check(rc, "frame_attention_long")
     frame_attention_long.launches += 1
     return out

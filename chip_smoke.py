@@ -4,7 +4,8 @@
 
 Phases:
  1. environment: torch and CUDA versions, the card's name and power limit;
- 2. build the five CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a);
+ 2. build the five CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
+    and print ptxas's registers and spills of K2 long's and K5's instances;
  3. hold each kernel against its plain PyTorch version in bf16 at the shapes
     the main paths give it, and time it beside its plain version, its bound
     (the least time the card could take: bytes over 3.35 TB/s or bf16
@@ -17,7 +18,10 @@ Phases:
     past 4096 (2 rows, Sq = Sk = 8192); K2 long at the 128-frame i2vgen-xl shapes
     (L0-L3 temporal and transformer_in, batch 1 and 3), at SEINE's widths
     with a relative-position bias (S 64) and at Sk = S + 8; K1, K3 and K4 at
-    128-frame shapes;
+    128-frame shapes; K5 also at SEINE's L0 spatial self-attention (48 rows
+    of 4096, 8 heads of 40); K4's prologue-free form at main-path shapes
+    beside one ``F.conv3d`` (kernel (3, 1, 1) on the ``channels_last_3d``
+    view, no copy);
  4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
@@ -63,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,6 +94,32 @@ def phase_env():
     log(smi.stdout.strip().splitlines()[0])   # the card's name and power limit
 
 
+def _ptxas_summary(report, names):
+    """ptxas's registers and spills of each instance of the named kernels:
+    "name<template args>: R registers, S bytes spill stores, L loads"."""
+    out, current = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = next((n for n in names if n + "I" in mangled), None)
+            current = None
+            if name:
+                args = re.findall(r"L([ib])(\d+)E", mangled[mangled.index(name):])
+                current = name + "<" + ",".join(
+                    v if k == "i" else ("true" if v == "1" else "false") for k, v in args) + ">"
+                spill = ""
+            continue
+        if current and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spill = f"{st} bytes spill stores, {ld} bytes spill loads"
+        elif current and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{current}: {regs} registers, {spill}")
+            current = None
+    return out
+
+
 def phase_build():
     from anyv2v_torch.ops import _build
 
@@ -96,6 +127,9 @@ def phase_build():
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) "
         f"into {_build.BUILD_DIR}")
+    for line in _ptxas_summary(_build.ptxas_report(),
+                               ("frame_attention_long_kernel", "flash_attention_kernel")):
+        log(f"ptxas {line}")
 
 
 def _time_ms(fn, iters):
@@ -152,6 +186,18 @@ def _attn_library(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         *(x.view(x.shape[0], x.shape[1], heads, -1).transpose(1, 2) for x in (q, k, v)),
         scale=scale)
+
+
+def _tconv_library(x, s, t, w, b):
+    """K4's prologue-free form (``s = t = None``) as one ``F.conv3d`` with
+    kernel (3, 1, 1) and padding (1, 0, 0) on the ``channels_last_3d`` view
+    ``[B, C, F, P, 1]`` of the same ``[B, F, P, C]`` tensor (no copy); the
+    weight is laid out as conv3d's ``[C', C, 3, 1, 1]`` beforehand."""
+    x5 = x.permute(0, 3, 1, 2).unsqueeze(-1)
+    if not x5.is_contiguous(memory_format=torch.channels_last_3d):
+        raise RuntimeError("the channels_last_3d view of x is not contiguous")
+    w5 = w.permute(2, 1, 0)[..., None, None].contiguous()
+    return lambda: torch.nn.functional.conv3d(x5, w5, b, padding=(1, 0, 0))
 
 
 def _frame_view(x, heads):
@@ -223,7 +269,8 @@ def _kernels():
 
 
 def _kernel_cases():
-    """(kernel name, case label, args factory). Shapes are the main paths':
+    """(kernel name, case label, args factory[, library call factory that
+    replaces the kernel's]). Shapes are the main paths':
     i2vgen-xl (16 frames, 512^2; K1 at batch rows 1-2) and ConsistI2V (16
     frames plus the conditioning frame, 512^2, the edit batch of 3 rows)."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -271,8 +318,11 @@ def _kernel_cases():
                     rn(c, i, std=i ** -0.5), rn(c, std=0.1))
         return make
 
-    def tconv_args(b, f, p, c):
+    def tconv_args(b, f, p, c, prologue=True):
         def make():
+            if not prologue:
+                return (rn(b, f, p, c), None, None, rn(3, c, c, std=(3 * c) ** -0.5),
+                        rn(c, std=0.1))
             s = (torch.rand(b, c, generator=g, device="cuda") + 0.5).float()
             t = (torch.randn(b, c, generator=g, device="cuda") * 0.5).float()
             return (rn(b, f, p, c), s, t, rn(3, c, c, std=(3 * c) ** -0.5), rn(c, std=0.1))
@@ -315,6 +365,7 @@ def _kernel_cases():
         (k5, "temporal cross L0 b3 Sq17*4096 Sk77 h8 dh40", attn(3, 17 * 4096, 77, 8, 40, 40)),
         (k5, "temporal cross L1 b3 Sq17*1024 Sk77 h8 dh80", attn(3, 17 * 1024, 77, 8, 80, 80)),
         (k5, "temporal cross L2 b3 Sq17*256 Sk77 h8 dh160", attn(3, 17 * 256, 77, 8, 160, 160)),
+        (k5, "SEINE L0 spatial self b48 S4096 h8 dh40", attn(48, 4096, 4096, 8, 40, 40)),
         (k2, "SEINE L0 temporal b3 S16 HW4096 h8 dh40 bias",
          frames(3, 16, 4096, 8, 40, 40, bias=True)),
         (k2, "SEINE L1 temporal b3 S16 HW1024 h8 dh80 bias",
@@ -362,6 +413,13 @@ def _kernel_cases():
         # K1 at the class of the Pallas _packed_kernel, which took Sk past
         # 4096: 2 rows, 64 heads of dh 8, Sq = Sk = 8192
         (k1, "off-path row 5 class b2 S8192 h64 dh8", attn(2, 8192, 8192, 64, 8, 5)),
+        # K4's prologue-free form at main-path shapes, beside one conv3d
+        *[(k4, f"off-path prologue-free {lb}", tconv_args(*shape, prologue=False),
+           _tconv_library)
+          for lb, shape in (("L0 C320 P4096 F16 b1", (1, 16, 4096, 320)),
+                            ("L1 C640 P1024 F16 b3", (3, 16, 1024, 640)),
+                            ("L2 C1280 P256 F16 b3", (3, 16, 256, 1280)),
+                            ("long L0 C320 P4096 F128 b3", (3, 128, 4096, 320)))],
     ]
 
 
@@ -380,8 +438,9 @@ def phase_kernels():
     kernels = _kernels()
     records, failures = {}, []
     atol, rtol = 1e-2, 2e-2
-    for name, label, make in _kernel_cases():
+    for name, label, make, *override in _kernel_cases():
         route, src, repl, kern, plain, cost, library = kernels[name]
+        case_library = override[0] if override else library
         args = make()
         got = kern(*args)
         torch.cuda.synchronize()
@@ -398,7 +457,7 @@ def phase_kernels():
         del got, want
         ms = _time_ms(lambda: kern(*args), 5)
         plain_ms = _time_ms(lambda: plain(*args), 2)
-        lib_ms = _time_ms(library(*args), 5) if library is not None else None
+        lib_ms = _time_ms(case_library(*args), 5) if case_library is not None else None
         transpose_ms = (_time_ms(_frame_transposes(*args[:4]), 5)
                         if name == "frame_attention_long" else None)
         flops, nbytes = cost(*args)

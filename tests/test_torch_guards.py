@@ -147,8 +147,25 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch, fail):
     assert left == sorted(["calls.txt", "nvcc"] + ([] if fail else ["lib.so"]))
 
 
-@pytest.mark.parametrize("name", ["folded", "frame", "ffn", "temporal_conv", "flash",
-                                  "flash_splitkv"])
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """The library's name hashes every source and header under CSRC: an edit
+    to a header that is never compiled alone (``hopper.cuh``) rebuilds, and
+    a file of another kind changes nothing."""
+    for name in _build.SOURCES + ("hopper.cuh",):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    before = _build._source_hash()
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert _build._source_hash() == before
+    (tmp_path / "hopper.cuh").write_text("// hopper.cuh, edited\n")
+    edited = _build._source_hash()
+    assert edited != before
+    (tmp_path / "extra.cuh").write_text("// a new header\n")
+    assert _build._source_hash() not in (before, edited)
+
+
+@pytest.mark.parametrize("name", ["folded", "frame", "frame_long", "ffn", "temporal_conv",
+                                  "flash", "flash_splitkv"])
 def test_wrappers_refuse_non_cpu_tensors(name):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper either launches its kernel (CUDA) or raises."""
@@ -160,6 +177,8 @@ def test_wrappers_refuse_non_cpu_tensors(name):
                                                             t(1, 16, 64), 8, 0.3),
         "frame": lambda: frame_attention.frame_attention(t(1, 4, 8, 64), t(1, 4, 8, 64),
                                                          t(1, 4, 8, 64), 8, 0.3),
+        "frame_long": lambda: frame_attention.frame_attention_long(
+            t(1, 64, 4, 64), t(1, 72, 4, 64), t(1, 72, 4, 64), 8, 0.3),
         "ffn": lambda: ffn.ffn_geglu(t(4, 64), t(512, 64), t(512), t(64, 256), t(64)),
         "temporal_conv": lambda: temporal_conv.gn_silu_temporal_conv(
             t(1, 4, 8, 64), t(1, 64, dtype=torch.float32), t(1, 64, dtype=torch.float32),
@@ -170,7 +189,8 @@ def test_wrappers_refuse_non_cpu_tensors(name):
             t(4, 16, 64), t(4, 16, 64), t(4, 16, 64), 1, 0.3, t(2, 16, 64), t(2, 16, 64), 2),
     }
     before = {w: w.launches for w in (folded_attention.folded_attention,
-                                      frame_attention.frame_attention, ffn.ffn_geglu,
+                                      frame_attention.frame_attention,
+                                      frame_attention.frame_attention_long, ffn.ffn_geglu,
                                       temporal_conv.gn_silu_temporal_conv,
                                       flash_attention.flash_attention)}
     with pytest.raises(ValueError, match="expected CUDA or CPU tensors"):
