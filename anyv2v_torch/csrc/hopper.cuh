@@ -3,8 +3,8 @@
 // cp.async with zero-fill, mbarrier, TMA tensor loads, wgmma with its fences,
 // setmaxnreg and named barriers. Each is one PTX instruction (or a short
 // fixed sequence) with no policy of its own; the kernels decide tiles and
-// layouts. Included by frame_attention.cu and flash_attention.cu; never
-// compiled alone.
+// layouts. Included by folded_attention.cu, frame_attention.cu and
+// flash_attention.cu; never compiled alone.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -24,7 +24,10 @@ other attention, not causal                    dh 8/16/40/64/80/160    K5
   and cross over 77 text tokens, 8 heads
   of 40/80/160)
 :func:`spatial_attention_ffconcat`             dh as K5                K5 split-KV
-:func:`temporal_attention` (frame axis)        S <= 32, Sk <= S + 16   K2
+:func:`temporal_attention` (frame axis)        S <= 32, Sk <= S + 16,  K2
+  (i2vgen-xl: 64 heads of 8/16/32,             dh 8/16/32/40/64/
+  transformer_in 8 of 64; ConsistI2V: Sk       80/160
+  25, 8 heads of 40/80/160)
 :func:`temporal_attention` with ``bias``       the same, bias          K2 + bias
   (SEINE: S = Sk = 16, 8 heads of              ``[H, S, Sk]`` fp32
   40/80/160, T5 relative positions)
@@ -33,6 +36,14 @@ other attention, not causal                    dh 8/16/40/64/80/160    K5
   8/16/32, transformer_in 8 of 64)             bias optional
 everything else (the VAE's 512-wide head)                              SDPA
 =============================================  ======================  =========
+
+K1 is one tensor-core kernel for every class it takes (``mma.sync`` on K/V
+tiles from a ``cp.async`` ring, several heads or packed batch rows per
+block); it replaces a CUDA-core body with one thread per query row. K2 and
+K2 long launch one tensor-core body for every frame count up to 128 (several
+pixels per block at 16 frames, one at 128); it replaces the two CUDA-core
+bodies that K2 had for S <= 32. The two wrappers keep their own launch
+counts and kernel symbols.
 
 K1 takes what it took before K5 existed except window-packed heads of 64,
 which no i2vgen-xl call has (its windowed calls are 64 heads of 8/16/32);

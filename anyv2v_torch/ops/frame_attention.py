@@ -15,19 +15,21 @@ positions already applied). An optional fp32 ``bias [heads, S, Sk]``, shared by
 every batch row and pixel (SEINE's T5 relative-position bias), is added to the
 scaled scores before the softmax, as the Pallas kernels add it.
 
-Two wrappers, each with its own launch count:
+One tensor-core body (``mma.sync`` on operands brought in by ``cp.async``)
+serves every frame count up to 128 and head widths 8/16/32/40/64/80/160. It
+replaces two CUDA-core bodies for S <= 32 (a channel-pair body and a row
+body, 4-9x their byte bound on an H100). A block holds Q, K and V of
+several pixels for a group of whole heads in shared memory; :func:`frame_plan`
+sizes that group, the pixels per block and the launch, and the C entry
+refuses a plan that does not match the shape. Two wrappers, each with its own
+launch count, launch that body:
 
-- :func:`frame_attention` (S <= 32): ``Sk == S`` with a power-of-two head
-  width up to 64 (i2vgen-xl) takes the channel-pair body; every other shape
-  (``S <= Sk <= S + 16``, head widths 8/16/40/80/160, the ConsistI2V archs'
-  temporal heads) takes the row body.
-- :func:`frame_attention_long` ("K2 long", 32 < S <= 128): a tensor-core
-  body (``mma.sync`` on operands brought in by ``cp.async``), head widths
-  8/16/32/40/64/80/160. A block holds one pixel's Q, K and V for a group of
-  whole heads in shared memory; :func:`long_plan` sizes that group and the
-  launch, and the C entry refuses a plan that does not match the shape. It
-  keeps the JAX kernel's cap of 128 frames (``_short_kernel`` takes S, Sk <=
-  128) and raises past it.
+- :func:`frame_attention` (S <= 32, :func:`takes`);
+- :func:`frame_attention_long` ("K2 long", 32 < S <= 128, :func:`takes_long`),
+  the long-video route. It keeps the JAX kernel's cap of 128 frames
+  (``_short_kernel`` takes S, Sk <= 128) and raises past it.
+
+Both take ``S <= Sk <= S + 16``.
 """
 
 from __future__ import annotations
@@ -41,12 +43,11 @@ from . import _build
 
 MAX_FRAMES = 32
 MAX_EXTRA_KEYS = 16
-PAIR_HEAD_DIMS = (2, 4, 8, 16, 32, 64)
-ROW_HEAD_DIMS = (8, 16, 40, 80, 160)
 LONG_MAX_FRAMES = 128
-LONG_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 160)
-LONG_GROUP_CHANNELS = 128   # channels per K2 long block (one head where it is wider)
-LONG_MAX_WARPS = 8
+HEAD_DIMS = (8, 16, 32, 40, 64, 80, 160)
+GROUP_CHANNELS = 128        # channels per block (one head where it is wider)
+MAX_WARPS = 8
+MIN_BLOCK_BYTES = 16384     # pixels are added to a block until it moves this much
 
 
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,35 +81,42 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def takes(s: int, sk: int, head_dim: int) -> bool:
     """The shapes :func:`frame_attention` takes (S <= 32)."""
-    if not (1 <= s <= MAX_FRAMES and s <= sk <= s + MAX_EXTRA_KEYS):
-        return False
-    return (sk == s and head_dim in PAIR_HEAD_DIMS) or head_dim in ROW_HEAD_DIMS
+    return (1 <= s <= MAX_FRAMES and s <= sk <= s + MAX_EXTRA_KEYS
+            and head_dim in HEAD_DIMS)
 
 
 def takes_long(s: int, sk: int, head_dim: int) -> bool:
     """The shapes :func:`frame_attention_long` takes (32 < S <= 128)."""
     return (MAX_FRAMES < s <= LONG_MAX_FRAMES and s <= sk <= s + MAX_EXTRA_KEYS
-            and head_dim in LONG_HEAD_DIMS)
+            and head_dim in HEAD_DIMS)
 
 
-def long_plan(b: int, s: int, sk: int, hw: int, heads: int, head_dim: int) -> dict:
-    """The launch of K2 long's kernel for one shape: one block per (batch row,
-    pixel, group of heads). The group is the most whole heads that fit in
-    ``LONG_GROUP_CHANNELS`` channels (one head if it is wider). The block
-    holds Q ``[S, G]``, K and V ``[Sk, G]`` (G = group channels) in shared
-    memory, rows padded to 16 and each row strided by an odd number of
-    16-byte units (no ldmatrix bank conflict); one warp per (head, 16 query
-    frames), at most ``LONG_MAX_WARPS``. ``csrc/frame_attention.cu``
-    recomputes the shared bytes and refuses a plan that differs."""
+def frame_plan(b: int, s: int, sk: int, hw: int, heads: int, head_dim: int) -> dict:
+    """The launch of the frame-axis kernel for one shape (1 <= S <= 128): one
+    block per (group of pixels, group of heads). The head group is the most
+    whole heads that fit in ``GROUP_CHANNELS`` channels (one head if it is
+    wider). One pixel's Q ``[S, G]``, K and V ``[Sk, G]`` (G = group
+    channels), rows padded to 16 and each row strided by an odd number of
+    16-byte units (no ldmatrix bank conflict), take ``pixel_bytes`` of
+    shared memory. A block holds ``pixels_per_block`` consecutive pixels (of
+    the ``B * HW`` in batch-major order): enough to move ``MIN_BLOCK_BYTES``,
+    while two blocks still share one SM. Past ``MAX_FRAMES`` frames (K2
+    long) a block holds one pixel, which the kernel knows at compile time.
+    One warp per (pixel, head, 16 query frames), at most ``MAX_WARPS``.
+    ``csrc/frame_attention.cu`` recomputes the shared bytes and refuses a
+    plan that differs."""
     hb = max(d for d in range(1, heads + 1)
-             if heads % d == 0 and d * head_dim <= max(LONG_GROUP_CHANNELS, head_dim))
+             if heads % d == 0 and d * head_dim <= max(GROUP_CHANNELS, head_dim))
     g = hb * head_dim
     row_stride = g + 8 + 8 * ((g // 8) % 2)
     rows_q, rows_k = -(-s // 16) * 16, -(-sk // 16) * 16
-    return {"heads_per_block": hb, "row_stride": row_stride,
-            "smem_bytes": (rows_q + 2 * rows_k) * row_stride * 2,
-            "threads": 32 * min(LONG_MAX_WARPS, hb * rows_q // 16),
-            "grid": (b * hw, heads // hb)}
+    pixel_bytes = (rows_q + 2 * rows_k) * row_stride * 2
+    pixels = 1 if s > MAX_FRAMES else max(1, min(b * hw, -(-MIN_BLOCK_BYTES // pixel_bytes),
+                                                 _build.SMEM_LIMIT // (2 * pixel_bytes)))
+    return {"heads_per_block": hb, "pixels_per_block": pixels, "row_stride": row_stride,
+            "pixel_bytes": pixel_bytes, "smem_bytes": pixels * pixel_bytes,
+            "threads": 32 * min(MAX_WARPS, pixels * hb * rows_q // 16),
+            "grid": (-(-b * hw // pixels), heads // hb)}
 
 
 def _check_bias(bias: torch.Tensor, q: torch.Tensor, k: torch.Tensor, heads: int) -> None:
@@ -144,6 +152,24 @@ def _bias_ptr(bias: Optional[torch.Tensor]):
     return ctypes.c_void_p(None) if bias is None else _build.ptr(bias)
 
 
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+            scale: float, bias: Optional[torch.Tensor], takes_fn, limits: str) -> torch.Tensor:
+    """Check the operands and the plan, then launch the kernel."""
+    b, s, sk, hw, c, dh = _check_shapes(name, q, k, v, heads, takes_fn, limits)
+    plan = frame_plan(b, s, sk, hw, heads, dh)
+    _build.check_plan(name, plan)
+    out = torch.empty_like(q)
+    rc = _build.library().anyv2v_frame_attention(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _bias_ptr(bias), _build.ptr(out),
+        ctypes.c_int(b), ctypes.c_int(s), ctypes.c_int(sk), ctypes.c_int(hw),
+        ctypes.c_int(c), ctypes.c_int(dh), ctypes.c_float(scale),
+        *(ctypes.c_int(plan[key]) for key in ("heads_per_block", "pixels_per_block", "threads",
+                                              "smem_bytes")),
+        _build.stream())
+    _build.check(rc, name)
+    return out
+
+
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -154,23 +180,8 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_bias(bias, q, k, heads)
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, heads, scale, bias)
-    b, s, sk, hw, c, dh = _check_shapes(
-        "frame_attention", q, k, v, heads, takes,
-        f"S <= {MAX_FRAMES}, S <= Sk <= S + {MAX_EXTRA_KEYS}, widths {PAIR_HEAD_DIMS} "
-        f"at Sk == S or {ROW_HEAD_DIMS}")
-    out = torch.empty_like(q)
-    lib = _build.library()
-    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _bias_ptr(bias), _build.ptr(out),
-            ctypes.c_int(b), ctypes.c_int(s))
-    if sk == s and dh in PAIR_HEAD_DIMS:
-        rc = lib.anyv2v_frame_attention(*args, ctypes.c_int(hw), ctypes.c_int(c),
-                                        ctypes.c_int(dh), ctypes.c_float(scale),
-                                        _build.stream())
-    else:
-        rc = lib.anyv2v_frame_attention_rows(*args, ctypes.c_int(sk), ctypes.c_int(hw),
-                                             ctypes.c_int(c), ctypes.c_int(dh),
-                                             ctypes.c_float(scale), _build.stream())
-    _build.check(rc, "frame_attention")
+    out = _launch("frame_attention", q, k, v, heads, scale, bias, takes,
+                  f"S <= {MAX_FRAMES}, S <= Sk <= S + {MAX_EXTRA_KEYS}, widths {HEAD_DIMS}")
     frame_attention.launches += 1
     return out
 
@@ -187,20 +198,9 @@ def frame_attention_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_bias(bias, q, k, heads)
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, heads, scale, bias)
-    b, s, sk, hw, c, dh = _check_shapes(
-        "frame_attention_long", q, k, v, heads, takes_long,
-        f"{MAX_FRAMES} < S <= {LONG_MAX_FRAMES}, S <= Sk <= S + {MAX_EXTRA_KEYS}, "
-        f"widths {LONG_HEAD_DIMS}")
-    plan = long_plan(b, s, sk, hw, heads, dh)
-    _build.check_plan("frame_attention_long", plan)
-    out = torch.empty_like(q)
-    rc = _build.library().anyv2v_frame_attention_long(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _bias_ptr(bias), _build.ptr(out),
-        ctypes.c_int(b), ctypes.c_int(s), ctypes.c_int(sk), ctypes.c_int(hw),
-        ctypes.c_int(c), ctypes.c_int(dh), ctypes.c_float(scale),
-        ctypes.c_int(plan["heads_per_block"]), ctypes.c_int(plan["threads"]),
-        ctypes.c_int(plan["smem_bytes"]), _build.stream())
-    _build.check(rc, "frame_attention_long")
+    out = _launch("frame_attention_long", q, k, v, heads, scale, bias, takes_long,
+                  f"{MAX_FRAMES} < S <= {LONG_MAX_FRAMES}, S <= Sk <= S + {MAX_EXTRA_KEYS}, "
+                  f"widths {HEAD_DIMS}")
     frame_attention_long.launches += 1
     return out
 

@@ -1,17 +1,25 @@
-"""The launch plans of K2 long and K5, checked on the CPU.
+"""The launch plans of K1, K2 (both routes) and K5, checked on the CPU.
 
 The CUDA kernels cannot run here, but the shared-memory and grid arithmetic
-of their launches lives in Python (``frame_attention.long_plan``,
-``flash_attention.flash_plan``) and is passed to the C entries, which refuse
-a plan that does not match the shape. Every class each kernel takes must get
-a plan that one H100 block can hold (at most 232,448 bytes of dynamic shared
-memory) and a grid and block inside the launch limits.
+of their launches lives in Python (``folded_attention.folded_plan``,
+``frame_attention.frame_plan``, ``flash_attention.flash_plan``) and is passed
+to the C entries, which refuse a plan that does not match the shape. Every
+class each kernel takes must get a plan that one H100 block can hold (at most
+232,448 bytes of dynamic shared memory) and a grid and block inside the
+launch limits. K1's and K2's plans are also checked at every K1 and K2 case
+of ``chip_smoke.py`` (the shapes the card is held to), where the grid must
+cover each (batch row, head group, query tile) or (batch row, pixel, head
+group) exactly once.
 """
+
+import itertools
 
 import pytest
 
+import chip_smoke
 from anyv2v_torch.ops import _build
 from anyv2v_torch.ops import flash_attention as fl
+from anyv2v_torch.ops import folded_attention as fa
 from anyv2v_torch.ops import frame_attention as fr
 
 SMEM = 232448
@@ -24,33 +32,67 @@ def _heads(dh):
             80: (8, 2, 3), 160: (8, 1, 3)}[dh]
 
 
-@pytest.mark.parametrize("dh", fr.LONG_HEAD_DIMS)
+def _check_frame_plan(plan, b, s, sk, hw, heads, dh):
+    hb = plan["heads_per_block"]
+    assert heads % hb == 0 and hb * dh <= max(fr.GROUP_CHANNELS, dh)
+    # whole 16-row tiles of Q, K and V per pixel, rows strided by an odd
+    # number of 16-byte units
+    ld = plan["row_stride"]
+    assert ld >= hb * dh and (ld * 2 // 16) % 2 == 1
+    rows = -(-s // 16) * 16 + 2 * (-(-sk // 16) * 16)
+    assert plan["pixel_bytes"] == rows * ld * 2
+    pixels = plan["pixels_per_block"]
+    assert 1 <= pixels <= b * hw
+    assert plan["smem_bytes"] == pixels * plan["pixel_bytes"] <= SMEM
+    if pixels > 1:   # pixels are added only while two blocks share one SM
+        assert 2 * plan["smem_bytes"] <= SMEM
+    # up to 32 frames a block moves at least MIN_BLOCK_BYTES unless the
+    # pixels or the SM run out; past 32 frames (K2 long) it holds one pixel
+    if s > fr.MAX_FRAMES:
+        assert pixels == 1
+    else:
+        assert (plan["smem_bytes"] >= fr.MIN_BLOCK_BYTES or pixels == b * hw
+                or 2 * (pixels + 1) * plan["pixel_bytes"] > SMEM)
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 32 * fr.MAX_WARPS
+    assert plan["grid"] == (-(-b * hw // pixels), heads // hb)
+    assert plan["grid"][0] <= GRID_X and plan["grid"][1] <= GRID_YZ
+
+
+@pytest.mark.parametrize("dh", fr.HEAD_DIMS)
 @pytest.mark.parametrize("s,sk", [(128, 144), (128, 128), (33, 33), (40, 47), (64, 80)])
 def test_long_plan_fits_one_block(dh, s, sk):
     assert fr.takes_long(s, sk, dh)
     for heads in _heads(dh):
         for b, hw in ((3, 4096), (1, 37)):
-            plan = fr.long_plan(b, s, sk, hw, heads, dh)
-            hb = plan["heads_per_block"]
-            assert heads % hb == 0 and hb * dh <= max(fr.LONG_GROUP_CHANNELS, dh)
-            # whole 16-row tiles of Q, K and V, rows strided by an odd number
-            # of 16-byte units
-            ld = plan["row_stride"]
-            assert ld >= hb * dh and (ld * 2 // 16) % 2 == 1
-            rows = -(-s // 16) * 16 + 2 * (-(-sk // 16) * 16)
-            assert plan["smem_bytes"] == rows * ld * 2 <= SMEM
-            assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 32 * fr.LONG_MAX_WARPS
-            assert plan["grid"] == (b * hw, heads // hb)
-            assert plan["grid"][0] <= GRID_X and plan["grid"][1] <= GRID_YZ
+            _check_frame_plan(fr.frame_plan(b, s, sk, hw, heads, dh), b, s, sk, hw, heads, dh)
+
+
+@pytest.mark.parametrize("dh", fr.HEAD_DIMS)
+@pytest.mark.parametrize("s,sk", [(16, 16), (17, 25), (32, 48), (1, 1), (7, 13), (8, 8)])
+def test_short_plan_fits_one_block(dh, s, sk):
+    """S <= 32 on the same body: several pixels per block, two blocks per SM."""
+    assert fr.takes(s, sk, dh)
+    for heads in _heads(dh):
+        for b, hw in ((3, 4096), (2, 37), (1, 1)):
+            _check_frame_plan(fr.frame_plan(b, s, sk, hw, heads, dh), b, s, sk, hw, heads, dh)
 
 
 def test_long_plan_of_the_128_frame_path():
     """i2vgen-xl at 128 frames: 64 heads of 8/16/32 and transformer_in's 8 of
-    64 take 128 channels per block, two blocks' shared memory on one SM."""
+    64 take 128 channels and one pixel per block, two blocks' shared memory
+    on one SM."""
     for heads, dh in ((64, 8), (64, 16), (64, 32), (8, 64)):
-        plan = fr.long_plan(3, 128, 128, 4096, heads, dh)
+        plan = fr.frame_plan(3, 128, 128, 4096, heads, dh)
         assert plan["heads_per_block"] * dh == 128 and plan["threads"] == 256
-        assert 2 * plan["smem_bytes"] <= SMEM
+        assert plan["pixels_per_block"] == 1 and 2 * plan["smem_bytes"] <= SMEM
+
+
+def test_short_plan_of_the_16_frame_path():
+    """i2vgen-xl at 16 frames: one pixel of 128 channels is 13 KB, so a block
+    takes two (26 KB), and the L0 call has 2048 blocks of 8 warps."""
+    plan = fr.frame_plan(1, 16, 16, 4096, 64, 8)
+    assert plan["pixel_bytes"] == 48 * 136 * 2 and plan["pixels_per_block"] == 2
+    assert plan["grid"] == (2048, 4) and plan["threads"] == 256
 
 
 @pytest.mark.parametrize("dh", fl.HEAD_DIMS)
@@ -84,3 +126,70 @@ def test_plan_check_refuses_what_one_block_cannot_hold():
                 {**ok, "grid": (1, GRID_YZ + 1)}, {**ok, "grid": (1, 1, GRID_YZ + 1)}):
         with pytest.raises(ValueError, match="no launch"):
             _build.check_plan("k", bad)
+
+
+def _chip_smoke_cases(*names):
+    return [pytest.param(make.shape, id=f"{name}: {label}")
+            for name, label, make, *_ in chip_smoke._kernel_cases() if name in names]
+
+
+def _check_folded_plan(plan, b, sq, sk, heads, dh):
+    hb, rows, qt = plan["heads_per_block"], plan["rows_per_block"], plan["q_tiles"]
+    assert heads % hb == 0 and hb * dh <= fa.GROUP_CHANNELS
+    assert rows == 1 or (hb == heads and rows * hb * dh <= fa.GROUP_CHANNELS and rows <= b)
+    width = rows * hb * dh
+    ld = plan["row_stride"]
+    assert ld >= width and (ld * 2 // 16) % 2 == 1
+    # every (head, 16 queries) item of the block has a warp slot, and a block
+    # with few items still takes one warp per item, up to MAX_WARPS
+    per_warp = 64 // dh
+    assert 1 <= plan["warps"] <= fa.MAX_WARPS and plan["warps"] * per_warp >= rows * hb * qt
+    assert plan["warps"] == min(fa.MAX_WARPS, rows * hb * qt)
+    assert plan["key_rows"] == min(fa.KEY_TILE, -(-sk // 16) * 16)
+    smem = (16 * qt + fa.STAGES * 2 * plan["key_rows"]) * ld * 2
+    assert plan["smem_bytes"] == smem
+    assert 2 * smem <= SMEM   # two blocks share one SM
+    n_q = -(-sq // (16 * qt))
+    assert plan["grid"] == (n_q * -(-b // rows), heads // hb)
+    assert plan["grid"][0] <= GRID_X and plan["grid"][1] <= GRID_YZ
+    return n_q
+
+
+@pytest.mark.parametrize("shape", _chip_smoke_cases("folded_attention"))
+def test_folded_plan_covers_each_chip_smoke_case(shape):
+    """Each (batch row, head, 16-query tile) falls in exactly one block."""
+    b, sq, sk, heads, dh = (shape[x] for x in ("b", "sq", "sk", "heads", "dh"))
+    plan = fa.folded_plan(b, sq, sk, heads, dh)
+    n_q = _check_folded_plan(plan, b, sq, sk, heads, dh)
+    hb, rows, qt = plan["heads_per_block"], plan["rows_per_block"], plan["q_tiles"]
+    seen = {}
+    for x, y in itertools.product(range(plan["grid"][0]), range(plan["grid"][1])):
+        b0, q0 = (x // n_q) * rows, (x % n_q) * qt
+        for r, h, t in itertools.product(range(rows), range(hb), range(qt)):
+            if b0 + r < b and (q0 + t) * 16 < sq:
+                key = (b0 + r, y * hb + h, q0 + t)
+                seen[key] = seen.get(key, 0) + 1
+    assert len(seen) == b * heads * -(-sq // 16) and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("shape", _chip_smoke_cases("frame_attention", "frame_attention_long"))
+def test_frame_plan_covers_each_chip_smoke_case(shape):
+    """Each (batch row, pixel, head group) falls in exactly one block."""
+    b, s, sk, hw, heads, dh = (shape[x] for x in ("b", "s", "sk", "hw", "heads", "dh"))
+    assert fr.takes(s, sk, dh) or fr.takes_long(s, sk, dh)
+    plan = fr.frame_plan(b, s, sk, hw, heads, dh)
+    _check_frame_plan(plan, b, s, sk, hw, heads, dh)
+    pixels, groups = plan["pixels_per_block"], plan["grid"][1]
+    covered = sorted(x * pixels + p for x in range(plan["grid"][0]) for p in range(pixels)
+                     if x * pixels + p < b * hw)
+    assert covered == list(range(b * hw)) and groups * plan["heads_per_block"] == heads
+
+
+def test_check_plan_refuses_k1_and_k2_plans_one_block_cannot_hold(monkeypatch):
+    """A K1 key tile too long for one SM, or a frame-axis block past 128
+    frames (which neither K2 route takes), raises before any launch."""
+    monkeypatch.setattr(fa, "KEY_TILE", 512)
+    with pytest.raises(ValueError, match="no launch"):
+        _build.check_plan("folded_attention", fa.folded_plan(2, 4096, 4096, 64, 8))
+    with pytest.raises(ValueError, match="no launch"):
+        _build.check_plan("frame_attention", fr.frame_plan(1, 256, 256, 64, 8, 160))
