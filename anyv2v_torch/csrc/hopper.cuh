@@ -1,12 +1,14 @@
 // Thin device wrappers over the Hopper (sm_90a) instructions that the
 // port's tensor-core kernels share: warp-level mma.sync and ldmatrix,
-// cp.async with zero-fill, mbarrier, TMA tensor loads, wgmma with its fences,
-// setmaxnreg and named barriers. Each is one PTX instruction (or a short
+// cp.async with zero-fill, mbarrier, TMA tensor loads and stores, wgmma with
+// its fences, setmaxnreg and named barriers. Each is one PTX instruction (or a short
 // fixed sequence) with no policy of its own; the kernels decide tiles and
-// layouts. Included by folded_attention.cu, frame_attention.cu and
-// flash_attention.cu; never compiled alone.
+// layouts. Then the one piece with a policy: the warp-specialised GEMM main
+// loop of K3 and K4 (gemm_main_loop, at the end), and the host's tensor-map
+// encoder. Included by every kernel source; never compiled alone.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,6 +29,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh by the special-function unit (tanh.approx.f32: absolute error about
+// 2^-11, under bf16's rounding of what it feeds).
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -109,6 +119,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Arrives on `bar` once every cp.async this thread issued before has landed
+// (the arrival counts against the barrier's expected count: .noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 // ---- mbarrier ----
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -163,6 +180,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// The same for a 2-D tensor map, the box at (c0, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Stores a box of shared memory to (c0, c1) of a 2-D tensor map (the part
+// inside the tensor), as one bulk async group of this thread.
+__device__ __forceinline__ void tma_store_2d(const void* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Orders this thread's generic-proxy shared-memory writes before later
 // async-proxy (TMA, wgmma) accesses.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -197,6 +247,16 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
 }
 
+// The same for the 128-byte swizzle (layout type 1) that TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes, 8-row atoms of 1024 bytes
+// (atoms 1024-byte aligned). K-major: `sbo` is the distance between 8-row
+// groups (1024 for contiguous rows), `lbo` unused (16); a step of 16 along K
+// adds 32 bytes to the address. MN-major: `lbo` is the distance between
+// 64-element column atoms, `sbo` between groups of 8 K rows.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return wgmma_desc(addr, lbo, sbo) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -214,15 +274,36 @@ __device__ __forceinline__ void wgmma_wait() {
 // across a wgmma wait or fence.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
-// (K-major, no swizzle); scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int scale_d) {
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory, both
+// K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory, both
+// K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 256] (+)= A[64 x 16] * B[16 x 256], A and B in shared memory, both
+// K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -279,6 +360,176 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], 
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] * B[16 x 256], A in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B in shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// ---- products of one 16-deep K step at the GEMM widths (64..320 by 64) ----
+
+// D[64 x BN] (+)= A . B, A and B K-major in 128-byte-swizzled tiles: `da` is
+// A's descriptor, `b` the address of B's first row (rows of 128 bytes, so a
+// piece starting at row r starts r * 128 bytes on). D holds the pieces in
+// column order, 4 registers per 8 columns.
+template <int BN>
+__device__ __forceinline__ void wgmma_ss_width(float* d, uint64_t da, uint32_t b, int scale_d) {
+  static_assert(BN % 64 == 0 && BN >= 64 && BN <= 320, "widths 64..320 by 64");
+  auto db = [&](int row) { return wgmma_desc_sw128(b + row * 128, 16, 1024); };
+  if constexpr (BN >= 256) {
+    wgmma_ss_n256(d, da, db(0), scale_d);
+    if constexpr (BN == 320) wgmma_ss_n64(d + 128, da, db(256), scale_d);
+  } else if constexpr (BN >= 128) {
+    wgmma_ss_n128(d, da, db(0), scale_d);
+    if constexpr (BN == 192) wgmma_ss_n64(d + 64, da, db(128), scale_d);
+  } else {
+    wgmma_ss_n64(d, da, db(0), scale_d);
+  }
+}
+
+// D[64 x BN] += A . B, A in registers, B MN-major in 128-byte-swizzled column
+// atoms of 64 columns, `atom` bytes apart, starting at `b`.
+template <int BN>
+__device__ __forceinline__ void wgmma_rs_width(float* d, const uint32_t (&a)[4], uint32_t b,
+                                               uint32_t atom) {
+  static_assert(BN % 64 == 0 && BN >= 64 && BN <= 320, "widths 64..320 by 64");
+  auto db = [&](int col) { return wgmma_desc_sw128(b + (col / 64) * atom, atom, 1024); };
+  if constexpr (BN >= 256) {
+    wgmma_rs_n256(d, a, db(0));
+    if constexpr (BN == 320) wgmma_rs_n64(d + 128, a, db(256));
+  } else if constexpr (BN >= 128) {
+    wgmma_rs_n128(d, a, db(0));
+    if constexpr (BN == 192) wgmma_rs_n64(d + 64, a, db(128));
+  } else {
+    wgmma_rs_n64(d, a, db(0));
+  }
+}
+
+// ---- the warp-specialised GEMM main loop of K3 and K4 ----
+//
+// A block of three warpgroups walks over output tiles of 128 rows,
+// persistently: tile blockIdx.x, then every gridDim.x-th. Warpgroup 2
+// produces: it keeps a ring of Body::STAGES shared-memory stages full, one per
+// K step, and the ring runs on across tiles, so that the next tile's first
+// stages load while the consumers finish a tile. Warpgroups 0 and 1 consume,
+// 64 rows each: each waits for a stage, issues its wgmmas, and then waits for
+// the step before's (wgmma.wait_group 1) and releases that step's stage, so
+// that one step's products run while the next stage is awaited and
+// prepared; after a tile's last step comes the epilogue.
+//
+// Body provides:
+//   STAGES, STAGE_BYTES, FULL_ARRIVALS (arrivals that complete a full barrier
+//   besides its transaction bytes), PRODUCER_THREADS (1 or 128);
+//   int tiles() const, int ksteps() const;
+//   void begin_produce(int tile, int tw) const: once per tile, by every
+//     producer thread tw < PRODUCER_THREADS;
+//   void produce(int tile, int k, unsigned char* stage, uint64_t* full,
+//     int tw) const: fill the stage for step k and arrive on `full`;
+//   struct Consumer { Consumer(const Body&, int tile, int wg);
+//     void mma(int k, const unsigned char* stage): issue and commit the
+//     step's wgmmas; void epilogue(); };
+//   void consumers_done() const: once per consumer thread after its last
+//     tile (waits for the epilogue's outstanding bulk stores).
+// The caller has initialised `full` (FULL_ARRIVALS) and `empty` (8: one
+// arrival per consumer warp), fenced them, and synchronised the block.
+constexpr int GEMM_THREADS = 384;   // consumers 0-255, producer 256-383
+constexpr int GEMM_PRODUCER_REGS = 40, GEMM_CONSUMER_REGS = 232;
+
+template <class Body>
+__device__ __forceinline__ void gemm_main_loop(const Body& body, unsigned char* smem,
+                                               uint64_t* full, uint64_t* empty) {
+  constexpr int S = Body::STAGES;
+  const int tiles = body.tiles(), ksteps = body.ksteps();
+  // the warpgroup index, warp-uniform to the compiler (setmaxnreg needs
+  // branches it can tell apart)
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == 2) {
+    setmaxnreg_dec<GEMM_PRODUCER_REGS>();
+    const int tw = threadIdx.x - 256;
+    if (tw >= Body::PRODUCER_THREADS) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      body.begin_produce(tile, tw);
+      for (int k = 0; k < ksteps; ++k, ++it) {
+        const int stage = it % S;
+        if (it >= S) mbar_wait(&empty[stage], ((it / S) - 1) & 1);
+        body.produce(tile, k, smem + stage * Body::STAGE_BYTES, &full[stage], tw);
+      }
+    }
+  } else {
+    setmaxnreg_inc<GEMM_CONSUMER_REGS>();
+    const bool lead = threadIdx.x % 32 == 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      typename Body::Consumer c(body, tile, role);
+      for (int k = 0; k < ksteps; ++k, ++it) {
+        const int stage = it % S;
+        mbar_wait(&full[stage], (it / S) & 1);
+        c.mma(k, smem + stage * Body::STAGE_BYTES);
+        wgmma_wait<1>();
+        if (k > 0 && lead) mbar_arrive(&empty[(it - 1) % S]);
+      }
+      wgmma_wait<0>();
+      if (lead) mbar_arrive(&empty[(it - 1) % S]);
+      c.epilogue();
+    }
+    body.consumers_done();
+  }
+}
+
+// ---- host: TMA tensor maps ----
+
+// cuTensorMapEncodeTiled, looked up at run time by its entry point (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dimensions (innermost first, rows contiguous:
+// strides[i] is the byte stride of dimension i + 1), boxes of `box`, with
+// elements outside the tensor read as zeros.
+inline bool make_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box,
+                          CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared bytes of a GEMM block: the ring, `extra` bytes of the body's
+// own, a full and an empty barrier per stage, and 1024 bytes of slack that
+// align the ring to the swizzle atom. ops/_build.py's gemm_plan is the same
+// formula.
+constexpr int gemm_smem_bytes(int stage_bytes, int stages, int extra) {
+  return stages * stage_bytes + extra + 2 * stages * 8 + 1024;
 }
 
 }  // namespace hopper

@@ -36,6 +36,13 @@ PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile steps only: registers, spills, sha
 
 SMEM_LIMIT = 232448                        # dynamic shared memory of one H100 block
 GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)  # grid x, y, z
+H100_SMS = 132
+
+# hopper.cuh's GEMM main loop (K3, K4): 128-row tiles on two consumer
+# warpgroups and a producer warpgroup, a ring of 4 stages 64 deep, output
+# tiles 64..320 columns wide by 64
+GEMM_ROWS, GEMM_DEPTH, GEMM_STAGES, GEMM_THREADS = 128, 64, 4, 384
+GEMM_WIDTHS = (64, 128, 192, 256, 320)
 
 _lib = None
 build_seconds = None   # wall time of the nvcc build in this process, if any
@@ -163,6 +170,36 @@ def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16) -> Non
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device: a persistent grid's size."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def gemm_width(cols: int) -> tuple:
+    """(column tiles, tile width) of a GEMM with ``cols`` output columns: as
+    few tiles of at most 320 columns as possible, each a multiple of 64 wide
+    (the last one masked)."""
+    tiles = -(-cols // GEMM_WIDTHS[-1])
+    per_tile = -(-cols // tiles)
+    return tiles, -(-per_tile // 64) * 64
+
+
+def gemm_plan(rows: int, col_tiles: int, width: int, ksteps: int, extra_bytes: int = 0,
+              sms: int = H100_SMS) -> dict:
+    """The launch of one GEMM on hopper.cuh's main loop: a ring of 4 stages of
+    A [128, 64] and B [64, width] bf16, ``extra_bytes`` of the body's own, a
+    full and an empty mbarrier per stage and 1024 bytes that align the ring
+    (hopper.cuh ``gemm_smem_bytes``); a persistent grid of at most one block
+    per SM over ``ceil(rows / 128) * col_tiles`` tiles, block x taking tiles
+    x, x + grid, ..."""
+    stage = (GEMM_ROWS + width) * GEMM_DEPTH * 2
+    tiles = -(-rows // GEMM_ROWS) * col_tiles
+    return {"width": width, "col_tiles": col_tiles, "tiles": tiles, "ksteps": ksteps,
+            "stages": GEMM_STAGES, "threads": GEMM_THREADS,
+            "smem_bytes": GEMM_STAGES * stage + extra_bytes + 2 * GEMM_STAGES * 8 + 1024,
+            "grid": (max(1, min(tiles, sms)),)}
 
 
 def check_plan(name: str, plan: dict) -> None:

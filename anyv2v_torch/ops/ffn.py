@@ -1,10 +1,22 @@
-"""K3: fused GEGLU feed-forward, ``(v * gelu(g)) @ W2 + b2`` with
-``[v, g] = x @ W1 + b1``, without the ``[N, 2*4C]`` intermediate in HBM.
+"""K3: GEGLU feed-forward, ``(v * gelu(g)) @ W2 + b2`` with
+``[v, g] = x @ W1 + b1``, without the fp32 ``[N, 2*4C]`` pre-activation in HBM.
 
 Replaces ``anyv2v_tpu/ops/pallas_ffn.py::_ffn_kernel``. Weights use the torch
 ``nn.Linear`` layout: ``w1 [2I, C]``, ``w2 [C, I]``. GELU is the exact erf
-form (the Pallas body used a degree-9 fit). The kernel is
-``csrc/ffn.cu``; it serves ``C <= 768`` with ``C % 32 == 0``.
+form (the Pallas body used a degree-9 fit). It serves ``C <= 768`` with
+``C % 32 == 0``.
+
+The Pallas kernel keeps W1 and W2 resident in 16 MB of VMEM and the
+intermediate on chip. An H100 block holds 227 KB, so a fused form would
+re-read the weights from L2 for every row tile (``24 * C^2 * N / BM`` bytes,
+BM at most 128 at C 320 and 64 at C 640 for the fp32 accumulator to fit the
+register file: 1.26 GB at L0, 2.5 GB at L1), while writing h in bf16 and
+reading it back costs ``16 * C * N`` bytes (0.34 and 0.17 GB). So the kernel
+(``csrc/ffn.cu``) is two wgmma GEMMs on ``hopper.cuh``'s TMA-fed main loop:
+``x @ W1^T`` with the GEGLU in its epilogue, storing h ``[N, I]`` bf16 (the
+tensor the Pallas body and the plain path round at the same point), then
+``h @ W2^T + b2``. :func:`ffn_plan` sizes both launches; rows run in chunks
+of at most 2^18 so that h stays under 0.7 GB.
 """
 
 from __future__ import annotations
@@ -17,12 +29,29 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_CHANNELS = 768
+CHUNK_ROWS = 1 << 18   # rows per launch pair: h [2^18, 1280] bf16 is 0.67 GB
+GEGLU_WIDTH = 256      # launch 1's tile: 128 columns of v and the same of g
+GEGLU_STAGING = 128 * 128 * 2   # launch 1's h tile, staged for its TMA stores
 
 
 def fits(c: int, inner: int) -> bool:
     """The shapes K3 takes: C <= 768, C % 32 == 0 (so 4C % 128 == 0), and an
-    inner width that is a multiple of the kernel's 64-column chunk."""
+    inner width that is a multiple of 64."""
     return c <= MAX_CHANNELS and c % 32 == 0 and inner % 64 == 0
+
+
+def ffn_plan(n: int, c: int, inner: int, sms: int = _build.H100_SMS) -> dict:
+    """The two launches over ``n <= CHUNK_ROWS`` rows: ``geglu`` (x @ W1^T,
+    K = C, tiles of 128 h columns, with the tile's h staged beside the ring)
+    and ``out`` (h @ W2^T, K = I, C in tiles of 64..320 columns)."""
+    if not 0 < n <= CHUNK_ROWS:
+        raise ValueError(f"ffn_plan: {n} rows, expected 1..{CHUNK_ROWS}")
+    depth = _build.GEMM_DEPTH
+    geglu = _build.gemm_plan(n, -(-inner // (GEGLU_WIDTH // 2)), GEGLU_WIDTH, -(-c // depth),
+                             GEGLU_STAGING, sms)
+    col_tiles, width = _build.gemm_width(c)
+    out = _build.gemm_plan(n, col_tiles, width, -(-inner // depth), sms=sms)
+    return {"geglu": geglu, "out": out}
 
 
 def ffn_geglu_plain(x, w1, b1, w2, b2):
@@ -31,12 +60,11 @@ def ffn_geglu_plain(x, w1, b1, w2, b2):
     Pallas kernel and the unfused JAX path do). Runs 2^18 rows at a time: a
     128-frame L0 edit call (3*128*4096 rows at C 320) would hold a 16 GB
     fp32 pre-activation at once."""
-    rows = 1 << 18
     flat = x.reshape(-1, x.shape[-1])
     out = torch.empty((flat.shape[0], w2.shape[0]), dtype=x.dtype, device=x.device)
-    for i in range(0, flat.shape[0], rows):
-        v, g = F.linear(flat[i:i + rows], w1, b1).float().chunk(2, dim=-1)
-        out[i:i + rows] = F.linear((v * F.gelu(g)).to(x.dtype), w2, b2)
+    for i in range(0, flat.shape[0], CHUNK_ROWS):
+        v, g = F.linear(flat[i:i + CHUNK_ROWS], w1, b1).float().chunk(2, dim=-1)
+        out[i:i + CHUNK_ROWS] = F.linear((v * F.gelu(g)).to(x.dtype), w2, b2)
     return out.reshape(*x.shape[:-1], w2.shape[0])
 
 
@@ -46,6 +74,7 @@ def ffn_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if x.device.type == "cpu":
         return ffn_geglu_plain(x, w1, b1, w2, b2)
     _build.require_cuda("ffn_geglu", x, w1, b1, w2, b2)
+    _build.require_aligned("ffn_geglu", x, w1, b1, w2, b2)
     c = x.shape[-1]
     inner = w2.shape[1]
     if (w1.shape != (2 * inner, c) or b1.shape != (2 * inner,)
@@ -55,12 +84,23 @@ def ffn_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if not fits(c, inner):
         raise ValueError(f"ffn_geglu: C={c}, inner={inner} outside the kernel's range")
     n = x.numel() // c
-    out = torch.empty_like(x)
-    rc = _build.library().anyv2v_ffn_geglu(
-        _build.ptr(x), _build.ptr(w1), _build.ptr(b1), _build.ptr(w2),
-        _build.ptr(b2), _build.ptr(out), ctypes.c_int(n), ctypes.c_int(c),
-        ctypes.c_int(inner), _build.stream())
-    _build.check(rc, "ffn_geglu")
+    flat, out = x.reshape(n, c), torch.empty_like(x)
+    flat_out = out.view(n, c)
+    h = torch.empty((min(n, CHUNK_ROWS), inner), dtype=x.dtype, device=x.device)
+    sms = _build.sm_count(x.device)
+    for i in range(0, n, CHUNK_ROWS):
+        rows = min(CHUNK_ROWS, n - i)
+        plan = ffn_plan(rows, c, inner, sms)
+        for part in ("geglu", "out"):
+            _build.check_plan("ffn_geglu", plan[part])
+        rc = _build.library().anyv2v_ffn_geglu(
+            _build.ptr(flat[i:]), _build.ptr(w1), _build.ptr(b1), _build.ptr(w2),
+            _build.ptr(b2), _build.ptr(h), _build.ptr(flat_out[i:]), ctypes.c_int(rows),
+            ctypes.c_int(c), ctypes.c_int(inner), ctypes.c_int(plan["out"]["width"]),
+            ctypes.c_int(plan["geglu"]["grid"][0]), ctypes.c_int(plan["geglu"]["smem_bytes"]),
+            ctypes.c_int(plan["out"]["grid"][0]), ctypes.c_int(plan["out"]["smem_bytes"]),
+            _build.stream())
+        _build.check(rc, "ffn_geglu")
     ffn_geglu.launches += 1
     return out
 

@@ -5,8 +5,7 @@
 Phases:
  1. environment: torch and CUDA versions, the card's name and power limit;
  2. build the five CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
-    and print ptxas's registers and spills of K1's, K2's (both routes') and
-    K5's instances;
+    and print ptxas's registers and spills of every kernel's instances;
  3. hold each kernel against its plain PyTorch version in bf16 at the shapes
     the main paths give it, and time it beside its plain version, its bound
     (the least time the card could take: bytes over 3.35 TB/s or bf16
@@ -20,18 +19,21 @@ Phases:
     past 4096 (2 rows, Sq = Sk = 8192); K2 long at the 128-frame i2vgen-xl shapes
     (L0-L3 temporal and transformer_in, batch 1 and 3), at SEINE's widths
     with a relative-position bias (S 64) and at Sk = S + 8; K1, K3 and K4 at
-    128-frame shapes; K5 also at SEINE's L0 spatial self-attention (48 rows
-    of 4096, 8 heads of 40); K4's prologue-free form at main-path shapes
-    beside one ``F.conv3d`` (kernel (3, 1, 1) on the ``channels_last_3d``
-    view, no copy);
+    128-frame shapes; K3 and K4 also at i2vgen-xl's edit batch and at the
+    tiny archs' widths; K5 also at SEINE's L0 spatial self-attention (48
+    rows of 4096, 8 heads of 40); K4's prologue-free form at main-path
+    shapes beside one ``F.conv3d`` (kernel (3, 1, 1) on the
+    ``channels_last_3d`` view, no copy);
  4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
     (injection segments and the batch-2 tail), decode; every kernel it routes
     (K1-K4) must launch, K5 must not, and the outputs must be finite;
     then one i2vgen-xl UNet forward at batch 1 and at batch 3 under
-    torch.profiler: device time by kernel group, the device's busy share and
-    the 12 kernels that take the most time;
+    torch.profiler: device time by kernel group (a group whose wrapper
+    launched in the forward must show device time under its kernel's
+    name), the device's busy share and the 12 kernels that take the most
+    time;
  5. the i2vgen-xl long-video path at full width (128 frames, 512x512, the
     same pipeline): an i2vgen-tiny reference check at 40 frames, then VAE
     encode, a 4-step inversion into host memory (``traj_store="host"``, two
@@ -129,9 +131,7 @@ def phase_build():
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) "
         f"into {_build.BUILD_DIR}")
-    for line in _ptxas_summary(_build.ptxas_report(),
-                               ("folded_attention_kernel", "frame_attention_kernel",
-                                "frame_attention_long_kernel", "flash_attention_kernel")):
+    for line in _ptxas_summary(_build.ptxas_report(), [key for _, key, _ in _KERNEL_GROUPS]):
         log(f"ptxas {line}")
 
 
@@ -354,18 +354,20 @@ def _kernel_cases():
         def make():
             return (rn(n, c), rn(2 * i, c, std=c ** -0.5), rn(2 * i, std=0.1),
                     rn(c, i, std=i ** -0.5), rn(c, std=0.1))
-        return make
+        return tagged(make, n=n, c=c, inner=i)
 
-    def tconv_args(b, f, p, c, prologue=True):
+    def tconv_args(b, f, p, c, prologue=True, c_out=None):
+        co = c_out or c
+
         def make():
+            w, bias = rn(3, c, co, std=(3 * c) ** -0.5), rn(co, std=0.1)
             if not prologue:
-                return (rn(b, f, p, c), None, None, rn(3, c, c, std=(3 * c) ** -0.5),
-                        rn(c, std=0.1))
+                return (rn(b, f, p, c), None, None, w, bias)
             x = rn(b, f, p, c)
             s = (torch.rand(b, c, generator=gen[0], device="cuda") + 0.5).float()
             t = (torch.randn(b, c, generator=gen[0], device="cuda") * 0.5).float()
-            return (x, s, t, rn(3, c, c, std=(3 * c) ** -0.5), rn(c, std=0.1))
-        return make
+            return (x, s, t, w, bias)
+        return tagged(make, b=b, f=f, p=p, c=c, c_out=co)
 
     k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
                           "gn_silu_temporal_conv", "flash_attention")
@@ -398,6 +400,9 @@ def _kernel_cases():
         (k4, "mid C1280 P64 F16 b3", tconv_args(3, 16, 64, 1280)),
         (k3, "ConsistI2V L0 C320 rows 3*17*4096", ffn_args(3 * 17 * 4096, 320)),
         (k4, "ConsistI2V L0 C320 P4096 F17 b3", tconv_args(3, 17, 4096, 320)),
+        # i2vgen-xl's edit batch (3 rows of 16 frames) at L0
+        (k3, "L0 C320 rows 3*16*4096", ffn_args(3 * 16 * 4096, 320)),
+        (k4, "L0 C320 P4096 F16 b3", tconv_args(3, 16, 4096, 320)),
         (k5, "split-KV L0 51 rows Sq4096 Sk4096+4096 h5 dh64", splitkv(51, 17, 4096, 5, 64)),
         (k5, "split-KV L1 51 rows Sq1024 Sk1024+1024 h10 dh64", splitkv(51, 17, 1024, 10, 64)),
         (k5, "split-KV L2 51 rows Sq256 Sk256+256 h20 dh64", splitkv(51, 17, 256, 20, 64)),
@@ -415,7 +420,11 @@ def _kernel_cases():
         (k2, "off-path bias b1 S16 HW4096 h64 dh8", frames(1, 16, 4096, 64, 8, 5, bias=True)),
         # edge masking, off the main paths: rows, keys, channels not multiples of the tiles
         (k3, "ragged rows 1000 C320", ffn_args(1000, 320)),
-        (k4, "ragged C36 P30 F5 b2", tconv_args(2, 5, 30, 36)),
+        (k4, "ragged C40->C24 P30 F5 b2", tconv_args(2, 5, 30, 40, c_out=24)),
+        # the tiny archs' widths (i2vgen-tiny, consisti2v-tiny): K3 at C 32, K4
+        # at C 16 with one pixel a frame, so a tile spans batch rows
+        (k3, "ragged tiny C32 rows 300", ffn_args(300, 32)),
+        (k4, "ragged tiny C16 P1 F8 b3", tconv_args(3, 8, 1, 16)),
         (k5, "ragged split-KV 6 rows Sq1000 Sk999+77 h3 dh80",
          lambda: (rn(6, 1000, 240), rn(6, 999, 240), rn(6, 999, 240), 3, 80 ** -0.5,
                   rn(2, 77, 240), rn(2, 77, 240), 3)),
@@ -1180,12 +1189,15 @@ def seine_forward_args(batch, g):
     return (rn(batch, 16, 64, 64, 9), 501, rn(batch, 77, 768, scale=0.1)), kw
 
 
-_KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel"),
-                  ("K2 long", "frame_attention_long_kernel"),
-                  ("K2 frame_attention", "frame_attention_kernel"),
-                  ("K3 ffn_geglu", "ffn_geglu_kernel"),
-                  ("K4 temporal_conv", "temporal_conv_kernel"),
-                  ("K5 flash_attention", "flash_attention_kernel"))
+# (profile group, kernel symbol that the group's device events contain,
+# wrapper); K3's two launches are both ffn_geglu_kernel instances, so the
+# group holds both
+_KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel", "folded_attention"),
+                  ("K2 long", "frame_attention_long_kernel", "frame_attention_long"),
+                  ("K2 frame_attention", "frame_attention_kernel", "frame_attention"),
+                  ("K3 ffn_geglu", "ffn_geglu_kernel", "ffn_geglu"),
+                  ("K4 temporal_conv", "temporal_conv_kernel", "gn_silu_temporal_conv"),
+                  ("K5 flash_attention", "flash_attention_kernel", "flash_attention"))
 
 
 class _ClockSampler:
@@ -1231,6 +1243,7 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3)):
         with torch.inference_mode(), _ClockSampler() as clocks:
             pipe.unet(*args, **kw)
             torch.cuda.synchronize()
+            before = {name: fn.launches for name, fn in _wrappers().items()}
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 pipe.unet(*args, **kw)
@@ -1241,11 +1254,17 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3)):
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
         h2d = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
-        groups = {label: 0.0 for label, _ in _KERNEL_GROUPS}
+        groups = {label: 0.0 for label, _, _ in _KERNEL_GROUPS}
         groups["other"] = 0.0
         for e in events:
-            label = next((lb for lb, key in _KERNEL_GROUPS if key in e.key), "other")
+            label = next((lb for lb, key, _ in _KERNEL_GROUPS if key in e.key), "other")
             groups[label] += e.self_device_time_total / 1e3
+        launched = {name: fn.launches - before[name] for name, fn in _wrappers().items()}
+        silent = [label for label, _, name in _KERNEL_GROUPS
+                  if launched[name] and not groups[label] > 0]
+        if silent:
+            raise RuntimeError(f"profile {arch} batch {batch}: {silent} launched but no "
+                               "device event carries its kernel's name")
         log(f"profile {arch} UNet forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); by group (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())

@@ -1,7 +1,7 @@
-"""Checks and times the attention kernels at ``chip_smoke.py``'s cases on one
-NVIDIA GPU, without the model paths.
+"""Checks and times the kernels at ``chip_smoke.py``'s cases on one NVIDIA
+GPU, without the model paths (by default the attention kernels K1 and K2).
 
-    python3 scripts/torch_attention_probe.py [--tree DIR] [--filter TEXT ...]
+    python3 scripts/torch_attention_probe.py [--tree DIR] [--filter TEXT ...] [--profile]
 
 ``anyv2v_torch`` (and its ``csrc/``) is imported from DIR (default: this
 checkout), the cases and their check from this checkout's ``chip_smoke.py``
@@ -9,10 +9,12 @@ checkout), the cases and their check from this checkout's ``chip_smoke.py``
 one call (parent, change, change, parent). ``--filter`` keeps the cases whose
 kernel name or label contains one of the texts (default: K1, K2 and K2 long).
 
-Prints ptxas's registers and spills of the K1 and K2 kernels, then
+Prints ptxas's registers and spills of the kernels the cases reach, then
 ``chip_smoke.py``'s line for each case (its error against the plain version
 and the fp32 truth, the kernel's, plain version's and SDPA's times, the
-bound) and the exp2 floors. Exits 1 if a case fails its check.
+bound) and the exp2 floors. With ``--profile``, then each case's device time
+per kernel symbol under torch.profiler (a call that makes several launches,
+as K3's two GEMMs, shows each). Exits 1 if a case fails its check.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--filter", action="append", default=[])
+    ap.add_argument("--profile", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA GPU: torch.cuda.is_available() is False")
@@ -50,18 +53,41 @@ def main():
     smoke.phase_env()   # torch, CUDA, the card's name and power limit
     _build.library()
     smoke.log(f"build: nvcc {_build.build_seconds} s")
-    for line in smoke._ptxas_summary(_build.ptxas_report(),
-                                     ("folded_attention_kernel", "frame_attention_kernel",
-                                      "frame_attention_long_kernel")):
-        smoke.log(f"ptxas {line}")
     filters = a.filter or ["folded_attention", "frame_attention"]
     cases = [c for c in smoke._kernel_cases() if any(f in c[0] or f in c[1] for f in filters)]
+    kernels = {c[0] for c in cases}
+    for line in smoke._ptxas_summary(_build.ptxas_report(), [
+            key for _, key, name in smoke._KERNEL_GROUPS if name in kernels]):
+        smoke.log(f"ptxas {line}")
     try:
         smoke.phase_kernels(cases)
     except RuntimeError as e:
         smoke.log(str(e))
         return 1
+    if a.profile:
+        profile_cases(smoke, cases)
     return 0
+
+
+def profile_cases(smoke, cases, calls=3):
+    """Device ms per call of each kernel symbol that a case's wrapper launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = smoke._kernels()
+    for name, label, make, *_ in cases:
+        fn, args = kernels[name][3], make()
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total]
+        smoke.log(f"profile {name} [{label}]: " + "; ".join(
+            f"{e.key[:90]} {e.self_device_time_total / 1e3 / calls:.4f} ms x{e.count // calls}"
+            for e in rows))
+        del args
 
 
 if __name__ == "__main__":

@@ -1,15 +1,18 @@
-"""The launch plans of K1, K2 (both routes) and K5, checked on the CPU.
+"""The launch plans of K1, K2 (both routes), K3, K4 and K5, checked on the CPU.
 
 The CUDA kernels cannot run here, but the shared-memory and grid arithmetic
 of their launches lives in Python (``folded_attention.folded_plan``,
-``frame_attention.frame_plan``, ``flash_attention.flash_plan``) and is passed
-to the C entries, which refuse a plan that does not match the shape. Every
+``frame_attention.frame_plan``, ``flash_attention.flash_plan``,
+``ffn.ffn_plan``, ``temporal_conv.tconv_plan``) and is passed to the C
+entries, which refuse a plan that does not match the shape. Every
 class each kernel takes must get a plan that one H100 block can hold (at most
 232,448 bytes of dynamic shared memory) and a grid and block inside the
 launch limits. K1's and K2's plans are also checked at every K1 and K2 case
 of ``chip_smoke.py`` (the shapes the card is held to), where the grid must
 cover each (batch row, head group, query tile) or (batch row, pixel, head
-group) exactly once.
+group) exactly once; K3's and K4's persistent grids must take each (row
+tile, column tile) of every chip_smoke case and of the tiny archs' shapes
+exactly once.
 """
 
 import itertools
@@ -17,10 +20,11 @@ import itertools
 import pytest
 
 import chip_smoke
-from anyv2v_torch.ops import _build
+from anyv2v_torch.ops import _build, ffn
 from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops import folded_attention as fa
 from anyv2v_torch.ops import frame_attention as fr
+from anyv2v_torch.ops import temporal_conv as tc
 
 SMEM = 232448
 GRID_X, GRID_YZ = 2 ** 31 - 1, 65535
@@ -193,3 +197,88 @@ def test_check_plan_refuses_k1_and_k2_plans_one_block_cannot_hold(monkeypatch):
         _build.check_plan("folded_attention", fa.folded_plan(2, 4096, 4096, 64, 8))
     with pytest.raises(ValueError, match="no launch"):
         _build.check_plan("frame_attention", fr.frame_plan(1, 256, 256, 64, 8, 160))
+
+
+def _check_gemm_plan(plan, rows, cols, extra_bytes=0):
+    """One launch on hopper.cuh's GEMM main loop: the ring fits one block, the
+    tiles cover the output, and block x's tiles x, x + grid, ... take each
+    (row tile, column tile) exactly once."""
+    width, col_tiles = plan["width"], plan["col_tiles"]
+    assert width in _build.GEMM_WIDTHS and plan["stages"] == 4 and plan["threads"] == 384
+    assert col_tiles * width >= cols > (col_tiles - 1) * width
+    assert plan["smem_bytes"] <= SMEM
+    _build.check_plan("gemm", plan)
+    row_tiles = -(-rows // 128)
+    assert plan["tiles"] == row_tiles * col_tiles
+    grid = plan["grid"][0]
+    assert 1 <= grid <= min(plan["tiles"], _build.H100_SMS)
+    taken = [0] * plan["tiles"]
+    for x in range(grid):
+        for tile in range(x, plan["tiles"], grid):
+            taken[tile] += 1
+    assert set(taken) == {1}
+    # the same launch with a tile one step wider than the widest is refused
+    wider = _build.gemm_plan(rows, col_tiles, _build.GEMM_WIDTHS[-1] + 64, plan["ksteps"],
+                             extra_bytes)
+    with pytest.raises(ValueError, match="no launch"):
+        _build.check_plan("gemm", wider)
+
+
+# K3 at the tiny archs' widths (C 32 and 64, inner 4C; rows of i2vgen-tiny
+# and consisti2v-tiny forwards at batch 3) and K4 at theirs (C 16 and 32; P
+# down to 1, so a 128-row tile spans frames and batch rows)
+_TINY_FFN = [(6144, 64), (1536, 32), (96, 32), (1728, 32), (108, 32)]
+_TINY_TCONV = [(3, 8, 256, 16, 16), (3, 8, 64, 32, 32), (3, 8, 4, 32, 32), (3, 9, 16, 32, 32),
+               (3, 40, 256, 16, 16), (3, 8, 1, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", _chip_smoke_cases("ffn_geglu") + [
+    pytest.param({"n": n, "c": c, "inner": 4 * c}, id=f"tiny rows {n} C{c}") for n, c in _TINY_FFN])
+def test_ffn_plan_covers_each_case(shape):
+    """Both of K3's launches, for every chunk of rows: launch 1 over the
+    inner width in tiles of 128 h columns (v and g, 256 wide), launch 2
+    over C."""
+    n, c, inner = shape["n"], shape["c"], shape["inner"]
+    assert ffn.fits(c, inner)
+    for i in range(0, n, ffn.CHUNK_ROWS):
+        rows = min(ffn.CHUNK_ROWS, n - i)
+        plan = ffn.ffn_plan(rows, c, inner)
+        assert plan["geglu"]["width"] == 256 and plan["geglu"]["ksteps"] == -(-c // 64)
+        _check_gemm_plan(plan["geglu"], rows, 2 * inner)
+        assert plan["out"]["ksteps"] == inner // 64
+        _check_gemm_plan(plan["out"], rows, c)
+
+
+@pytest.mark.parametrize("shape", _chip_smoke_cases("gn_silu_temporal_conv") + [
+    pytest.param(dict(zip(("b", "f", "p", "c", "c_out"), s)), id=f"tiny {s}")
+    for s in _TINY_TCONV])
+def test_tconv_plan_covers_each_case(shape):
+    """K4's one launch: K steps over 3 taps x 64-channel slices, and the
+    prologue evaluated at most 3 * ceil(C' / 256) times per x element."""
+    b, f, p, c, c_out = (shape[x] for x in ("b", "f", "p", "c", "c_out"))
+    plan = tc.tconv_plan(b, f, p, c, c_out)
+    assert plan["ksteps"] == 3 * -(-c // 64)
+    assert plan["evaluations"] == 3 * plan["col_tiles"] <= 3 * -(-c_out // 256)
+    _check_gemm_plan(plan, b * f * p, c_out, tc.ROW_SRC_BYTES)
+
+
+def test_tconv_plan_evaluations_at_the_unet_widths():
+    """3, 6 and 12 evaluations per x element at C' 320, 640 and 1280 (the
+    64-column tiles before took 15, 30 and 60)."""
+    assert [tc.tconv_plan(1, 16, 64, c, c)["evaluations"] for c in (320, 640, 1280)] == [3, 6, 12]
+
+
+@pytest.mark.parametrize("c,c_out", [(36, 32), (32, 36), (4, 4), (320, 1284)])
+def test_tconv_plan_refuses_widths_not_multiples_of_8(c, c_out):
+    """The 16-byte gathers and the TMA strides need C and C' multiples of 8;
+    the plan raises on anything else, and so does the wrapper before any
+    launch."""
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tc.tconv_plan(2, 5, 30, c, c_out)
+
+
+def test_ffn_plan_refuses_more_rows_than_a_chunk():
+    with pytest.raises(ValueError, match="rows"):
+        ffn.ffn_plan(ffn.CHUNK_ROWS + 1, 320, 1280)
+    with pytest.raises(ValueError, match="rows"):
+        ffn.ffn_plan(0, 320, 1280)
