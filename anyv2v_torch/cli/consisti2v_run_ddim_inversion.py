@@ -69,7 +69,10 @@ def reconstruct(pipe, tokenizer, cfg, latents, traj, inv_ts):
         num_frames=int(cfg.n_frames), num_inference_steps=int(rc.n_steps),
         cfg_txt=cfg_txt, cfg_img=cfg_img, frame_stride=int(rc.get("frame_stride", 3)),
         noise_sampling_method=str(rc.get("noise_sampling_method", "vanilla")),
-        use_frameinit=bool(rc.get("use_frameinit", False)), init_latent=traj[row], t_idx=t_idx)
+        noise_alpha=float(rc.get("noise_alpha", 1.0)),
+        use_frameinit=bool(rc.get("use_frameinit", False)),
+        frameinit_noise_level=int(rc.get("frameinit_noise_level", 999)),
+        init_latent=traj[row], t_idx=t_idx)
     video = pipe.decode_latents(out).cpu().numpy()
     os.makedirs(cfg.output_dir, exist_ok=True)
     for ext in (".mp4", ".gif"):

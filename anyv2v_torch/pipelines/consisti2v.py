@@ -25,8 +25,10 @@ the UNet computes in its configured dtype (bf16 on the GPU).
 ``traj_store="host"`` keeps the trajectory in host memory, chunk by chunk
 (as ``I2VGenPipeline.invert``); the edit then moves only the rows it reads.
 
-Not ported yet (``ROADMAP.md``): FreeInit, pyoco noise, camera motion and the
-multi-chip path.
+Plain generation (:meth:`ConsistI2VPipeline.sample`) draws vanilla or pyoco
+noise (:func:`sample_video_noise`) and optionally re-initialises it with
+FreeInit (:meth:`ConsistI2VPipeline.apply_frameinit`), both only when no
+start latent is given, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,9 +39,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.freeinit import FILTERS, freq_mix_3d
 from ..ops.pnp import injection_step_mask
 from ..schedulers import (
     DiffusionSchedule,
+    add_noise,
     ddim_inverse_step,
     ddim_step,
     inversion_timesteps,
@@ -216,25 +220,28 @@ class ConsistI2VPipeline(LatentCodecMixin):
     def sample(self, first_frame_latent, text_embeds_all, num_frames: int = 16,
                num_inference_steps: int = 50, cfg_txt: float = 7.5, cfg_img: float = 1.0,
                guidance_rescale: float = 0.0, frame_stride: int = 3, seed: int = 0,
-               noise_sampling_method: str = "vanilla", use_frameinit: bool = False,
-               init_latent=None, t_idx: int = 0) -> torch.Tensor:
+               noise_sampling_method: str = "vanilla", noise_alpha: float = 1.0,
+               use_frameinit: bool = False, frameinit_noise_level: int = 999,
+               init_latent=None, t_idx: int = 0, draws=None) -> torch.Tensor:
         """Image-to-video generation from ``first_frame_latent [1, 1, h, w, 4]``
-        (clean): ``init_latent`` (or seeded ``vanilla`` noise from a
-        ``torch.Generator``, which cannot reproduce ``jax.random``) gives the
-        noisy frame 0 of the image-uncond row and the state of frames 1..;
-        the clean first-frame latent is put back in front."""
-        if noise_sampling_method != "vanilla":
-            raise NotImplementedError(
-                f"noise_sampling_method={noise_sampling_method!r}: pyoco noise is not "
-                "ported yet (ROADMAP.md queue 1, ConsistI2V)")
-        if use_frameinit:
-            raise NotImplementedError(
-                "use_frameinit: FreeInit is not ported yet (ROADMAP.md queue 1, ConsistI2V)")
+        (clean). The start latent ``[1, num_frames, h, w, 4]`` is
+        ``init_latent`` when given (``noise_sampling_method`` and FreeInit
+        then do nothing); else noise from :func:`sample_video_noise`
+        (``draws`` or a ``torch.Generator`` seeded with ``seed``, which
+        cannot reproduce ``jax.random``), re-initialised by
+        :meth:`apply_frameinit` with ``use_frameinit``. Its frame 0 is the
+        noisy frame of the image-uncond row, frames 1.. the state; the clean
+        first-frame latent is put back in front."""
         ff = self._tensor(first_frame_latent)
         if init_latent is None:
-            gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            init_latent = torch.randn((1, num_frames) + tuple(ff.shape[2:]), generator=gen,
-                                      device=self.device)
+            gen = None if draws is not None else torch.Generator(
+                device=self.device).manual_seed(int(seed))
+            init_latent = sample_video_noise((1, num_frames) + tuple(ff.shape[2:]),
+                                             noise_sampling_method, noise_alpha,
+                                             generator=gen, device=self.device, draws=draws)
+            if use_frameinit:
+                init_latent = self.apply_frameinit(init_latent, ff,
+                                                   noise_level=frameinit_noise_level)
         init_latent = self._tensor(init_latent)
         mode = guidance_mode(cfg_txt, cfg_img)
         ts = sampling_timesteps(self.schedule, num_inference_steps)[t_idx:]
@@ -244,3 +251,70 @@ class ConsistI2VPipeline(LatentCodecMixin):
                                 ts, ts_prev, mode, cfg_txt, cfg_img, guidance_rescale,
                                 frame_stride)
         return torch.cat([ff, out], dim=1)
+
+    # ------------------------------------------------------------------
+    # FreeInit (reference :208-227, applied at :623-633)
+    # ------------------------------------------------------------------
+
+    def apply_frameinit(self, latents, first_frame_latent, noise_level: int = 999,
+                        filter_type: str = "butterworth", filter_order: int = 4,
+                        d_s: float = 0.25, d_t: float = 0.25) -> torch.Tensor:
+        """Diffuse the static first-frame video to ``noise_level`` and keep
+        its low frequencies and the noise ``latents``' high frequencies.
+        ``latents [1, F, h, w, 4]``, ``first_frame_latent [1, 1, h, w, 4]``
+        clean; fp32 out."""
+        latents = self._tensor(latents)
+        f, h, w = latents.shape[1:4]
+        static_vid = self._tensor(first_frame_latent).expand(-1, f, -1, -1, -1)
+        z_t = add_noise(self.schedule, static_vid, latents, int(noise_level))
+        if filter_type not in FILTERS:
+            raise ValueError(f"unknown filter_type: {filter_type}")
+        if filter_type == "butterworth":
+            lpf = FILTERS[filter_type]((f, h, w), n=filter_order, d_s=d_s, d_t=d_t)
+        else:
+            lpf = FILTERS[filter_type]((f, h, w), d_s=d_s, d_t=d_t)
+        return freq_mix_3d(z_t, latents, torch.from_numpy(lpf))
+
+
+# ---------------------------------------------------------------------------
+# pyoco correlated video noise (reference prepare_latents, :408-458)
+# ---------------------------------------------------------------------------
+
+NOISE_METHODS = ("vanilla", "pyoco_mixed", "pyoco_progressive")
+
+
+def sample_video_noise(shape, method: str = "vanilla", noise_alpha: float = 1.0, *,
+                       generator: Optional[torch.Generator] = None, device=None,
+                       draws=None) -> torch.Tensor:
+    """Video noise ``shape = [B, F, h, w, C]``, fp32 (reference
+    ``prepare_latents``, ``pipeline_video_editing.py:408-458``): vanilla =
+    one standard-normal draw; pyoco_mixed = a base frame shared by every
+    frame plus per-frame noise; pyoco_progressive = an AR(1) chain over
+    frames with coefficient sqrt(a^2 / (1 + a^2)), frame 0 the first draw's.
+
+    The two standard-normal draws come from ``generator`` on ``device``, or
+    are given as ``draws = (d1, d2)`` (``d1`` of shape ``[B, 1, h, w, C]``
+    for pyoco_mixed, else ``shape``; ``d2`` of ``shape``, unused by
+    vanilla), as the JAX function draws them from its two split keys."""
+    if method not in NOISE_METHODS:
+        raise ValueError(f"unknown noise_sampling_method: {method}")
+    b, f, h, w, c = shape
+    a2 = noise_alpha ** 2
+    first_shape = (b, 1, h, w, c) if method == "pyoco_mixed" else tuple(shape)
+    if draws is None:
+        d1 = torch.randn(first_shape, generator=generator, device=device)
+        d2 = None if method == "vanilla" else torch.randn(tuple(shape), generator=generator,
+                                                          device=device)
+    else:
+        d1, d2 = (None if d is None else torch.as_tensor(d, dtype=torch.float32, device=device)
+                  for d in draws)
+    if method == "vanilla":
+        return d1
+    ind = d2 * float(np.sqrt(1 / (1 + a2)))
+    coef = float(np.sqrt(a2 / (1 + a2)))
+    if method == "pyoco_mixed":
+        return d1 * coef + ind
+    frames = [d1[:, 0]]
+    for j in range(1, f):
+        frames.append(frames[-1] * coef + ind[:, j])
+    return torch.stack(frames, dim=1)

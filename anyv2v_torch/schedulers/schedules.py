@@ -137,3 +137,11 @@ def to_x0_and_eps(schedule: DiffusionSchedule, sample: torch.Tensor,
     if p == "v_prediction":
         return sqrt_a * x - sqrt_1ma * out, sqrt_a * out + sqrt_1ma * x
     raise ValueError(f"unknown prediction_type: {p}")
+
+
+def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor,
+              t: int) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) sample (diffusers ``add_noise``), in
+    fp32, returned in ``x0``'s dtype."""
+    a_t = schedule.alpha_bar(t)
+    return (torch.sqrt(a_t) * x0.float() + torch.sqrt(1.0 - a_t) * noise.float()).to(x0.dtype)

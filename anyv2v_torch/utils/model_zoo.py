@@ -14,6 +14,11 @@ Parameters come from ``init``:
   temporal layers; half-open gates let the temporal kernels count in a
   random-weight run). Not the JAX package's random weights: use a ``.npz``
   for identical weights in both packages.
+- a path to a ``.npz`` written by ``anyv2v_torch.cli.convert_checkpoint``
+  from a checkpoint folder (:mod:`anyv2v_torch.utils.checkpoint`): the
+  state dicts load as they are, into modules of ``arch`` with the
+  architecture fields the file carries (so a small folder builds a small
+  model), and every key must match;
 - a path to a ``.npz`` written by ``anyv2v_tpu.utils.model_zoo.save_params``:
   loaded with numpy and carried over by
   :func:`anyv2v_torch.utils.weights.state_dict_from_jax`.
@@ -123,13 +128,23 @@ _MODULES = {I2VGenUNetConfig: I2VGenUNet, VideoLDMUNetConfig: VideoLDMUNet,
             CLIPTextConfig: CLIPTextModel, CLIPVisionConfig: CLIPVisionModel}
 
 
-def build_modules(arch: str, dtype: torch.dtype, device="meta") -> Dict[str, nn.Module]:
+def build_modules(arch: str, dtype: torch.dtype, device="meta",
+                  overrides: Optional[Dict[str, dict]] = None) -> Dict[str, nn.Module]:
     """The modules of ``ARCHS[arch]`` (unet, vae, text and, for i2vgen,
     vision) with compute dtype ``dtype``, parameters uninitialised (on
-    ``meta`` unless another device is given)."""
+    ``meta`` unless another device is given). ``overrides``: config fields
+    per component (a converted checkpoint's architecture)."""
+    overrides = overrides or {}
     with torch.device(device):
-        return {name: _MODULES[type(cfg)](dataclasses.replace(cfg, dtype=dtype))
+        return {name: _MODULES[type(cfg)](dataclasses.replace(cfg, **overrides.get(name, {}),
+                                                              dtype=dtype))
                 for name, cfg in ARCHS[arch].items()}
+
+
+def backbone_of(arch: str) -> str:
+    """``"i2vgen-xl"``, ``"consisti2v"`` or ``"seine"``: the family of ``arch``."""
+    return {I2VGenUNetConfig: "i2vgen-xl", VideoLDMUNetConfig: "consisti2v",
+            SeineUNetConfig: "seine"}[type(ARCHS[arch]["unet"])]
 
 
 # CLIP's token / position tables and class token
@@ -162,16 +177,26 @@ def random_state_dict(module: nn.Module, generator: torch.Generator,
 def _load_modules(arch: str, dev: torch.device, init: str, seed: int,
                   dtype: torch.dtype) -> Dict[str, nn.Module]:
     """``build_modules`` with weights from ``init``, on ``dev``, in eval mode."""
-    modules = build_modules(arch, dtype)
     if init == "random":
+        modules = build_modules(arch, dtype)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         states = {name: random_state_dict(m, gen, dev) for name, m in modules.items()}
     elif os.path.exists(init):
-        from .weights import load_jax_npz, state_dict_from_jax
+        from . import checkpoint
 
-        tree, _ = load_jax_npz(init)
-        states = {name: {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}
-                  for name, sd in state_dict_from_jax(tree, arch).items()}
+        if checkpoint.is_port_checkpoint(checkpoint.read_meta(init)):
+            states, meta = checkpoint.load_checkpoint(init)
+            if meta["backbone"] != backbone_of(arch):
+                raise ValueError(f"{init} holds a {meta['backbone']} checkpoint, not {arch}")
+            modules = build_modules(arch, dtype, overrides=checkpoint.config_overrides(meta))
+        else:
+            from .weights import load_jax_npz, state_dict_from_jax
+
+            modules = build_modules(arch, dtype)
+            tree, _ = load_jax_npz(init)
+            states = {name: {k: torch.from_numpy(np.asarray(v, np.float32))
+                             for k, v in sd.items()}
+                      for name, sd in state_dict_from_jax(tree, arch).items()}
     else:
         raise ValueError(f"unknown init: {init}")
     for name, m in modules.items():

@@ -413,15 +413,16 @@ def clip_vision_state_dict(tree: Tree, cfg) -> StateDict:
     return sd
 
 
-def state_dict_from_jax(params: Tree, arch: str) -> Dict[str, StateDict]:
+def state_dict_from_jax(params: Tree, arch) -> Dict[str, StateDict]:
     """``{"unet", "vae", "text", "vision"}`` JAX param trees (numpy leaves) ->
     the port's state dicts for the same components, for ``ARCHS[arch]``
-    (i2vgen-xl, ConsistI2V or SEINE)."""
+    (i2vgen-xl, ConsistI2V or SEINE) or, given a dict, for those component
+    configs."""
     from ..models.unet_seine import SeineUNetConfig
     from ..models.unet_videoldm import VideoLDMUNetConfig
     from .model_zoo import ARCHS
 
-    spec = ARCHS[arch]
+    spec = arch if isinstance(arch, dict) else ARCHS[arch]
     unet = {VideoLDMUNetConfig: videoldm_unet_state_dict,
             SeineUNetConfig: seine_unet_state_dict}.get(type(spec["unet"]), unet_state_dict)
     convert = {"unet": unet, "vae": vae_state_dict,

@@ -49,7 +49,23 @@ Phases:
     then the batch-2 tail) and decode; K1-K5 must all launch, K5 in its three
     roles, K2 with the augmented key axis, and no UNet attention of head
     width 40/64/80 may reach SDPA; then its profile at batch 1 and 3;
- 7. the SEINE main path at full width (SD1.4 widths, 8 heads, 16 frames,
+ 7. ConsistI2V from a checkpoint folder: the full-width seeded weights
+    written as a diffusers-layout snapshot in fp16 (``unet/`` in two
+    safetensors shards, ``vae/``, ``text_encoder/``, each with its
+    ``config.json``) into a temporary directory, converted by
+    ``anyv2v_torch.cli.convert_checkpoint`` and loaded through
+    ``init: <out>.npz``, where every loaded tensor must equal the tensor
+    written after the same cast to the module dtype; then plain generation
+    from the clean first-frame latent of a synthetic video: pyoco
+    progressive noise (alpha 1) re-initialised by FreeInit (butterworth,
+    level 999), 16 frames, cfg_txt 7.5 / cfg_img 1.5 (guidance "both",
+    batch 3), the last 5 DDIM steps of a 50-step schedule, and decode; the
+    outputs must be finite, K1's short class, K2 with the augmented key
+    axis, K3, K4 and K5 must launch, no UNet attention of head width
+    40/64/80/160 may reach SDPA, and neither mode that is still to port may
+    be reached (no attention carries a score bias, no feed-forward has the
+    GELU form);
+ 8. the SEINE main path at full width (SD1.4 widths, 8 heads, 16 frames,
     512x512): a seine-tiny reference check (K2 with the bias at dh 8),
     then VAE encode, the masked conditioning, inversion with every step on
     the save grid, the cache files, a DDPM PnP edit at cfg 4 with thresholds
@@ -60,7 +76,16 @@ Phases:
     its profile at batch 1 and 3.
 
 Each tiny-arch reference check runs the card's bf16 UNet against the plain
-fp32 path on the CPU with the same bf16-rounded weights and inputs.
+fp32 path on the CPU with the same bf16-rounded weights and inputs. Phases
+4-8 time their inversion, edit or generation with the port's
+``PhaseTimers`` (``utils/profiling.py``), synchronised on their outputs by
+``hard_sync`` (phase 5's on its host trajectory too), and every timed scan
+must pass ``check_scan_time`` for its step count.
+
+Video preparation (``utils/video_prep.py``, ``cli/prepare_video.py``) and
+camera motion (``utils/camera.py``) are host code on OpenCV and PIL, which
+the card's machine lacks; they are tested on the CPU only, and this script
+does not import them.
 
 Prints the card's name and power limit, one JSON line with the kernel
 records, then, as the last line, ``{"ok": true, "device": {...}}``. Exits
@@ -599,6 +624,9 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     by_path["consisti2v"] = phase_consisti2v()
+    torch.cuda.empty_cache()
+    by_path["consisti2v checkpoint folder"] = phase_checkpoint_folder()
+    torch.cuda.empty_cache()
     by_path["seine"] = phase_seine()
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
@@ -679,6 +707,17 @@ def _check_outputs(checks):
         raise RuntimeError(f"output checks failed: {checks}")
 
 
+def _log_times(path, timers, scans):
+    """Log every phase time of ``timers`` unrounded; each phase named in
+    ``scans`` (name -> UNet steps) must pass ``check_scan_time``."""
+    from anyv2v_torch.utils.benchguard import check_scan_time
+
+    for name, sec in timers.seconds.items():
+        log(f"phase {path} {name}: {sec!r} s")
+    for name, steps in scans.items():
+        check_scan_time(f"{path} {name}", timers.seconds[name], steps)
+
+
 def _read_back_cache(tmp, traj, inv_ts, times):
     from anyv2v_torch.pipelines.common import host_array
     from anyv2v_torch.utils.io import load_ddim_trajectory
@@ -701,6 +740,7 @@ def phase_main_path():
     from anyv2v_torch.cli.run_group_pnp_edit import edit_video, output_stem
     from anyv2v_torch.pipelines.i2vgen import PnPConfig
     from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline
+    from anyv2v_torch.utils.profiling import PhaseTimers
 
     rng = np.random.RandomState(1)
     _reference_check("i2vgen-tiny", build_i2vgen_pipeline,
@@ -728,27 +768,26 @@ def phase_main_path():
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    times = {}
+    timers, inv, ed = PhaseTimers("cuda"), {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        latents, traj, inv_ts, *_ = invert_video(pipe, video, text_ids=ids, n_steps=INV_STEPS,
-                                                 fps=8, clip_width=512, output_dir=tmp)
-        torch.cuda.synchronize()
-        times["encode+invert+write cache"] = time.perf_counter() - t0
-        traj_np, ts_np = _read_back_cache(tmp, traj, inv_ts, times)
+        with timers.phase("encode+invert+write cache", sync=inv):
+            inv["latents"], inv["traj"], inv_ts, *_ = invert_video(
+                pipe, video, text_ids=ids, n_steps=INV_STEPS, fps=8, clip_width=512,
+                output_dir=tmp)
+        latents, traj = inv["latents"], inv["traj"]
+        traj_np, ts_np = _read_back_cache(tmp, traj, inv_ts, timers.seconds)
 
-        t0 = time.perf_counter()
-        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first,
-                                 text_ids=(ids, ids, ids), n_frames=frames, n_steps=EDIT_STEPS,
-                                 t_idx=0, guidance_scale=9.0, pnp=pnp, fps=8, clip_width=512)
-        torch.cuda.synchronize()
-        times["PnP edit+decode"] = time.perf_counter() - t0
+        with timers.phase("PnP edit+decode", sync=ed):
+            ed["out"], ed["video"] = edit_video(
+                pipe, traj_np, ts_np, video[0], edited_first, text_ids=(ids, ids, ids),
+                n_frames=frames, n_steps=EDIT_STEPS, t_idx=0, guidance_scale=9.0, pnp=pnp,
+                fps=8, clip_width=512)
+        out, edited = ed["out"], ed["video"]
     counts = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    for name, sec in times.items():
-        log(f"phase i2vgen-xl {name}: {sec:.3f} s")
+    _log_times("i2vgen-xl", timers, {"encode+invert+write cache": INV_STEPS,
+                                     "PnP edit+decode": EDIT_STEPS})
     log(f"i2vgen-xl main path: invert {INV_STEPS} steps (batch 1) + PnP edit {EDIT_STEPS} steps "
         f"(thresholds 0.2/0.2/0.5: {int(EDIT_STEPS * 0.5)} batch-3 steps, "
         f"{EDIT_STEPS - int(EDIT_STEPS * 0.5)} batch-2 steps); output name "
@@ -838,6 +877,7 @@ def phase_long_video(pipe):
     from anyv2v_torch.pipelines.common import HostTrajectory
     from anyv2v_torch.pipelines.i2vgen import PnPConfig
     from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline
+    from anyv2v_torch.utils.profiling import PhaseTimers
 
     rng = np.random.RandomState(6)
     _reference_check("i2vgen-tiny", build_i2vgen_pipeline,
@@ -856,29 +896,27 @@ def phase_long_video(pipe):
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    times = {}
+    timers, inv, ed = PhaseTimers("cuda"), {}, {}
     with tempfile.TemporaryDirectory() as tmp, _RouteLog() as routes, _PhaseTimer(pipe) as pt:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        latents, store, inv_ts, *_ = invert_video(
-            pipe, video, text_ids=ids, n_steps=LONG_INV_STEPS, fps=8, clip_width=512,
-            output_dir=tmp, chunk_steps=LONG_CHUNK, traj_store="host")
-        torch.cuda.synchronize()
-        times["encode+invert+write cache"] = time.perf_counter() - t0
-        traj_np, ts_np = _read_back_cache(tmp, store, inv_ts, times)
+        # hard_sync checks the host trajectory's chunks with the latents
+        with timers.phase("encode+invert+write cache", sync=inv):
+            inv["latents"], inv["store"], inv_ts, *_ = invert_video(
+                pipe, video, text_ids=ids, n_steps=LONG_INV_STEPS, fps=8, clip_width=512,
+                output_dir=tmp, chunk_steps=LONG_CHUNK, traj_store="host")
+        latents, store = inv["latents"], inv["store"]
+        traj_np, ts_np = _read_back_cache(tmp, store, inv_ts, timers.seconds)
 
-        t0 = time.perf_counter()
-        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first,
-                                 text_ids=(ids, ids, ids), n_frames=frames,
-                                 n_steps=LONG_EDIT_STEPS, t_idx=0, guidance_scale=9.0, pnp=pnp,
-                                 fps=8, clip_width=512)
-        torch.cuda.synchronize()
-        times["PnP edit+decode"] = time.perf_counter() - t0
+        with timers.phase("PnP edit+decode", sync=ed):
+            ed["out"], ed["video"] = edit_video(
+                pipe, traj_np, ts_np, video[0], edited_first, text_ids=(ids, ids, ids),
+                n_frames=frames, n_steps=LONG_EDIT_STEPS, t_idx=0, guidance_scale=9.0, pnp=pnp,
+                fps=8, clip_width=512)
+        out, edited = ed["out"], ed["video"]
     counts = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    for name, sec in times.items():
-        log(f"phase i2vgen-xl long video {name}: {sec:.3f} s")
+    _log_times("i2vgen-xl long video", timers, {"encode+invert+write cache": LONG_INV_STEPS,
+                                                "PnP edit+decode": LONG_EDIT_STEPS})
     for name, secs in pt.times.items():
         log(f"phase i2vgen-xl long video {name}: {len(secs)} x, "
             + ", ".join(f"{s:.3f}" for s in secs) + " s")
@@ -993,6 +1031,7 @@ def phase_consisti2v():
     from anyv2v_torch.cli.consisti2v_run_pnp_edit import edit_video, output_stem
     from anyv2v_torch.pipelines.i2vgen import PnPConfig
     from anyv2v_torch.utils.model_zoo import build_consisti2v_pipeline
+    from anyv2v_torch.utils.profiling import PhaseTimers
 
     rng = np.random.RandomState(2)
     _reference_check("consisti2v-tiny", build_consisti2v_pipeline,
@@ -1020,28 +1059,26 @@ def phase_consisti2v():
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    times = {}
+    timers, inv, ed = PhaseTimers("cuda"), {}, {}
     with tempfile.TemporaryDirectory() as tmp, _RouteLog() as routes:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        latents, traj, inv_ts = invert_video(pipe, video, text_ids=ids, n_steps=INV_STEPS,
-                                             frame_stride=3, output_dir=tmp)
-        torch.cuda.synchronize()
-        times["encode+invert+write cache"] = time.perf_counter() - t0
-        traj_np, ts_np = _read_back_cache(tmp, traj, inv_ts, times)
+        with timers.phase("encode+invert+write cache", sync=inv):
+            inv["latents"], inv["traj"], inv_ts = invert_video(
+                pipe, video, text_ids=ids, n_steps=INV_STEPS, frame_stride=3, output_dir=tmp)
+        latents, traj = inv["latents"], inv["traj"]
+        traj_np, ts_np = _read_back_cache(tmp, traj, inv_ts, timers.seconds)
 
-        t0 = time.perf_counter()
-        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first,
-                                 text_ids=(ids, ids, ids), n_steps=EDIT_STEPS, t_idx=0,
-                                 cfg_txt=cfg_txt, cfg_img=cfg_img, pnp=pnp, frame_stride=3)
-        torch.cuda.synchronize()
-        times["PnP edit+decode"] = time.perf_counter() - t0
+        with timers.phase("PnP edit+decode", sync=ed):
+            ed["out"], ed["video"] = edit_video(
+                pipe, traj_np, ts_np, video[0], edited_first, text_ids=(ids, ids, ids),
+                n_steps=EDIT_STEPS, t_idx=0, cfg_txt=cfg_txt, cfg_img=cfg_img, pnp=pnp,
+                frame_stride=3)
+        out, edited = ed["out"], ed["video"]
     counts = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     edited_ff = pipe.encode_video(edited_first[None])
 
-    for name, sec in times.items():
-        log(f"phase consisti2v {name}: {sec:.3f} s")
+    _log_times("consisti2v", timers, {"encode+invert+write cache": INV_STEPS,
+                                      "PnP edit+decode": EDIT_STEPS})
     n_pnp = int(EDIT_STEPS * 0.5)
     log(f"consisti2v main path: invert {INV_STEPS} steps (batch 1, {frames} frames) + PnP edit "
         f"{EDIT_STEPS} steps at cfg_txt {cfg_txt} / cfg_img {cfg_img} (guidance 'text': "
@@ -1082,6 +1119,219 @@ def phase_consisti2v():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# checkpoint folders in the diffusers layout, written from seeded weights
+# (the CPU tests write their tiny folders with the same functions)
+# ---------------------------------------------------------------------------
+
+_ST_NAMES = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32",
+             torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def write_safetensors(path, tensors):
+    """A ``.safetensors`` file: 8-byte little-endian header length, the JSON
+    header (names, dtypes, shapes, byte offsets; padded to 8 bytes), then
+    each tensor's raw little-endian bytes."""
+    tensors = {k: v.detach().cpu().contiguous() for k, v in tensors.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def hf_config(cfg):
+    """The diffusers / transformers ``config.json`` of a port config: the
+    fields the checkpoint converters read, in the published checkpoints'
+    conventions (the UNets' head COUNT under ``attention_head_dim``, one per
+    level for ConsistI2V's SD2.1 base)."""
+    from anyv2v_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+    from anyv2v_torch.models.unet_i2vgen import I2VGenUNetConfig
+    from anyv2v_torch.models.unet_seine import SeineUNetConfig
+    from anyv2v_torch.models.unet_videoldm import VideoLDMUNetConfig
+    from anyv2v_torch.models.vae import VAEConfig
+
+    if isinstance(cfg, (CLIPTextConfig, CLIPVisionConfig)):
+        out = {"hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+               "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+               "hidden_act": cfg.hidden_act}
+        if isinstance(cfg, CLIPTextConfig):
+            return {"architectures": ["CLIPTextModel"], **out,
+                    "max_position_embeddings": cfg.max_position_embeddings,
+                    "vocab_size": cfg.vocab_size}
+        return {"architectures": ["CLIPVisionModelWithProjection"], **out,
+                "image_size": cfg.image_size, "patch_size": cfg.patch_size,
+                "num_channels": cfg.num_channels, "projection_dim": cfg.projection_dim}
+    boc = list(cfg.block_out_channels)
+    if isinstance(cfg, VAEConfig):
+        return {"_class_name": "AutoencoderKL", "in_channels": cfg.in_channels,
+                "out_channels": cfg.out_channels, "latent_channels": cfg.latent_channels,
+                "block_out_channels": boc, "layers_per_block": cfg.layers_per_block,
+                "norm_num_groups": cfg.norm_num_groups, "scaling_factor": cfg.scaling_factor}
+    n = len(boc)
+    unet = {"in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+            "block_out_channels": boc, "layers_per_block": cfg.layers_per_block,
+            "cross_attention_dim": cfg.cross_attention_dim,
+            "norm_num_groups": cfg.norm_num_groups}
+    if isinstance(cfg, I2VGenUNetConfig):
+        if not cfg.num_attention_heads:
+            raise ValueError("i2vgen-xl's config.json holds one head count: set "
+                             "num_attention_heads")
+        return {"_class_name": "I2VGenXLUNet", **unet, "num_attention_heads": None,
+                "attention_head_dim": cfg.num_attention_heads,
+                "down_block_types": ["CrossAttnDownBlock3D"] * (n - 1) + ["DownBlock3D"],
+                "up_block_types": ["UpBlock3D"] + ["CrossAttnUpBlock3D"] * (n - 1)}
+    blocks = {"down_block_types": ["CrossAttnDownBlock2D"] * (n - 1) + ["DownBlock2D"],
+              "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * (n - 1)}
+    if isinstance(cfg, VideoLDMUNetConfig):
+        return {"_class_name": "VideoLDMUNet3DConditionModel", **unet, **blocks,
+                "attention_head_dim": [c // cfg.attention_head_dim for c in boc],
+                "n_temp_heads": cfg.n_temp_heads,
+                "first_frame_condition_mode": cfg.first_frame_condition_mode,
+                "temp_pos_embedding": cfg.temp_pos_embedding,
+                "augment_temporal_attention": cfg.augment_temporal_attention,
+                "use_frame_stride_condition": cfg.use_frame_stride_condition,
+                "use_temporal": cfg.use_temporal}
+    if isinstance(cfg, SeineUNetConfig):   # SD1.4's unet/config.json: 4 input channels
+        return {"_class_name": "UNet2DConditionModel", **unet, **blocks, "in_channels": 4,
+                "attention_head_dim": cfg.num_attention_heads}
+    raise TypeError(type(cfg).__name__)
+
+
+SUBFOLDERS = {"unet": "unet", "vae": "vae", "text": "text_encoder", "vision": "image_encoder"}
+
+
+def write_snapshot(folder, components, shards=None):
+    """A diffusers-layout snapshot: for each ``{component: (config, state
+    dict or None)}`` a subfolder with its ``config.json`` and, given a state
+    dict, its weights (``shards[component]`` safetensors files, default 1)."""
+    for name, (cfg, sd) in components.items():
+        sub = os.path.join(folder, SUBFOLDERS[name])
+        os.makedirs(sub, exist_ok=True)
+        with open(os.path.join(sub, "config.json"), "w") as f:
+            json.dump(hf_config(cfg), f, indent=1)
+        if sd is None:
+            continue
+        stem = "diffusion_pytorch_model" if name in ("unet", "vae") else "model"
+        n = (shards or {}).get(name, 1)
+        keys = list(sd)
+        for i in range(n):
+            part = {k: sd[k] for k in keys[i::n]}
+            suffix = f"-{i + 1:05d}-of-{n:05d}" if n > 1 else ""
+            write_safetensors(os.path.join(sub, f"{stem}{suffix}.safetensors"), part)
+
+
+FOLDER_FRAMES, FOLDER_STEPS, FOLDER_SCHEDULE = 16, 5, 50
+
+
+def phase_checkpoint_folder():
+    """ConsistI2V at full width from a checkpoint folder: write the seeded
+    weights as an fp16 diffusers snapshot, convert it with the port's CLI,
+    load it through ``init``, check every tensor, then generate with pyoco
+    noise and FreeInit at guidance "both" and decode. Returns each kernel's
+    launch count over the generation and decode."""
+    from anyv2v_torch.cli import convert_checkpoint
+    from anyv2v_torch.models.layers import FeedForward
+    from anyv2v_torch.utils.model_zoo import (ARCHS, build_consisti2v_pipeline, build_modules,
+                                              random_state_dict)
+    from anyv2v_torch.utils.profiling import PhaseTimers
+
+    timers = PhaseTimers("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, npz = os.path.join(tmp, "ConsistI2V"), os.path.join(tmp, "consisti2v.npz")
+        with timers.phase("write the fp16 folder"):
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            written = {name: {k: v.half().cpu() for k, v in
+                              random_state_dict(m, gen, torch.device("cuda")).items()}
+                       for name, m in build_modules("consisti2v", torch.float32).items()}
+            write_snapshot(src, {name: (ARCHS["consisti2v"][name], sd)
+                                 for name, sd in written.items()}, shards={"unet": 2})
+        folder_bytes = sum(os.path.getsize(os.path.join(d, f))
+                           for d, _, fs in os.walk(src) for f in fs)
+        with timers.phase("convert (read, validate, write .npz)"):
+            convert_checkpoint.main(["--backbone", "consisti2v", "--src", src, "--out", npz])
+        npz_bytes = os.path.getsize(npz)
+        with timers.phase("load through init"):
+            pipe = build_consisti2v_pipeline("consisti2v", device="cuda", init=npz,
+                                             dtype=torch.bfloat16)
+    exact = {}
+    for name, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text", pipe.text_encoder)):
+        got = module.state_dict()
+        exact[name] = set(got) == set(written[name]) and all(
+            torch.equal(got[k], written[name][k].to(device="cuda", dtype=got[k].dtype))
+            for k in got)
+    log(f"consisti2v folder: {folder_bytes} bytes of fp16 safetensors "
+        f"({sum(len(sd) for sd in written.values())} tensors), .npz {npz_bytes} bytes; "
+        f"every loaded tensor equals the one written: {exact}")
+    del written
+
+    video = _synthetic_video(np.random.RandomState(9), 1, 512)
+    ids = np.zeros((1, 77), np.int64)
+    wrappers = _wrappers()
+    ff = pipe.encode_video(video)
+    text = pipe.encode_text(ids)
+    text_all = torch.cat([text, text, text])           # guidance "both": [neg, neg, cond]
+    t_idx = FOLDER_SCHEDULE - FOLDER_STEPS
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    gen_out, dec = {}, {}
+    with _RouteLog() as routes:
+        with timers.phase("sample", sync=gen_out):
+            gen_out["latents"] = pipe.sample(
+                ff, text_all, num_frames=FOLDER_FRAMES, num_inference_steps=FOLDER_SCHEDULE,
+                cfg_txt=7.5, cfg_img=1.5, frame_stride=3, seed=1,
+                noise_sampling_method="pyoco_progressive", noise_alpha=1.0,
+                use_frameinit=True, frameinit_noise_level=999, t_idx=t_idx)
+        with timers.phase("decode", sync=dec):
+            dec["video"] = pipe.decode_latents(gen_out["latents"])
+    counts = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out, frames01 = gen_out["latents"], dec["video"]
+
+    _log_times("consisti2v checkpoint folder", timers, {"sample": FOLDER_STEPS})
+    log(f"consisti2v checkpoint folder: sample {FOLDER_FRAMES} frames, steps {t_idx}..."
+        f"{FOLDER_SCHEDULE - 1} of a {FOLDER_SCHEDULE}-step DDIM schedule at cfg_txt 7.5 / "
+        f"cfg_img 1.5 (batch 3), pyoco_progressive noise, FreeInit butterworth at 999")
+    log(f"consisti2v checkpoint folder peak device memory over sample + decode: "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"kernel launches in the consisti2v checkpoint-folder path: {counts}")
+    log(f"consisti2v checkpoint-folder routes: K5 by role {routes.k5}; K2 by shape "
+        f"{routes.k2}; SDPA (UNet and VAE) by head width {routes.sdpa}")
+    shape = (1, FOLDER_FRAMES, 64, 64, 4)
+    gelu_ffns = [m for m in pipe.unet.modules()
+                 if isinstance(m, FeedForward) and m.activation == "gelu"]
+    _check_outputs({
+        "every loaded tensor equals the one written": all(exact.values()),
+        f"latents {list(shape)} finite, frame 0 the clean first-frame latent":
+        tuple(out.shape) == shape and bool(torch.isfinite(out).all())
+        and bool((out[:, :1] == ff).all()),
+        f"video [{FOLDER_FRAMES},512,512,3] in [0,1]":
+        tuple(frames01.shape) == (FOLDER_FRAMES, 512, 512, 3)
+        and bool(torch.isfinite(frames01).all()) and float(frames01.min()) >= 0.0
+        and float(frames01.max()) <= 1.0,
+        "K1 (short class), K2, K3, K4, K5 launched; K2 long not":
+        all(c > 0 for n, c in counts.items() if n != "frame_attention_long")
+        and counts["frame_attention_long"] == 0,
+        "K2 with the augmented key axis": any(
+            int(key.split()[1][2:]) > int(key.split()[0][1:]) for key in routes.k2),
+        "no dh 40/64/80/160 attention on SDPA": not set(routes.sdpa) & {40, 64, 80, 160},
+        "no attention with a score bias (K5's bias mode unreached)":
+        not any(key.endswith(" bias") for key in routes.k2),
+        "no GELU-form feed-forward (K3's GELU mode unreached)": not gelu_ffns,
+    })
+    return counts
+
+
 def _seine_k5_role(q, k, heads, k_ctx):
     if k.shape[1] != q.shape[1]:
         return "cross"
@@ -1104,6 +1354,7 @@ def phase_seine():
     from anyv2v_torch.cli.seine_run_pnp_edit import edit_video
     from anyv2v_torch.pipelines.seine import SeinePnPConfig
     from anyv2v_torch.utils.model_zoo import build_seine_pipeline
+    from anyv2v_torch.utils.profiling import PhaseTimers
 
     _reference_check("seine-tiny", build_seine_pipeline, seine_tiny_args(4),
                      {"pnp": (True, True, True, True)})
@@ -1126,27 +1377,26 @@ def phase_seine():
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    times = {}
+    timers, inv, ed = PhaseTimers("cuda"), {}, {}
     with tempfile.TemporaryDirectory() as tmp, _RouteLog(_seine_k5_role) as routes:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        latents, traj, traj_ts = invert_video(pipe, video, text_ids=ids, n_steps=INV_STEPS,
-                                              n_save_steps=INV_STEPS, output_dir=tmp)
-        torch.cuda.synchronize()
-        times["encode+invert+write cache"] = time.perf_counter() - t0
-        traj_np, ts_np = _read_back_cache(tmp, traj, traj_ts, times)
+        with timers.phase("encode+invert+write cache", sync=inv):
+            inv["latents"], inv["traj"], traj_ts = invert_video(
+                pipe, video, text_ids=ids, n_steps=INV_STEPS, n_save_steps=INV_STEPS,
+                output_dir=tmp)
+        latents, traj = inv["latents"], inv["traj"]
+        traj_np, ts_np = _read_back_cache(tmp, traj, traj_ts, timers.seconds)
 
-        t0 = time.perf_counter()
-        out, edited = edit_video(pipe, traj_np, ts_np, video[0], edited_first, n_frames=frames,
-                                 text_ids=(ids, ids, ids), n_steps=EDIT_STEPS, cfg_scale=4.0,
-                                 sampler="ddpm", pnp=pnp, seed=1)
-        torch.cuda.synchronize()
-        times["DDPM PnP edit+decode"] = time.perf_counter() - t0
+        with timers.phase("DDPM PnP edit+decode", sync=ed):
+            ed["out"], ed["video"] = edit_video(
+                pipe, traj_np, ts_np, video[0], edited_first, n_frames=frames,
+                text_ids=(ids, ids, ids), n_steps=EDIT_STEPS, cfg_scale=4.0, sampler="ddpm",
+                pnp=pnp, seed=1)
+        out, edited = ed["out"], ed["video"]
     counts = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    for name, sec in times.items():
-        log(f"phase seine {name}: {sec:.3f} s")
+    _log_times("seine", timers, {"encode+invert+write cache": INV_STEPS,
+                                 "DDPM PnP edit+decode": EDIT_STEPS})
     log(f"seine main path: invert {INV_STEPS} steps (batch 1, {frames} frames, save grid "
         f"{INV_STEPS} steps) + DDPM PnP edit {EDIT_STEPS} steps at cfg 4, thresholds "
         f"conv 0.2 / spatial 0.2 / temporal 0.5 / cross 0.0 (2 steps conv+spatial+temporal, "

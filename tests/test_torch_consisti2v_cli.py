@@ -5,19 +5,28 @@ seeded port weights through the JAX converters. The JAX inversion CLI writes
 the ``ddim_latents_{t}.npy`` cache; the port's edit CLI reads those per-step
 files (the consolidated file is removed first) and writes the JAX CLI's
 output names; the port's inversion CLI writes the same cache within 1e-4.
+Both edit CLIs on that cache (``blend_ratio: 0``) write the same frames: the
+PNGs differ by at most 1 of 255 (latents within 1e-4 can round to
+neighbouring 8-bit levels). The inversion CLI's reconstruction passes every
+``recon_config`` knob, and with the cached start latent the pyoco and
+FreeInit knobs change nothing, as in the JAX CLI.
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from anyv2v_tpu.cli import consisti2v_run_ddim_inversion as jax_inversion
+from anyv2v_tpu.cli import consisti2v_run_pnp_edit as jax_edit
 from anyv2v_tpu.utils import model_zoo as jzoo
 from anyv2v_torch.cli import consisti2v_run_ddim_inversion, consisti2v_run_pnp_edit
+from anyv2v_torch.pipelines.consisti2v import ConsistI2VPipeline
 from anyv2v_torch.utils.io import load_ddim_trajectory
 from test_torch_consisti2v import TOL, tiny_trees
+from test_torch_seine import one_torch_thread  # noqa: F401 (fixture)
 
 F, HW, INV_STEPS, EDIT_STEPS = 3, 64, 10, 5
 
@@ -124,3 +133,56 @@ def test_port_inversion_cli_writes_the_same_cache(cli_workspace):
     np.testing.assert_allclose(traj, want, **TOL)
     assert sorted(os.listdir(root / "port_out")) == ["ddim_reconstruction.gif",
                                                    "ddim_reconstruction.mp4"]
+
+
+def read_frames(folder):
+    """The PNG frames a CLI wrote, ``[F, H, W, 3]`` uint8 as int."""
+    names = sorted(os.listdir(folder))
+    return np.stack([np.asarray(Image.open(os.path.join(folder, n))) for n in names]).astype(int)
+
+
+def test_edit_clis_write_the_same_frames(cli_workspace, monkeypatch):
+    """Both edit CLIs on the JAX inversion cache at ``blend_ratio: 0``: the
+    written frames differ by at most one 8-bit level. The JAX edit runs with
+    traced PnP flags (one compile per batch), as the pipeline tests run it."""
+    root = cli_workspace
+    consisti2v_run_pnp_edit.main(["--config", str(root / "edit.yaml"), "--device", "cpu",
+                                  f"output_dir={root}/port_edit"])
+    monkeypatch.setenv("ANYV2V_PNP_STATIC", "0")
+    jax_edit.main(["--config", str(root / "edit.yaml"), f"output_dir={root}/jax_edit"])
+    stem = f"cfgtxt_7.5_cfgimg_1.0_steps_{EDIT_STEPS}_tidx_0_frames"
+    got, want = read_frames(root / "port_edit" / stem), read_frames(root / "jax_edit" / stem)
+    assert got.shape == want.shape == (F, HW, HW, 3)
+    assert np.abs(got - want).max() <= 1
+
+
+def test_reconstruction_passes_the_noise_knobs(cli_workspace, monkeypatch):
+    """The inversion CLI's reconstruction hands ``noise_alpha`` and the
+    FreeInit level to the pipeline (the port used to drop ``noise_alpha``
+    and raise on pyoco and FreeInit), and, started from the cached latent,
+    gives the vanilla reconstruction bit for bit."""
+    root = cli_workspace
+    calls = []
+    orig = ConsistI2VPipeline.sample
+
+    def spy(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        calls.append((kw, out))
+        return out
+
+    monkeypatch.setattr(ConsistI2VPipeline, "sample", spy)
+    base = ["--config", str(root / "inv.yaml"), "--device", "cpu",
+            f"inverse_config.output_dir={root}/recon_latents", "recon_config.enable_recon=true",
+            "recon_config.n_steps=5", "recon_config.cfg_img=1.5", "recon_config.cfg_txt=2.0"]
+    consisti2v_run_ddim_inversion.main(base + [f"output_dir={root}/recon_vanilla"])
+    consisti2v_run_ddim_inversion.main(base + [
+        f"output_dir={root}/recon_knobs", "recon_config.noise_sampling_method=pyoco_progressive",
+        "recon_config.noise_alpha=0.5", "recon_config.use_frameinit=true",
+        "recon_config.frameinit_noise_level=900"])
+    (vanilla_kw, vanilla), (knobs_kw, knobs) = calls
+    assert vanilla_kw["noise_sampling_method"] == "vanilla" and vanilla_kw["noise_alpha"] == 1.0
+    assert knobs_kw["noise_sampling_method"] == "pyoco_progressive"
+    assert knobs_kw["noise_alpha"] == 0.5 and knobs_kw["use_frameinit"] is True
+    assert knobs_kw["frameinit_noise_level"] == 900
+    assert knobs_kw["init_latent"] is not None and np.isfinite(knobs.numpy()).all()
+    assert torch.equal(vanilla, knobs)

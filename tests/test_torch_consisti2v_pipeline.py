@@ -171,11 +171,13 @@ def test_plain_sample_matches_jax(runs):
 
 
 def test_plain_sample_refuses_unported_noise(runs):
+    """Every noise method and filter of the JAX package is ported; a name
+    outside them is refused, as the JAX package refuses it."""
     port = runs["port"]
     ff = torch.zeros(1, 1, 8, 8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.sample(ff, torch.zeros(1, 77, 32), noise_sampling_method="pyoco_mixed")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.sample(ff, torch.zeros(1, 77, 32), use_frameinit=True)
+    with pytest.raises(ValueError, match="noise_sampling_method"):
+        port.sample(ff, torch.zeros(1, 77, 32), noise_sampling_method="pyoco_unknown")
+    with pytest.raises(ValueError, match="filter_type"):
+        port.apply_frameinit(torch.zeros(1, 3, 8, 8, 4), ff, filter_type="unknown")
 
 

@@ -30,9 +30,15 @@ PORT_MODULES = [
     "anyv2v_torch.cli.consisti2v_run_ddim_inversion", "anyv2v_torch.cli.consisti2v_run_pnp_edit",
     "anyv2v_torch.ops.relpos", "anyv2v_torch.schedulers.ddpm", "anyv2v_torch.models.unet_seine",
     "anyv2v_torch.pipelines.seine", "anyv2v_torch.cli.seine_run_ddim_inversion",
-    "anyv2v_torch.cli.seine_run_pnp_edit",
+    "anyv2v_torch.cli.seine_run_pnp_edit", "anyv2v_torch.utils.benchguard",
+    "anyv2v_torch.utils.profiling", "anyv2v_torch.ops.freeinit", "anyv2v_torch.utils.camera",
+    "anyv2v_torch.utils.checkpoint", "anyv2v_torch.cli.convert_checkpoint",
+    "anyv2v_torch.utils.video_prep", "anyv2v_torch.cli.prepare_video",
 ]
 FORBIDDEN = ("jax", "anyv2v_tpu")
+# host packages the card's machine lacks: only functions that need them
+# import them
+HOST_ONLY = ("cv2", "PIL", "safetensors", "imageio", "yaml")
 
 
 def _no_cuda():
@@ -46,6 +52,23 @@ def test_port_imports_no_jax():
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_port_imports_without_host_packages():
+    """Every port module (video preparation, camera motion and the
+    checkpoint reader included) and chip_smoke.py import where OpenCV, PIL,
+    safetensors, imageio and PyYAML are missing."""
+    code = ("import importlib, sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {HOST_ONLY!r}:\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"for m in {PORT_MODULES + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
