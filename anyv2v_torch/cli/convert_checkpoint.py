@@ -9,6 +9,8 @@ one ``.npz`` that every ``build_*_pipeline`` loads through ``model.init``.
     python -m anyv2v_torch.cli.convert_checkpoint \\
         --backbone seine --src /path/to/stable-diffusion-v1-4 \\
         --ckpt /path/to/seine.pt --out seine.npz
+    python -m anyv2v_torch.cli.convert_checkpoint \
+        --backbone instructpix2pix --src /path/to/timbrooks-instruct-pix2pix --out ip2p.npz
 
 The file holds every component's state dict in the checkpoint's dtype and
 the architecture read from the folder's ``config.json`` files
@@ -41,8 +43,7 @@ def convert(backbone: str, src: str, ckpt: str | None = None):
         if not ckpt:
             raise ValueError("--backbone seine requires --ckpt seine.pt")
         return C.convert_seine_checkpoint(src, ckpt)
-    raise NotImplementedError(f"--backbone {backbone}: the first-frame editors are not "
-                              "ported yet (ROADMAP.md queue 1, item 5)")
+    return C.convert_sd_editor_dir(src, backbone)
 
 
 def main(argv=None) -> None:

@@ -126,19 +126,24 @@ class CLIPTextModel(nn.Module):
         if config.projection_dim is not None:
             self.text_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor):
+    def forward(self, input_ids: torch.Tensor, penultimate: bool = False):
+        """``penultimate=True`` returns the hidden state before the last layer
+        (HF ``hidden_states[-2]``, no final norm) as the first output, what
+        SDXL's two text encoders feed the UNet; ``pooled`` always comes from
+        the whole stack."""
         cfg, tm = self.config, self.text_model
         b, s = input_ids.shape
         x = (tm.embeddings.token_embedding(input_ids)
              + tm.embeddings.position_embedding.weight[None, :s]).to(cfg.dtype)
         for layer in tm.encoder.layers:
+            before_last = x
             x = layer(x, causal=True)
         x = layer_norm(x, tm.final_layer_norm).to(cfg.dtype)
         eos_pos = (input_ids == cfg.eos_token_id).int().argmax(dim=-1)
         pooled = x[torch.arange(b, device=x.device), eos_pos]
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
-        return x, pooled
+        return (before_last if penultimate else x), pooled
 
 
 class _VisionEmbeddings(nn.Module):
@@ -170,7 +175,11 @@ class CLIPVisionModel(nn.Module):
         self.vision_model = _VisionModel(config)
         self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
 
-    def forward(self, pixel_values: torch.Tensor):
+    def forward(self, pixel_values: torch.Tensor, penultimate: bool = False):
+        """``penultimate=True`` returns the hidden state before the last layer
+        (HF ``hidden_states[-2]``, no final norm) as the first output, what
+        the IP-Adapter Plus and Full variants project; ``image_embeds``
+        always comes from the whole stack."""
         cfg, vm = self.config, self.vision_model
         emb = vm.embeddings
         b = pixel_values.shape[0]
@@ -181,9 +190,10 @@ class CLIPVisionModel(nn.Module):
         x = torch.cat([cls, patches], dim=1) + emb.position_embedding.weight[None].to(cfg.dtype)
         x = layer_norm(x, vm.pre_layrnorm).to(cfg.dtype)
         for layer in vm.encoder.layers:
+            before_last = x
             x = layer(x, causal=False)
         pooled = layer_norm(x[:, 0], vm.post_layernorm).to(cfg.dtype)
-        return x, self.visual_projection(pooled)
+        return (before_last if penultimate else x), self.visual_projection(pooled)
 
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)

@@ -19,6 +19,7 @@ flags are Python bools (see :mod:`anyv2v_torch.ops.pnp`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -62,6 +63,11 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 def linear_1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A 1x1 nn.Conv2d applied to channels-last tokens as a matmul."""
     return F.linear(x, conv.weight.reshape(conv.out_channels, conv.in_channels), conv.bias)
+
+
+def _pointwise(proj: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 nn.Conv2d or an nn.Linear on channels-last tokens."""
+    return linear_1x1(proj, x) if isinstance(proj, nn.Conv2d) else proj(x)
 
 
 def sinusoidal_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -210,6 +216,9 @@ class TemporalConvLayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+_PROJECTIONS = ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip")   # head-padded outputs
+
+
 class Attention(nn.Module):
     """diffusers Attention with the PnP Q/K injection point (Q and K only,
     never V) and padded head storage: ``to_q/to_k/to_v`` hold each head
@@ -217,11 +226,13 @@ class Attention(nn.Module):
     zero columns, so activations come out of the projections already in the
     kernels' head widths. ``state_dict()`` strips the padding (the
     checkpoint's true widths) and loading pads again. The softmax scale comes
-    from the true head width."""
+    from the true head width. ``ip=True`` adds the IP-Adapter's ``to_k_ip`` /
+    ``to_v_ip`` (padded the same way): given ``ip_tokens``, the output is
+    ``attn(q, k, v) + ip_scale * attn(q, k_ip, v_ip)``."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  cross_attention_dim: Optional[int] = None, out_dim: Optional[int] = None,
-                 qkv_bias: bool = False, pnp_chunks: int = 3):
+                 qkv_bias: bool = False, pnp_chunks: int = 3, ip: bool = False):
         super().__init__()
         self.heads, self.head_dim, self.pnp_chunks = heads, head_dim, pnp_chunks
         self.stored_head_dim = padded_head_dim(head_dim)
@@ -232,6 +243,9 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or query_dim)])
+        if ip:   # the IP-Adapter branch: image tokens through their own K/V
+            self.to_k_ip = nn.Linear(kv_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(kv_dim, inner, bias=False)
         if self.stored_head_dim != head_dim:
             self._register_state_dict_hook(Attention._strip_padding)
             self._register_load_state_dict_pre_hook(Attention._pad_heads, with_module=True)
@@ -239,7 +253,7 @@ class Attention(nn.Module):
     @staticmethod
     def _strip_padding(module, state_dict, prefix, local_metadata):
         h, d, p = module.heads, module.head_dim, module.stored_head_dim
-        for name in ("to_q", "to_k", "to_v"):
+        for name in _PROJECTIONS:
             for suffix in ("weight", "bias"):
                 key = f"{prefix}{name}.{suffix}"
                 if key in state_dict:
@@ -253,7 +267,7 @@ class Attention(nn.Module):
     @staticmethod
     def _pad_heads(module, state_dict, prefix, *args):
         h, d, p = module.heads, module.head_dim, module.stored_head_dim
-        for name in ("to_q", "to_k", "to_v"):
+        for name in _PROJECTIONS:
             for suffix in ("weight", "bias"):
                 key = f"{prefix}{name}.{suffix}"
                 if key in state_dict and state_dict[key].shape[0] == h * d:
@@ -267,7 +281,8 @@ class Attention(nn.Module):
             w = F.pad(w.reshape(w.shape[0], h, d), (0, p - d))
             state_dict[key] = w.reshape(w.shape[0], h * p)
 
-    def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False):
+    def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False,
+                ip_tokens: Optional[torch.Tensor] = None, ip_scale: float = 1.0):
         ctx = x if context is None else context
         q = inject_source_rows(self.to_q(x), inject, self.pnp_chunks)
         k = inject_source_rows(self.to_k(ctx), inject, self.pnp_chunks)
@@ -277,6 +292,12 @@ class Attention(nn.Module):
             out = temporal_attention(q, k, v, self.heads, self.scale)
         else:
             out = multi_head_attention(q, k, v, self.heads, self.scale)
+        if ip_tokens is not None and hasattr(self, "to_k_ip"):
+            # out + ip_scale * attn(q, k_ip, v_ip): the same queries over the
+            # image tokens, under a softmax of their own
+            ip = ip_tokens.to(q.dtype)
+            out = out + ip_scale * multi_head_attention(q, self.to_k_ip(ip), self.to_v_ip(ip),
+                                                        self.heads, self.scale)
         return self.to_out[0](out)
 
 
@@ -314,49 +335,61 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """norm1 -> attn1 (self) -> norm2 -> attn2 (cross, or self when no context
-    dim) -> norm3 -> ff. PnP injection reaches attn1 only."""
+    dim) -> norm3 -> ff. PnP injection reaches attn1 only, IP-Adapter tokens
+    attn2 only (``ip=True``: the target blocks)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  cross_attention_dim: Optional[int] = None, dtype=torch.float32,
-                 pnp_chunks: int = 3):
+                 pnp_chunks: int = 3, ip: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, head_dim, pnp_chunks=pnp_chunks)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, head_dim, cross_attention_dim=cross_attention_dim)
+        self.attn2 = Attention(dim, heads, head_dim, cross_attention_dim=cross_attention_dim,
+                               ip=ip)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False):
+    def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False,
+                ip_tokens=None, ip_scale: float = 1.0):
         dt = self.dtype
         x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inject,
                            frame_axis=frame_axis)
         x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context,
-                           frame_axis=frame_axis)
+                           frame_axis=frame_axis, ip_tokens=ip_tokens, ip_scale=ip_scale)
         return x + self.ff(layer_norm(x, self.norm3).to(dt))
 
 
 class SpatialTransformer(nn.Module):
     """diffusers Transformer2DModel over ``[(B F), H, W, C]``: groupnorm ->
-    1x1 proj_in -> block on the flattened pixels -> 1x1 proj_out -> residual."""
+    proj_in -> ``depth`` blocks on the flattened pixels -> proj_out ->
+    residual. ``proj_in`` / ``proj_out`` are 1x1 convs, or Linear layers with
+    ``linear_projection`` (diffusers' ``use_linear_projection``, SDXL's
+    checkpoints): the same matmul either way, in the checkpoint's shapes."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, cross_attention_dim: int,
-                 groups: int = 32, dtype=torch.float32, pnp_chunks: int = 3):
+                 groups: int = 32, dtype=torch.float32, pnp_chunks: int = 3, depth: int = 1,
+                 ip: bool = False, linear_projection: bool = False):
         super().__init__()
         self.dtype = dtype
         inner = heads * head_dim
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, inner, 1)
+        proj = nn.Linear if linear_projection else functools.partial(nn.Conv2d, kernel_size=1)
+        self.proj_in = proj(channels, inner)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
-            inner, heads, head_dim, cross_attention_dim, dtype, pnp_chunks)])
-        self.proj_out = nn.Conv2d(inner, channels, 1)
+            inner, heads, head_dim, cross_attention_dim, dtype, pnp_chunks, ip)
+            for _ in range(depth)])
+        self.proj_out = proj(inner, channels)
 
-    def forward(self, x, context=None, inject: bool = False):
+    def forward(self, x, context=None, inject: bool = False, ip_tokens=None,
+                ip_scale: float = 1.0):
         b, h, w, c = x.shape
-        y = linear_1x1(self.proj_in, group_norm(x, self.norm).to(self.dtype))
-        y = self.transformer_blocks[0](y.reshape(b, h * w, -1), context=context, inject=inject)
-        return linear_1x1(self.proj_out, y.reshape(b, h, w, -1)) + x
+        y = _pointwise(self.proj_in, group_norm(x, self.norm).to(self.dtype))
+        y = y.reshape(b, h * w, -1)
+        for block in self.transformer_blocks:
+            y = block(y, context=context, inject=inject, ip_tokens=ip_tokens, ip_scale=ip_scale)
+        return _pointwise(self.proj_out, y.reshape(b, h, w, -1)) + x
 
 
 class TemporalTransformer(nn.Module):

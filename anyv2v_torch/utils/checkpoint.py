@@ -2,8 +2,9 @@
 (counterpart of the folder loaders of ``anyv2v_tpu/utils/convert.py``:
 ``load_torch_state_dict`` :107, ``load_folder_state_dict`` :1040,
 ``_convert_vae_dir`` :1069, ``convert_i2vgen_pipeline_dir`` :1081,
-``convert_consisti2v_dir`` :1120, ``convert_seine_checkpoint`` :1144 and the
-head rule ``resolve_i2vgen_heads`` :408).
+``convert_consisti2v_dir`` :1120, ``convert_seine_checkpoint`` :1144,
+``convert_sd_editor_dir`` :1166, ``convert_ip_adapter`` :945 and the head
+rule ``resolve_i2vgen_heads`` :408).
 
 The port's modules carry the diffusers / reference key names, so a folder's
 tensors load as they are: no key map, and i2vgen-xl's 5/10/20-wide heads are
@@ -160,10 +161,11 @@ def _head_counts(cfg: Mapping, n_levels: int, default):
     return [int(c) for c in counts]
 
 
-def _unet_common(cfg: Mapping, defaults) -> Dict[str, Any]:
+def _unet_common(cfg: Mapping, defaults, check_blocks: bool = True) -> Dict[str, Any]:
     boc = [int(c) for c in cfg.get("block_out_channels", defaults.block_out_channels)]
     groups = int(cfg.get("norm_num_groups", defaults.norm_num_groups))
-    _check_block_types(cfg, len(boc))
+    if check_blocks:
+        _check_block_types(cfg, len(boc))
     for c in boc:
         if c % groups:
             raise _unsupported("unet", "norm_num_groups", groups,
@@ -234,6 +236,54 @@ def _seine_unet_fields(cfg: Mapping, sd: StateDict) -> Dict[str, Any]:
     return fields
 
 
+def _per_level(v, n: int, field: str):
+    """An int, or a tuple of one int per level."""
+    if isinstance(v, (list, tuple)):
+        if len(v) != n:
+            raise _unsupported("unet", field, v, "one value per level")
+        return tuple(int(x) for x in v)
+    return int(v)
+
+
+def _sd_unet_fields(cfg: Mapping, sd: StateDict) -> Dict[str, Any]:
+    """The first-frame editors' 2-D UNet (the JAX ``convert_sd_editor_dir``
+    rules): SDXL when ``addition_embed_type`` is ``text_time``; the head
+    count per level from ``attention_head_dim``; the cross-attention levels
+    from ``down_block_types``; the depth from ``transformer_layers_per_block``."""
+    from ..models.unet_sd import SD15_IP2P
+
+    d = SD15_IP2P
+    fields = _unet_common(cfg, d, check_blocks=False)
+    n = len(fields["block_out_channels"])
+    down = cfg.get("down_block_types", ["CrossAttnDownBlock2D"] * (n - 1) + ["DownBlock2D"])
+    cross = tuple(t.startswith("CrossAttn") for t in down)
+    up = cfg.get("up_block_types")
+    if len(cross) != n or (up is not None
+                           and tuple("CrossAttn" in t for t in up) != cross[::-1]):
+        raise _unsupported("unet", "up_block_types", up,
+                           f"the reverse of down_block_types {down}")
+    fields["cross_attn_blocks"] = cross
+    heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", d.num_attention_heads)
+    fields["num_attention_heads"] = _per_level(heads, n, "attention_head_dim")
+    fields["transformer_depth"] = _per_level(cfg.get("transformer_layers_per_block", 1), n,
+                                             "transformer_layers_per_block")
+    for i, c in enumerate(fields["block_out_channels"]):
+        h = heads[i] if isinstance(heads, (list, tuple)) else heads
+        if c % int(h):
+            raise _unsupported("unet", "attention_head_dim", heads,
+                               f"does not divide block_out_channels {fields['block_out_channels']}")
+    kind = cfg.get("addition_embed_type")
+    if kind not in (None, "text_time"):
+        raise _unsupported("unet", "addition_embed_type", kind, "takes None or 'text_time'")
+    fields["addition_embed"] = "sdxl" if kind == "text_time" else "none"
+    if kind == "text_time":
+        fields["addition_time_embed_dim"] = int(cfg.get("addition_time_embed_dim", 256))
+        fields["projection_class_embeddings_input_dim"] = int(
+            cfg.get("projection_class_embeddings_input_dim", 2816))
+    fields["linear_projection"] = bool(cfg.get("use_linear_projection", False))
+    return fields
+
+
 def _vae_fields(cfg: Mapping, sd: StateDict) -> Dict[str, Any]:
     from ..models.vae import VAEConfig
 
@@ -283,7 +333,7 @@ def _vision_fields(cfg: Mapping, sd: StateDict) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# the three backbones
+# the backbones and the first-frame editors
 # ---------------------------------------------------------------------------
 
 
@@ -318,6 +368,62 @@ def convert_seine_checkpoint(sd_path: str, ckpt_path: str
     meta["arch"]["unet"] = _seine_unet_fields(
         _read_config(os.path.join(sd_path, "unet"), required=False), unet)
     return states, meta
+
+
+def convert_sd_editor_dir(src: str, model: str) -> Tuple[Dict[str, StateDict], Dict[str, Any]]:
+    """An InstructPix2Pix / MagicBrush snapshot (``unet/``, ``vae/``,
+    ``text_encoder/``) or a CosXL one (``unet/``, ``vae/``; its text
+    encoders are not read) -> (state dicts, meta) for ``model``."""
+    sdxl = _read_config(os.path.join(src, "unet")).get("addition_embed_type") == "text_time"
+    if sdxl != (model == "cosxl"):
+        raise ValueError(f"{src}: an {'SDXL' if sdxl else 'SD1.5'} UNet is not a {model} "
+                         "checkpoint")
+    parts = {"unet": ("unet", _sd_unet_fields), "vae": ("vae", _vae_fields)}
+    if not sdxl:
+        parts["text"] = ("text_encoder", _text_fields)
+    return _convert(src, model, parts)
+
+
+# ---------------------------------------------------------------------------
+# IP-Adapter weights
+# ---------------------------------------------------------------------------
+
+
+def sdxl_attn2_order(cfg):
+    """(kind, level, layer, block) of every cross-attention in diffusers'
+    ``attn_processors`` order as the JAX package reads it (``sdxl_attn2_order``
+    in ``anyv2v_tpu/utils/convert.py``: down, mid, up; each attention module
+    gives attn1 then attn2, so attn2 sits at the odd positions)."""
+    n = len(cfg.block_out_channels)
+    order = [("down", i, j, k) for i in range(n) if cfg.cross_attn_blocks[i]
+             for j in range(cfg.layers_per_block) for k in range(cfg.depth_for(i))]
+    order += [("mid", n - 1, 0, k) for k in range(cfg.depth_for(n - 1))]
+    rev_cross = tuple(reversed(cfg.cross_attn_blocks))
+    order += [("up", i, j, k) for i in range(n) if rev_cross[i]
+              for j in range(cfg.layers_per_block + 1) for k in range(cfg.depth_for(n - 1 - i))]
+    return order
+
+
+def read_ip_adapter(src, unet_cfg) -> Tuple[StateDict, StateDict]:
+    """An IP-Adapter file (``ip-adapter_sdxl.bin``: ``{"image_proj": ...,
+    "ip_adapter": {"<idx>.to_k_ip.weight": ...}}``, a path or the loaded
+    dict) -> (the projection's state dict, the UNet keys of the
+    ``to_k_ip`` / ``to_v_ip`` weights of ``unet_cfg.ip_adapter_targets``),
+    in the JAX package's index order (ROADMAP R5 holds a doubt on that
+    order). The other blocks' weights are not read: the reference runs them
+    with processors that ignore image tokens."""
+    obj = torch.load(src, map_location="cpu", weights_only=True) if isinstance(src, str) else src
+    adapter = obj["ip_adapter"]
+    unet: StateDict = {}
+    for pos, (kind, i, j, k) in enumerate(sdxl_attn2_order(unet_cfg)):
+        name = "mid_attn" if kind == "mid" else f"{kind}_{i}_attn_{j}"
+        if name not in unet_cfg.ip_adapter_targets:
+            continue
+        base = "mid_block.attentions.0" if kind == "mid" else f"{kind}_blocks.{i}.attentions.{j}"
+        for proj in ("to_k_ip", "to_v_ip"):
+            unet[f"{base}.transformer_blocks.{k}.attn2.{proj}.weight"] = torch.as_tensor(
+                adapter[f"{2 * pos + 1}.{proj}.weight"])
+    return {key: torch.as_tensor(v) for key, v in obj["image_proj"].items()}, unet
 
 
 def _convert(src: str, backbone: str, parts) -> Tuple[Dict[str, StateDict], Dict[str, Any]]:

@@ -1,4 +1,5 @@
-"""i2vgen-xl, ConsistI2V and SEINE model configurations and pipeline
+"""i2vgen-xl, ConsistI2V, SEINE and first-frame editor (InstructPix2Pix /
+MagicBrush, CosXL, InstantStyle) model configurations and pipeline
 construction (counterpart of ``anyv2v_tpu/utils/model_zoo.py``).
 
 Parameters come from ``init``:
@@ -12,7 +13,9 @@ Parameters come from ``init``:
   identity, as in the JAX package), and ConsistI2V's temporal gates
   ``alpha`` at 0.5 (the JAX package starts them at 1, which bypasses the
   temporal layers; half-open gates let the temporal kernels count in a
-  random-weight run). Not the JAX package's random weights: use a ``.npz``
+  random-weight run; the ControlNet's output convolutions are random too,
+  where the JAX package starts them at zero, so that its residuals reach
+  the UNet). Not the JAX package's random weights: use a ``.npz``
   for identical weights in both packages.
 - a path to a ``.npz`` written by ``anyv2v_torch.cli.convert_checkpoint``
   from a checkpoint folder (:mod:`anyv2v_torch.utils.checkpoint`): the
@@ -36,12 +39,16 @@ import torch.nn as nn
 
 from .. import resolve_device
 from ..models.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig, CLIPVisionModel
+from ..models.controlnet import ControlNet
 from ..models.unet_i2vgen import I2VGenUNet, I2VGenUNetConfig
+from ..models.unet_sd import SD15_IP2P, SDXL_COSXL, SDUNet, SDUNetConfig
 from ..models.unet_seine import SeineUNet, SeineUNetConfig
 from ..models.unet_videoldm import VideoLDMUNet, VideoLDMUNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..pipelines.consisti2v import ConsistI2VPipeline
 from ..pipelines.i2vgen import I2VGenPipeline
+from ..pipelines.image_edit import CosXLEditPipeline, InstructPix2PixPipeline
+from ..pipelines.instantstyle import ImageProjConfig, ImageProjModel, InstantStylePipeline
 from ..pipelines.seine import SeinePipeline
 from ..schedulers import make_schedule
 
@@ -119,13 +126,77 @@ SEINE_TINY = dict(
 # SEINE's schedule: plain linear betas 1e-4..0.02 (configs/seine/*.yaml)
 SEINE_SCHEDULER = dict(beta_start=1e-4, beta_end=0.02, beta_schedule="linear")
 
+# ---------------------------------------------------------------------------
+# the first-frame editors
+# ---------------------------------------------------------------------------
+
+# SD1.5's text encoder (openai/clip-vit-large-patch14: quick_gelu)
+SD15_TEXT = CLIPTextConfig(hidden_size=768, intermediate_size=3072, num_layers=12,
+                           num_heads=12, hidden_act="quick_gelu", projection_dim=None)
+# SDXL's two text encoders: CLIP ViT-L (penultimate hidden states) and
+# OpenCLIP ViT-bigG (penultimate hidden states and the projected pooled output)
+SDXL_TEXT_1 = SD15_TEXT
+SDXL_TEXT_2 = CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                             num_heads=20, hidden_act="gelu", projection_dim=1280)
+SDXL_TEXT_1_TINY = CLIPTextConfig(vocab_size=49408, hidden_size=16, intermediate_size=32,
+                                  num_layers=2, num_heads=2, projection_dim=None)
+SDXL_TEXT_2_TINY = dataclasses.replace(SDXL_TEXT_1_TINY, projection_dim=16)
+
+_EDITOR_TINY_VAE = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                             norm_num_groups=4)
+_SDXL_TINY_UNET = SDUNetConfig(
+    block_out_channels=(8, 16, 16), layers_per_block=1, cross_attention_dim=16,
+    num_attention_heads=(2, 2, 2), transformer_depth=(1, 1, 2),
+    cross_attn_blocks=(False, True, True), norm_num_groups=4, addition_embed="sdxl",
+    addition_time_embed_dim=8, projection_class_embeddings_input_dim=16 + 6 * 8,
+    linear_projection=True)
+
+# timbrooks/instruct-pix2pix and vinesmsuic/magicbrush-jul7 share the
+# architecture; CosXL is SDXL with an 8-channel input and the SDXL VAE scale
+IMAGE_EDIT_ARCHS = {
+    "instructpix2pix": dict(unet=SD15_IP2P, vae=VAEConfig(), text=SD15_TEXT),
+    "magicbrush": dict(unet=SD15_IP2P, vae=VAEConfig(), text=SD15_TEXT),
+    "cosxl": dict(unet=SDXL_COSXL, vae=VAEConfig(scaling_factor=0.13025)),
+    "instructpix2pix-tiny": dict(
+        unet=SDUNetConfig(block_out_channels=(8, 16, 16, 16), layers_per_block=1,
+                          cross_attention_dim=16, num_attention_heads=2, norm_num_groups=4),
+        vae=_EDITOR_TINY_VAE,
+        text=CLIPTextConfig(vocab_size=49408, hidden_size=16, intermediate_size=32,
+                            num_layers=1, num_heads=2, projection_dim=None)),
+    "cosxl-tiny": dict(unet=_SDXL_TINY_UNET,
+                       vae=dataclasses.replace(_EDITOR_TINY_VAE, scaling_factor=0.13025)),
+}
+IMAGE_EDIT_ARCHS["magicbrush-tiny"] = IMAGE_EDIT_ARCHS["instructpix2pix-tiny"]
+
+# InstantStyle: SDXL base (4-channel) with the IP-Adapter on up_blocks.0.attentions.1,
+# diffusers/controlnet-canny-sdxl-1.0, and ip-adapter_sdxl.bin's projection of
+# the OpenCLIP bigG image embedding (1280) to 4 tokens
+INSTANTSTYLE_ARCHS = {
+    "instantstyle": dict(
+        unet=dataclasses.replace(SDXL_COSXL, in_channels=4, ip_adapter_targets=("up_0_attn_1",)),
+        controlnet=dataclasses.replace(SDXL_COSXL, in_channels=4),
+        vae=VAEConfig(scaling_factor=0.13025),
+        image_proj=ImageProjConfig(cross_attention_dim=2048, clip_embeddings_dim=1280)),
+    "instantstyle-tiny": dict(
+        unet=dataclasses.replace(_SDXL_TINY_UNET, in_channels=4,
+                                 ip_adapter_targets=("up_0_attn_1",)),
+        controlnet=dataclasses.replace(_SDXL_TINY_UNET, in_channels=4),
+        vae=dataclasses.replace(_EDITOR_TINY_VAE, scaling_factor=0.13025),
+        image_proj=ImageProjConfig(cross_attention_dim=16, clip_embeddings_dim=16)),
+}
+
 ARCHS = {"i2vgen-xl": I2VGEN_XL, "i2vgen-tiny": I2VGEN_TINY,
          "consisti2v": CONSISTI2V, "consisti2v-tiny": CONSISTI2V_TINY,
-         "seine": SEINE, "seine-tiny": SEINE_TINY}
+         "seine": SEINE, "seine-tiny": SEINE_TINY,
+         **IMAGE_EDIT_ARCHS, **INSTANTSTYLE_ARCHS}
 
 _MODULES = {I2VGenUNetConfig: I2VGenUNet, VideoLDMUNetConfig: VideoLDMUNet,
-            SeineUNetConfig: SeineUNet, VAEConfig: AutoencoderKL,
-            CLIPTextConfig: CLIPTextModel, CLIPVisionConfig: CLIPVisionModel}
+            SeineUNetConfig: SeineUNet, SDUNetConfig: SDUNet, VAEConfig: AutoencoderKL,
+            CLIPTextConfig: CLIPTextModel, CLIPVisionConfig: CLIPVisionModel,
+            ImageProjConfig: lambda c: ImageProjModel(c.cross_attention_dim,
+                                                      c.clip_embeddings_dim, c.num_tokens)}
+# components whose module is not their config type's
+_COMPONENT_MODULES = {"controlnet": ControlNet}
 
 
 def build_modules(arch: str, dtype: torch.dtype, device="meta",
@@ -136,15 +207,20 @@ def build_modules(arch: str, dtype: torch.dtype, device="meta",
     per component (a converted checkpoint's architecture)."""
     overrides = overrides or {}
     with torch.device(device):
-        return {name: _MODULES[type(cfg)](dataclasses.replace(cfg, **overrides.get(name, {}),
-                                                              dtype=dtype))
+        return {name: _COMPONENT_MODULES.get(name, _MODULES[type(cfg)])(
+                    dataclasses.replace(cfg, **overrides.get(name, {}), dtype=dtype))
                 for name, cfg in ARCHS[arch].items()}
 
 
 def backbone_of(arch: str) -> str:
-    """``"i2vgen-xl"``, ``"consisti2v"`` or ``"seine"``: the family of ``arch``."""
-    return {I2VGenUNetConfig: "i2vgen-xl", VideoLDMUNetConfig: "consisti2v",
-            SeineUNetConfig: "seine"}[type(ARCHS[arch]["unet"])]
+    """The family of ``arch``: ``"i2vgen-xl"``, ``"consisti2v"``, ``"seine"``,
+    ``"instructpix2pix"`` (MagicBrush too), ``"cosxl"`` or ``"instantstyle"``."""
+    family = {I2VGenUNetConfig: "i2vgen-xl", VideoLDMUNetConfig: "consisti2v",
+              SeineUNetConfig: "seine"}.get(type(ARCHS[arch]["unet"]))
+    if family:
+        return family
+    base = arch[:-len("-tiny")] if arch.endswith("-tiny") else arch
+    return "instructpix2pix" if base == "magicbrush" else base
 
 
 # CLIP's token / position tables and class token
@@ -186,7 +262,7 @@ def _load_modules(arch: str, dev: torch.device, init: str, seed: int,
 
         if checkpoint.is_port_checkpoint(checkpoint.read_meta(init)):
             states, meta = checkpoint.load_checkpoint(init)
-            if meta["backbone"] != backbone_of(arch):
+            if backbone_of(meta["backbone"]) != backbone_of(arch):
                 raise ValueError(f"{init} holds a {meta['backbone']} checkpoint, not {arch}")
             modules = build_modules(arch, dtype, overrides=checkpoint.config_overrides(meta))
         else:
@@ -242,3 +318,63 @@ def build_seine_pipeline(arch: str = "seine", *, device, init: str = "random", s
     schedule = make_schedule(**{**SEINE_SCHEDULER, **(scheduler_kwargs or {})}, device=dev)
     return SeinePipeline(unet=modules["unet"], vae=modules["vae"], text_encoder=modules["text"],
                          schedule=schedule, device=dev, dtype=dtype)
+
+
+def build_image_edit_pipeline(model: str = "instructpix2pix", *, device, init: str = "random",
+                              seed: int = 0, dtype: torch.dtype = torch.bfloat16):
+    """A first-frame editor by the reference's ``edit_image.py --model`` names:
+    instructpix2pix / magicbrush / cosxl, and instantstyle; ``-tiny`` for the
+    small architectures."""
+    if model.startswith("instantstyle"):
+        return build_instantstyle_pipeline(model, device=device, init=init, seed=seed,
+                                           dtype=dtype)
+    if model not in IMAGE_EDIT_ARCHS:
+        raise ValueError(f"{model} is not a first-frame editor architecture")
+    dev = resolve_device(device)
+    modules = _load_modules(model, dev, init, seed, dtype)
+    if ARCHS[model]["unet"].addition_embed == "sdxl":
+        return CosXLEditPipeline(unet=modules["unet"], vae=modules["vae"],
+                                 schedule=make_schedule(device=dev), device=dev, dtype=dtype)
+    return InstructPix2PixPipeline(unet=modules["unet"], vae=modules["vae"],
+                                   text_encoder=modules["text"],
+                                   schedule=make_schedule(device=dev), device=dev, dtype=dtype)
+
+
+def build_instantstyle_pipeline(arch: str = "instantstyle", *, device, init: str = "random",
+                                seed: int = 0, dtype: torch.dtype = torch.bfloat16
+                                ) -> InstantStylePipeline:
+    """SDXL base + controlnet-canny-sdxl + ip-adapter_sdxl (style target block
+    ``up_blocks.0.attentions.1``)."""
+    if arch not in INSTANTSTYLE_ARCHS:
+        raise ValueError(f"{arch} is not an InstantStyle architecture")
+    dev = resolve_device(device)
+    modules = _load_modules(arch, dev, init, seed, dtype)
+    return InstantStylePipeline(unet=modules["unet"], controlnet=modules["controlnet"],
+                                vae=modules["vae"], image_proj=modules["image_proj"],
+                                schedule=make_schedule(device=dev), device=dev, dtype=dtype)
+
+
+def build_sdxl_text_encoders(*, device, tiny: bool = False, seed: int = 0,
+                             dtype: torch.dtype = torch.bfloat16):
+    """SDXL's two text encoders with seeded random weights, on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    encoders = []
+    for cfg in ((SDXL_TEXT_1_TINY, SDXL_TEXT_2_TINY) if tiny else (SDXL_TEXT_1, SDXL_TEXT_2)):
+        with torch.device("meta"):
+            enc = CLIPTextModel(dataclasses.replace(cfg, dtype=dtype))
+        state = random_state_dict(enc, gen, dev)
+        enc.to_empty(device=dev).to(dtype)
+        enc.load_state_dict(state)
+        encoders.append(enc.eval().requires_grad_(False))
+    return tuple(encoders)
+
+
+@torch.inference_mode()
+def encode_sdxl_prompt(enc1, enc2, input_ids1, input_ids2):
+    """SDXL's prompt embedding: both encoders' PENULTIMATE hidden states
+    concatenated on the feature axis (768 + 1280 = 2048), and the second
+    encoder's projected pooled output."""
+    h1, _ = enc1(input_ids1, penultimate=True)
+    h2, pooled2 = enc2(input_ids2, penultimate=True)
+    return torch.cat([h1, h2], dim=-1), pooled2

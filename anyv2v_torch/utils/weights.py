@@ -3,7 +3,10 @@
 :func:`state_dict_from_jax` is the exact inverse of the converters in
 ``anyv2v_tpu/utils/convert.py`` (``convert_unet_i2vgen``,
 ``convert_unet_videoldm``, ``convert_unet_seine``, ``convert_vae``,
-``convert_clip_text``, ``convert_clip_vision``): the port's modules use the
+``convert_clip_text``, ``convert_clip_vision``; for the first-frame editors
+``convert_unet_sd`` with ``merge_ip_adapter_into_unet``,
+``convert_controlnet``, ``convert_ip_adapter``'s ``image_proj``,
+``convert_resampler`` and ``convert_mlp_proj``): the port's modules use the
 diffusers / Hugging Face (and, for the ConsistI2V and SEINE UNets, the
 reference checkpoints') key names, so the output also has a real
 checkpoint's layout. Attention projections lose the zero columns that
@@ -76,8 +79,9 @@ def _unpad(t: Tree, heads: int, head_dim: int, axis: int, where: str) -> Tree:
 
 
 def _attn(sd: StateDict, p: str, t: Tree, heads: int, head_dim: int) -> None:
-    for n in ("to_q", "to_k", "to_v"):
-        _linear(sd, f"{p}.{n}", _unpad(t[n], heads, head_dim, 1, f"{p}.{n}"))
+    for n in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
+        if n in t:
+            _linear(sd, f"{p}.{n}", _unpad(t[n], heads, head_dim, 1, f"{p}.{n}"))
     _linear(sd, f"{p}.to_out.0", _unpad(t["to_out"], heads, head_dim, 0, f"{p}.to_out"))
 
 
@@ -413,20 +417,157 @@ def clip_vision_state_dict(tree: Tree, cfg) -> StateDict:
     return sd
 
 
+def _sd_transformer(sd: StateDict, p: str, t: Tree, heads: int, head_dim: int,
+                    linear: bool) -> None:
+    """A Transformer2DModel of ``depth`` blocks (the JAX tree's ``blocks_k``);
+    proj_in / proj_out as Linear layers with ``linear`` (SDXL), else 1x1
+    convs."""
+    _norm(sd, f"{p}.norm", t["norm"])
+    put = _proj_1x1 if linear else _conv
+    put(sd, f"{p}.proj_in", t["proj_in"])
+    put(sd, f"{p}.proj_out", t["proj_out"])
+    k = 0
+    while f"blocks_{k}" in t:
+        _block(sd, f"{p}.transformer_blocks.{k}", t[f"blocks_{k}"], heads, head_dim)
+        k += 1
+
+
+def _sd_down_mid(sd: StateDict, p: Tree, cfg):
+    """conv_in, the embeddings, the down blocks and the mid block shared by
+    the SD UNet and the ControlNet; returns the attention writer
+    ``attn(prefix, key, level)``."""
+    _conv(sd, "conv_in", p["conv_in"])
+    for emb in ("time_embedding", "add_embedding"):
+        if emb in p:
+            for name in ("linear_1", "linear_2"):
+                _linear(sd, f"{emb}.{name}", p[emb][name])
+    n = len(cfg.block_out_channels)
+
+    def attn(prefix, key, level):
+        ch = cfg.block_out_channels[level]
+        heads = cfg.heads_for(level)
+        _sd_transformer(sd, prefix, p[key], heads, ch // heads, cfg.linear_projection)
+
+    for i in range(n):
+        base = f"down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            _resnet(sd, f"{base}.resnets.{j}", p[f"down_{i}_resnet_{j}"])
+            if cfg.cross_attn_blocks[i]:
+                attn(f"{base}.attentions.{j}", f"down_{i}_attn_{j}", i)
+        if i < n - 1:
+            _conv(sd, f"{base}.downsamplers.0.conv", p[f"down_{i}_downsample"]["conv"])
+    _resnet(sd, "mid_block.resnets.0", p["mid_resnet_0"])
+    attn("mid_block.attentions.0", "mid_attn", n - 1)
+    _resnet(sd, "mid_block.resnets.1", p["mid_resnet_1"])
+    return attn
+
+
+def sd_unet_state_dict(tree: Tree, cfg) -> StateDict:
+    """SDUNet params (with any merged IP-Adapter ``to_k_ip`` / ``to_v_ip``)
+    -> diffusers ``UNet2DConditionModel`` keys: the inverse of
+    ``convert_unet_sd`` and ``merge_ip_adapter_into_unet``; ``cfg`` an
+    :class:`~anyv2v_torch.models.unet_sd.SDUNetConfig`."""
+    p = _params(tree)
+    sd: StateDict = {}
+    attn = _sd_down_mid(sd, p, cfg)
+    n = len(cfg.block_out_channels)
+    rev_cross = tuple(reversed(cfg.cross_attn_blocks))
+    for i in range(n):
+        base = f"up_blocks.{i}"
+        for j in range(cfg.layers_per_block + 1):
+            _resnet(sd, f"{base}.resnets.{j}", p[f"up_{i}_resnet_{j}"])
+            if rev_cross[i]:
+                attn(f"{base}.attentions.{j}", f"up_{i}_attn_{j}", n - 1 - i)
+        if i < n - 1:
+            _conv(sd, f"{base}.upsamplers.0.conv", p[f"up_{i}_upsample"]["conv"])
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def controlnet_state_dict(tree: Tree, cfg) -> StateDict:
+    """ControlNet params -> diffusers ``ControlNetModel`` keys (the inverse of
+    ``convert_controlnet``)."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _sd_down_mid(sd, p, cfg)
+    ce = p["controlnet_cond_embedding"]
+    _conv(sd, "controlnet_cond_embedding.conv_in", ce["conv_in"])
+    _conv(sd, "controlnet_cond_embedding.conv_out", ce["conv_out"])
+    k = 0
+    while f"blocks_{k}" in ce:
+        _conv(sd, f"controlnet_cond_embedding.blocks.{k}", ce[f"blocks_{k}"])
+        k += 1
+    k = 0
+    while f"controlnet_down_blocks_{k}" in p:
+        _conv(sd, f"controlnet_down_blocks.{k}", p[f"controlnet_down_blocks_{k}"])
+        k += 1
+    _conv(sd, "controlnet_mid_block", p["controlnet_mid_block"])
+    return sd
+
+
+def image_proj_state_dict(tree: Tree, cfg=None) -> StateDict:
+    """ImageProjModel params -> the IP-Adapter ``image_proj`` keys."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _linear(sd, "proj", p["proj"])
+    _norm(sd, "norm", p["norm"])
+    return sd
+
+
+def resampler_state_dict(tree: Tree) -> StateDict:
+    """Resampler params -> the IP-Adapter Plus ``image_proj`` keys (the
+    inverse of ``convert_resampler``: ``to_kv`` fused again, k rows first)."""
+    p = _params(tree)
+    sd: StateDict = {"latents": np.asarray(p["latents"])[None]}
+    _linear(sd, "proj_in", p["proj_in"])
+    _linear(sd, "proj_out", p["proj_out"])
+    _norm(sd, "norm_out", p["norm_out"])
+    i = 0
+    while f"layers_{i}_to_q" in p:
+        a, f = f"layers.{i}.0", f"layers.{i}.1"
+        _norm(sd, f"{a}.norm1", p[f"layers_{i}_norm1"])
+        _norm(sd, f"{a}.norm2", p[f"layers_{i}_norm2"])
+        _linear(sd, f"{a}.to_q", p[f"layers_{i}_to_q"])
+        sd[f"{a}.to_kv.weight"] = np.ascontiguousarray(np.concatenate(
+            [np.asarray(p[f"layers_{i}_to_kv_k"]["kernel"]).T,
+             np.asarray(p[f"layers_{i}_to_kv_v"]["kernel"]).T], axis=0))
+        _linear(sd, f"{a}.to_out", p[f"layers_{i}_to_out"])
+        _norm(sd, f"{f}.0", p[f"layers_{i}_ff_norm"])
+        _linear(sd, f"{f}.1", p[f"layers_{i}_ff_in"])
+        _linear(sd, f"{f}.3", p[f"layers_{i}_ff_out"])
+        i += 1
+    return sd
+
+
+def mlp_proj_state_dict(tree: Tree) -> StateDict:
+    """MLPProjModel params -> the IP-Adapter Full ``image_proj`` keys (the
+    inverse of ``convert_mlp_proj``)."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _linear(sd, "proj.0", p["proj_0"])
+    _linear(sd, "proj.2", p["proj_2"])
+    _norm(sd, "proj.3", p["proj_3"])
+    return sd
+
+
 def state_dict_from_jax(params: Tree, arch) -> Dict[str, StateDict]:
-    """``{"unet", "vae", "text", "vision"}`` JAX param trees (numpy leaves) ->
-    the port's state dicts for the same components, for ``ARCHS[arch]``
-    (i2vgen-xl, ConsistI2V or SEINE) or, given a dict, for those component
-    configs."""
+    """``{"unet", "vae", "text", "vision"}`` JAX param trees (numpy leaves;
+    the editors' also ``controlnet`` and ``image_proj``) -> the port's state
+    dicts for the same components, for ``ARCHS[arch]`` (i2vgen-xl,
+    ConsistI2V, SEINE or a first-frame editor) or, given a dict, for those
+    component configs."""
+    from ..models.unet_sd import SDUNetConfig
     from ..models.unet_seine import SeineUNetConfig
     from ..models.unet_videoldm import VideoLDMUNetConfig
     from .model_zoo import ARCHS
 
     spec = arch if isinstance(arch, dict) else ARCHS[arch]
-    unet = {VideoLDMUNetConfig: videoldm_unet_state_dict,
+    unet = {VideoLDMUNetConfig: videoldm_unet_state_dict, SDUNetConfig: sd_unet_state_dict,
             SeineUNetConfig: seine_unet_state_dict}.get(type(spec["unet"]), unet_state_dict)
     convert = {"unet": unet, "vae": vae_state_dict,
-               "text": clip_text_state_dict, "vision": clip_vision_state_dict}
+               "text": clip_text_state_dict, "vision": clip_vision_state_dict,
+               "controlnet": controlnet_state_dict, "image_proj": image_proj_state_dict}
     return {name: convert[name](params[name], spec[name])
             for name in convert if name in params}
 

@@ -23,7 +23,13 @@ Phases:
     tiny archs' widths; K5 also at SEINE's L0 spatial self-attention (48
     rows of 4096, 8 heads of 40); K4's prologue-free form at main-path
     shapes beside one ``F.conv3d`` (kernel (3, 1, 1) on the
-    ``channels_last_3d`` view, no copy);
+    ``channels_last_3d`` view, no copy); K5 and K3 at the first-frame
+    editors' shapes (SD1.5 self-attention at 4096/1024/256/64 tokens, 8
+    heads of 40/80/160, and its cross-attention over 77 tokens; SDXL
+    self-attention at 4096 and 1024 tokens, 10 and 20 heads of 64, and its
+    cross-attention; the IP-Adapter's attention over 4 keys; K3 at C 320
+    and 640) and K5 at the IP-Adapter Plus resampler's 16 queries over 273
+    keys;
  4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
@@ -73,14 +79,38 @@ Phases:
     launch with the relative-position bias on every temporal attention, K3
     and K5 (spatial self, mid self, cross) must launch, K1 and K4 must not,
     and the dispatcher may send only the VAE's 512-wide head to SDPA; then
-    its profile at batch 1 and 3.
+    its profile at batch 1 and 3;
+ 9. InstructPix2Pix at full width (SD1.5, 512x512): an instructpix2pix-tiny
+    reference check, then ``cli/edit_image.py``'s array-level
+    ``edit_frame`` on a seeded synthetic frame: VAE mode encode, the whole
+    100-step Euler-Ancestral grid at batch 3 (guidance 7.5, image guidance
+    1.5), decode; the image must be finite, K5 and K3 must launch and K1,
+    K2, K2 long and K4 must not, no UNet attention may reach SDPA (only the
+    VAE's 512-wide head), and no feed-forward has the GELU form; then one
+    profiled batch-3 forward;
+10. CosXL at full width (SDXL, 1024x1024): a cosxl-tiny check, then
+    ``edit_frame``: the whole 20-step EDM grid at batch 3 (guidance 7, image
+    guidance 1.5) on zero text embeddings, decode; the same checks, the peak
+    device memory, one profiled batch-3 forward;
+11. InstantStyle at full width (SDXL + the canny ControlNet + the base
+    IP-Adapter, 1024x1024): instantstyle-tiny checks of its UNet (with IP
+    tokens) and its ControlNet, then ``style_frame`` with a numpy edge map
+    (``canny_map`` needs OpenCV) and a seeded style embedding: the whole
+    30-step Euler-Discrete grid at batch 2 (guidance 5, ControlNet scale
+    0.6, IP scale 1), decode; the same checks, K5 over the 4 IP keys on each
+    of up_0_attn_1's 10 transformer blocks in every forward and nowhere
+    else, the peak device memory, one profiled forward (ControlNet and
+    UNet).
 
 Each tiny-arch reference check runs the card's bf16 UNet against the plain
 fp32 path on the CPU with the same bf16-rounded weights and inputs. Phases
 4-8 time their inversion, edit or generation with the port's
 ``PhaseTimers`` (``utils/profiling.py``), synchronised on their outputs by
 ``hard_sync`` (phase 5's on its host trajectory too), and every timed scan
-must pass ``check_scan_time`` for its step count.
+must pass ``check_scan_time`` for its step count; phases 9-11 time theirs
+the same way, their floor per step the operations of one forward counted
+from its shapes (``torch.utils.flop_counter`` on the ``meta`` device) at
+989 TFLOP/s.
 
 Video preparation (``utils/video_prep.py``, ``cli/prepare_video.py``) and
 camera motion (``utils/camera.py``) are host code on OpenCV and PIL, which
@@ -487,6 +517,25 @@ def _kernel_cases():
         # K1 at the class of the Pallas _packed_kernel, which took Sk past
         # 4096: 2 rows, 64 heads of dh 8, Sq = Sk = 8192
         (k1, "off-path row 5 class b2 S8192 h64 dh8", attn(2, 8192, 8192, 64, 8, 5)),
+        # the first-frame editors at full width: InstructPix2Pix / MagicBrush
+        # (SD1.5, 512^2, CFG batch 3: 8 heads of 40/80/160), CosXL (SDXL,
+        # 1024^2, batch 3: 10 and 20 heads of 64) and InstantStyle (batch 2:
+        # the IP-Adapter's attention over 4 image tokens on up_0_attn_1)
+        (k5, "SD1.5 L0 self b3 S4096 h8 dh40", attn(3, 4096, 4096, 8, 40, 40)),
+        (k5, "SD1.5 L1 self b3 S1024 h8 dh80", attn(3, 1024, 1024, 8, 80, 80)),
+        (k5, "SD1.5 L2 self b3 S256 h8 dh160", attn(3, 256, 256, 8, 160, 160)),
+        (k5, "SD1.5 mid self b3 S64 h8 dh160", attn(3, 64, 64, 8, 160, 160)),
+        (k5, "SD1.5 L0 cross b3 Sq4096 Sk77 h8 dh40", attn(3, 4096, 77, 8, 40, 40)),
+        (k5, "SDXL L1 self b3 S4096 h10 dh64", attn(3, 4096, 4096, 10, 64, 64)),
+        (k5, "SDXL L2 self b3 S1024 h20 dh64", attn(3, 1024, 1024, 20, 64, 64)),
+        (k5, "SDXL L2 cross b3 Sq1024 Sk77 h20 dh64", attn(3, 1024, 77, 20, 64, 64)),
+        (k5, "InstantStyle IP b2 Sq1024 Sk4 h20 dh64", attn(2, 1024, 4, 20, 64, 64)),
+        (k3, "SD1.5 L0 C320 rows 3*4096", ffn_args(3 * 4096, 320)),
+        (k3, "SD1.5 L1 C640 rows 3*1024", ffn_args(3 * 1024, 640)),
+        (k3, "SDXL L1 C640 rows 3*4096", ffn_args(3 * 4096, 640)),
+        # the IP-Adapter Plus resampler (not on InstantStyle's path, which
+        # takes the base adapter): 16 latents over 257 + 16 keys, 12 heads of 64
+        (k5, "off-path Resampler b1 Sq16 Sk273 h12 dh64", attn(1, 16, 273, 12, 64, 64)),
         # K4's prologue-free form at main-path shapes, beside one conv3d
         *[(k4, f"off-path prologue-free {lb}", tconv_args(*shape, prologue=False),
            _tconv_library)
@@ -628,6 +677,12 @@ def main():
     by_path["consisti2v checkpoint folder"] = phase_checkpoint_folder()
     torch.cuda.empty_cache()
     by_path["seine"] = phase_seine()
+    torch.cuda.empty_cache()
+    by_path["instructpix2pix"] = phase_instructpix2pix()
+    torch.cuda.empty_cache()
+    by_path["cosxl"] = phase_cosxl()
+    torch.cuda.empty_cache()
+    by_path["instantstyle"] = phase_instantstyle()
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -665,38 +720,47 @@ def _wrappers():
             "flash_attention": flash_attention.flash_attention}
 
 
-def _reference_error(arch, build, args, kwargs, rounded=True):
+def _flat(out):
+    """A module's output (a tensor, or nested tuples of them: the
+    ControlNet's residuals) as one flat fp32 tensor."""
+    if isinstance(out, (tuple, list)):
+        return torch.cat([_flat(o) for o in out])
+    return out.float().reshape(-1)
+
+
+def _reference_error(arch, build, args, kwargs, rounded=True, component="unet"):
     """(max error, mean error, bound) of the port on the card (bf16, kernels)
-    against the port's plain fp32 path on the CPU: one tiny UNet forward at
-    the edit batch with every PnP flag on. The reference gets the card's own
-    weights and inputs, each rounded to bf16 once (unless ``rounded`` is
-    false), so that the error is what the card's arithmetic adds, not the
-    rounding of its parameters."""
+    against the port's plain fp32 path on the CPU: one tiny UNet (or
+    ``component``) forward at the edit batch with every PnP flag on. The
+    reference gets the card's own weights and inputs, each rounded to bf16
+    once (unless ``rounded`` is false), so that the error is what the card's
+    arithmetic adds, not the rounding of its parameters."""
     from anyv2v_torch.utils.model_zoo import build_modules
 
-    cpu = build(arch, device="cpu", dtype=torch.float32, seed=1)
+    cpu = getattr(build(arch, device="cpu", dtype=torch.float32, seed=1), component)
     rnd = (lambda t: t.to(torch.bfloat16).float()) if rounded else (lambda t: t)
     with torch.no_grad():
-        for p in cpu.unet.parameters():
+        for p in cpu.parameters():
             p.copy_(rnd(p))
-    unet = build_modules(arch, torch.bfloat16)["unet"]
-    unet.to_empty(device="cuda").to(torch.bfloat16)
-    unet.load_state_dict(cpu.unet.state_dict())
-    unet.eval()
+    card = build_modules(arch, torch.bfloat16)[component]
+    card.to_empty(device="cuda").to(torch.bfloat16)
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
     args = [rnd(torch.from_numpy(a)) if isinstance(a, np.ndarray) else a for a in args]
     with torch.inference_mode():
-        want = cpu.unet(*args, **kwargs).float()
-        got = unet(*[a.cuda() if torch.is_tensor(a) else a for a in args], **kwargs).float().cpu()
+        want = _flat(cpu(*args, **kwargs))
+        got = _flat(card(*[a.cuda() if torch.is_tensor(a) else a for a in args],
+                         **kwargs)).cpu()
     torch.cuda.synchronize()
     diff = (got - want).abs()
     return diff.max().item(), diff.mean().item(), 0.02 + 0.05 * want.abs().max().item()
 
 
-def _reference_check(arch, build, args, kwargs):
-    err, mean, bound = _reference_error(arch, build, args, kwargs)
-    log(f"reference check ({arch} UNet, bf16 card vs fp32 CPU plain on the card's weights "
-        f"and inputs): max_abs_err {err:.3e}, bound {bound:.3e} (0.02 + 0.05*max|ref|); "
-        f"mean_abs_err {mean:.3e}")
+def _reference_check(arch, build, args, kwargs, component="unet"):
+    err, mean, bound = _reference_error(arch, build, args, kwargs, component=component)
+    log(f"reference check ({arch} {component}, bf16 card vs fp32 CPU plain on the card's "
+        f"weights and inputs): max_abs_err {err:.3e}, bound {bound:.3e} (0.02 + "
+        f"0.05*max|ref|); mean_abs_err {mean:.3e}")
     if not (np.isfinite(err) and err <= bound):
         raise RuntimeError(f"the port on the card disagrees with its CPU reference ({arch})")
 
@@ -707,15 +771,17 @@ def _check_outputs(checks):
         raise RuntimeError(f"output checks failed: {checks}")
 
 
-def _log_times(path, timers, scans):
+def _log_times(path, timers, scans, min_step_s=None):
     """Log every phase time of ``timers`` unrounded; each phase named in
-    ``scans`` (name -> UNet steps) must pass ``check_scan_time``."""
+    ``scans`` (name -> UNet steps) must pass ``check_scan_time`` (at
+    ``min_step_s`` per step where given, else its default)."""
     from anyv2v_torch.utils.benchguard import check_scan_time
 
     for name, sec in timers.seconds.items():
         log(f"phase {path} {name}: {sec!r} s")
+    floor = {} if min_step_s is None else {"min_step_s": min_step_s}
     for name, steps in scans.items():
-        check_scan_time(f"{path} {name}", timers.seconds[name], steps)
+        check_scan_time(f"{path} {name}", timers.seconds[name], steps, **floor)
 
 
 def _read_back_cache(tmp, traj, inv_ts, times):
@@ -1153,9 +1219,10 @@ def hf_config(cfg):
     """The diffusers / transformers ``config.json`` of a port config: the
     fields the checkpoint converters read, in the published checkpoints'
     conventions (the UNets' head COUNT under ``attention_head_dim``, one per
-    level for ConsistI2V's SD2.1 base)."""
+    level for ConsistI2V's SD2.1 base and SDXL)."""
     from anyv2v_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
     from anyv2v_torch.models.unet_i2vgen import I2VGenUNetConfig
+    from anyv2v_torch.models.unet_sd import SDUNetConfig
     from anyv2v_torch.models.unet_seine import SeineUNetConfig
     from anyv2v_torch.models.unet_videoldm import VideoLDMUNetConfig
     from anyv2v_torch.models.vae import VAEConfig
@@ -1190,6 +1257,23 @@ def hf_config(cfg):
                 "attention_head_dim": cfg.num_attention_heads,
                 "down_block_types": ["CrossAttnDownBlock3D"] * (n - 1) + ["DownBlock3D"],
                 "up_block_types": ["UpBlock3D"] + ["CrossAttnUpBlock3D"] * (n - 1)}
+    if isinstance(cfg, SDUNetConfig):   # the editors: SDXL's addition embedding and depths
+        def per_level(v):
+            return list(v) if isinstance(v, tuple) else v
+        out = {"_class_name": "UNet2DConditionModel", **unet,
+               "down_block_types": [("CrossAttnDownBlock2D" if c else "DownBlock2D")
+                                    for c in cfg.cross_attn_blocks],
+               "up_block_types": [("CrossAttnUpBlock2D" if c else "UpBlock2D")
+                                  for c in reversed(cfg.cross_attn_blocks)],
+               "attention_head_dim": per_level(cfg.num_attention_heads),
+               "transformer_layers_per_block": per_level(cfg.transformer_depth),
+               "use_linear_projection": cfg.linear_projection}
+        if cfg.addition_embed == "sdxl":
+            out.update(addition_embed_type="text_time",
+                       addition_time_embed_dim=cfg.addition_time_embed_dim,
+                       projection_class_embeddings_input_dim=cfg.
+                       projection_class_embeddings_input_dim)
+        return out
     blocks = {"down_block_types": ["CrossAttnDownBlock2D"] * (n - 1) + ["DownBlock2D"],
               "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * (n - 1)}
     if isinstance(cfg, VideoLDMUNetConfig):
@@ -1439,6 +1523,246 @@ def seine_forward_args(batch, g):
     return (rn(batch, 16, 64, 64, 9), 501, rn(batch, 77, 768, scale=0.1)), kw
 
 
+# ---------------------------------------------------------------------------
+# the first-frame editors (phases 9-11)
+# ---------------------------------------------------------------------------
+
+
+def _editor_inputs(arch, batch, size, make):
+    """One editor forward's inputs at ``size``^2 and ``batch``, each tensor
+    from ``make(*shape)``: (UNet keyword arguments, ControlNet keyword
+    arguments or None)."""
+    from anyv2v_torch.utils.model_zoo import ARCHS
+
+    cfg = ARCHS[arch]["unet"]
+    h, ctx = size // 8, cfg.cross_attention_dim
+    text = make(batch, 77, ctx)
+    sdxl = {}
+    if cfg.addition_embed == "sdxl":
+        pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+        sdxl = {"added_text_embeds": make(batch, pooled), "added_time_ids": make(batch, 6)}
+    unet = {"sample": make(batch, h, h, cfg.in_channels), "timestep": 501.0,
+            "encoder_hidden_states": text, **sdxl}
+    if cfg.ip_adapter_targets:
+        unet["ip_tokens"] = make(batch, 4, ctx)
+    if "controlnet" not in ARCHS[arch]:
+        return unet, None
+    return unet, {"sample": unet["sample"], "timestep": 501.0, "encoder_hidden_states": text,
+                  "controlnet_cond": make(batch, size, size, 3), "conditioning_scale": 0.6,
+                  **sdxl}
+
+
+def _editor_forward(unet, controlnet, unet_kw, cn_kw):
+    """One editor step's networks: the ControlNet (when there is one), then
+    the UNet with its residuals."""
+    if cn_kw is not None:
+        down, mid = controlnet(**cn_kw)
+        unet_kw = dict(unet_kw, down_block_residuals=down, mid_block_residual=mid)
+    return unet(**unet_kw)
+
+
+def _forward_flops(arch, size, batch):
+    """Operations of one full-width editor forward, counted from the shapes:
+    ``torch.utils.flop_counter`` over a forward on the ``meta`` device, the
+    kernels' plain versions standing in for them (the same products)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from anyv2v_torch.models import layers
+    from anyv2v_torch.ops import attention, ffn
+    from anyv2v_torch.ops import flash_attention as fl, folded_attention as fa
+    from anyv2v_torch.utils.model_zoo import build_modules
+
+    saved = attention.flash_attention, attention.folded_attention, layers.ffn_geglu
+    attention.flash_attention, attention.folded_attention, layers.ffn_geglu = (
+        fl.flash_attention_plain, fa.folded_attention_plain, ffn.ffn_geglu_plain)
+    try:
+        modules = {k: m.to(torch.bfloat16).eval()
+                   for k, m in build_modules(arch, torch.bfloat16).items()}
+        inputs = _editor_inputs(arch, batch, size, lambda *shape: torch.empty(
+            *shape, device="meta", dtype=torch.bfloat16))
+        with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+            _editor_forward(modules["unet"], modules.get("controlnet"), *inputs)
+        return counter.get_total_flops()
+    finally:
+        attention.flash_attention, attention.folded_attention, layers.ffn_geglu = saved
+
+
+def _editor_k5_role(q, k, heads, k_ctx):
+    sk = k.shape[1]
+    if sk == 4:
+        return f"IP Sq{q.shape[1]} Sk4"
+    return "cross" if sk == 77 else "self"
+
+
+def _editor_path(path, arch, size, batch, steps, run):
+    """An editor at full width with seeded random bf16 weights: the one-step
+    operations counted from the shapes (``check_scan_time``'s floor per step
+    is that count at 989 TFLOP/s), then ``run(pipe)`` (encode, ``steps``
+    steps, decode) timed, its launches counted and its routes logged.
+    Returns (pipeline, output image, launch counts, routes)."""
+    from anyv2v_torch.utils.model_zoo import build_image_edit_pipeline
+    from anyv2v_torch.utils.profiling import PhaseTimers
+
+    flops = _forward_flops(arch, size, batch)
+    min_step_s = flops / PEAK_FLOPS
+    log(f"{path} forward at batch {batch}, {size}x{size}: {flops:.6e} operations counted from "
+        f"the shapes (meta device); check_scan_time's floor {min_step_s * 1e3:.4f} ms per step "
+        f"(the count at {PEAK_FLOPS:.3g} FLOP/s)")
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    pipe = build_image_edit_pipeline(arch, device="cuda", seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.unet, getattr(pipe, "controlnet", None), pipe.vae,
+                                       pipe.text_encoder, getattr(pipe, "image_proj", None))
+                   if m is not None for p in m.parameters())
+    log(f"pipeline {arch} built with seeded random bf16 weights: {n_params} parameters in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    timers, res = PhaseTimers("cuda"), {}
+    label = f"encode+{steps} steps+decode"
+    with _RouteLog(_editor_k5_role) as routes:
+        with timers.phase(label, sync=res):
+            res["image"] = run(pipe)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _log_times(path, timers, {label: steps}, min_step_s)
+    log(f"{path} peak device memory: {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"kernel launches in the {path} path: {counts}")
+    log(f"{path} routes: K5 by role {routes.k5}; SDPA through the dispatcher by head width "
+        f"{routes.sdpa} (CLIP calls SDPA directly)")
+    image = res["image"]
+    from anyv2v_torch.models.layers import FeedForward
+
+    gelu_ffns = [m for mod in (pipe.unet, getattr(pipe, "controlnet", None)) if mod is not None
+                 for m in mod.modules() if isinstance(m, FeedForward) and m.activation == "gelu"]
+    _check_outputs({
+        f"image [{size},{size},3] in [0,1]": tuple(image.shape) == (size, size, 3)
+        and bool(np.isfinite(image).all()) and float(image.min()) >= 0.0
+        and float(image.max()) <= 1.0,
+        "K5 and K3 launched; K1, K2, K2 long, K4 not": counts["flash_attention"] > 0
+        and counts["ffn_geglu"] > 0 and not any(counts[n] for n in (
+            "folded_attention", "frame_attention", "frame_attention_long",
+            "gn_silu_temporal_conv")),
+        "no UNet attention on SDPA (only the VAE's 512-wide head)": set(routes.sdpa) <= {512},
+        "no GELU-form feed-forward (K3's GELU mode unreached)": not gelu_ffns,
+    })
+    return pipe, image, counts, routes
+
+
+def _editor_profile(pipe, arch, size, batch):
+    def make_args(b, g):
+        inputs = _editor_inputs(arch, b, size, lambda *shape: torch.randn(
+            *shape, generator=g, device="cuda"))
+        return (), {"unet_kw": inputs[0], "cn_kw": inputs[1]}
+
+    controlnet = getattr(pipe, "controlnet", None)
+    phase_profile(pipe, arch, make_args, batches=(batch,),
+                  forward=lambda unet_kw, cn_kw: _editor_forward(pipe.unet, controlnet, unet_kw,
+                                                                 cn_kw),
+                  what="ControlNet + UNet" if controlnet is not None else "UNet")
+
+
+IP2P_STEPS, COSXL_STEPS, STYLE_STEPS = 100, 20, 30
+
+
+def phase_instructpix2pix():
+    """InstructPix2Pix at full width (SD1.5, 512x512): an instructpix2pix-tiny
+    reference check, then the CLI's array-level ``edit_frame`` on the first
+    frame of a seeded synthetic video: VAE mode encode, the whole 100-step
+    Euler-Ancestral grid at batch 3 (guidance 7.5, image guidance 1.5), and
+    decode; then one profiled batch-3 forward."""
+    from anyv2v_torch.cli.edit_image import DEFAULT_NEGATIVE, edit_frame
+    from anyv2v_torch.utils.model_zoo import build_image_edit_pipeline
+
+    rng = np.random.RandomState(20)
+    _reference_check("instructpix2pix-tiny", build_image_edit_pipeline,
+                     [rng.randn(3, 16, 16, 8).astype(np.float32), 612.25,
+                      rng.randn(3, 77, 16).astype(np.float32)], {})
+    frame = _synthetic_video(np.random.RandomState(21), 1, 512)[0]
+    pipe, _, counts, _ = _editor_path(
+        "instructpix2pix", "instructpix2pix", 512, 3, IP2P_STEPS,
+        lambda p: edit_frame(p, frame, "turn it into a watercolour", seed=42,
+                             negative_prompt=DEFAULT_NEGATIVE, num_inference_steps=IP2P_STEPS))
+    _editor_profile(pipe, "instructpix2pix", 512, 3)
+    return counts
+
+
+def phase_cosxl():
+    """CosXL at full width (SDXL, 1024x1024): a cosxl-tiny reference check (a
+    negative EDM timestep), then ``edit_frame`` on a seeded synthetic frame:
+    VAE mode encode, the whole 20-step EDM grid at batch 3 (guidance 7,
+    image guidance 1.5) on zero text embeddings, as the JAX CLI runs it, and
+    decode; peak memory; then one profiled batch-3 forward."""
+    from anyv2v_torch.cli.edit_image import edit_frame
+    from anyv2v_torch.utils.model_zoo import build_image_edit_pipeline
+
+    rng = np.random.RandomState(22)
+    ids = np.tile(np.float32([[128, 128, 0, 0, 128, 128]]), (3, 1))
+    _reference_check("cosxl-tiny", build_image_edit_pipeline,
+                     [rng.randn(3, 16, 16, 8).astype(np.float32), -1.37,
+                      rng.randn(3, 77, 16).astype(np.float32),
+                      rng.randn(3, 16).astype(np.float32), ids], {})
+    frame = _synthetic_video(np.random.RandomState(23), 1, 1024)[0]
+    pipe, _, counts, _ = _editor_path(
+        "cosxl", "cosxl", 1024, 3, COSXL_STEPS,
+        lambda p: edit_frame(p, frame, "", seed=42, num_inference_steps=COSXL_STEPS))
+    _editor_profile(pipe, "cosxl", 1024, 3)
+    return counts
+
+
+def _edge_map(frame01):
+    """A stand-in for ``canny_map`` (OpenCV, which this machine lacks): the
+    pixels where the luminance changes by more than 0.02 to the next pixel
+    down or right, as a 3-channel map in {0, 1}."""
+    g = frame01.mean(axis=-1)
+    step = (np.abs(np.diff(g, axis=0, append=g[-1:])) + np.abs(np.diff(g, axis=1,
+                                                                       append=g[:, -1:])))
+    return np.repeat((step > 0.02)[..., None], 3, axis=-1).astype(np.float32)
+
+
+def phase_instantstyle():
+    """InstantStyle at full width (SDXL + the canny ControlNet + the base
+    IP-Adapter on up_0_attn_1, 1024x1024): instantstyle-tiny reference checks
+    of its UNet (with IP tokens) and its ControlNet, then ``style_frame`` on
+    a seeded synthetic frame with an edge map made in numpy and a seeded
+    style embedding: the whole 30-step Euler-Discrete grid at batch 2
+    (guidance 5, ControlNet scale 0.6, IP scale 1), and decode. K5 must take
+    the IP attention (4 keys) on each of up_0_attn_1's 10 transformer blocks
+    in every forward, and no other attention has 4 keys; peak memory; then
+    one profiled batch-2 forward (ControlNet and UNet)."""
+    from anyv2v_torch.cli.edit_image import style_frame
+    from anyv2v_torch.utils.model_zoo import build_image_edit_pipeline
+
+    rng = np.random.RandomState(24)
+    ids = np.tile(np.float32([[128, 128, 0, 0, 128, 128]]), (2, 1))
+    x, text, pooled = (rng.randn(2, 16, 16, 4).astype(np.float32),
+                       rng.randn(2, 77, 16).astype(np.float32), rng.randn(2, 16).astype(np.float32))
+    _reference_check("instantstyle-tiny", build_image_edit_pipeline,
+                     [x, 401.5, text, pooled, ids, rng.randn(2, 4, 16).astype(np.float32), 1.0], {})
+    _reference_check("instantstyle-tiny", build_image_edit_pipeline,
+                     [x, 401.5, text, rng.rand(2, 128, 128, 3).astype(np.float32), 0.6, pooled,
+                      ids], {}, component="controlnet")
+    frame = _synthetic_video(np.random.RandomState(25), 1, 1024)[0]
+    control = _edge_map(frame)
+    style = torch.from_numpy(np.random.RandomState(26).randn(1, 1280).astype(np.float32))
+    log(f"instantstyle control map: {int(control[..., 0].sum())} edge pixels of {1024 * 1024}")
+    pipe, _, counts, routes = _editor_path(
+        "instantstyle", "instantstyle", 1024, 2, STYLE_STEPS,
+        lambda p: style_frame(p, frame, style.cuda(), seed=42, num_inference_steps=STYLE_STEPS,
+                              control01=control))
+    ip_blocks = len(pipe.unet.up_blocks[0].attentions[1].transformer_blocks)
+    ip_roles = {role: n for role, n in routes.k5.items() if role.startswith("IP")}
+    _check_outputs({
+        f"K5 on the {ip_blocks} IP attentions of up_0_attn_1 (1024 queries over 4 keys) in "
+        f"every one of {STYLE_STEPS} forwards, nowhere else":
+        ip_roles == {"IP Sq1024 Sk4": ip_blocks * STYLE_STEPS} and ip_blocks == 10,
+    })
+    _editor_profile(pipe, "instantstyle", 1024, 2)
+    return counts
+
+
 # (profile group, kernel symbol that the group's device events contain,
 # wrapper); K3's two launches are both ffn_geglu_kernel instances, so the
 # group holds both
@@ -1479,24 +1803,27 @@ class _ClockSampler:
                 capture_output=True, text=True).stdout.split()[0])
 
 
-def phase_profile(pipe, arch, make_args, batches=(1, 3)):
+def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNet"):
     """One UNet forward at the inversion batch (1) and at the edit batch (3,
     every PnP flag on), or at ``batches``, under torch.profiler: device time by kernel group, the
     device's busy share of the forward's wall time, the number of device ops
     and the host's waits on the device (stream syncs, host-to-device copies)
-    inside the forward."""
+    inside the forward. ``forward`` (default ``pipe.unet``) is what one
+    forward calls, ``what`` its name in the log (InstantStyle: its
+    ControlNet, then its UNet)."""
     from torch.profiler import ProfilerActivity, profile
 
+    forward = forward or pipe.unet
     g = torch.Generator(device="cuda").manual_seed(2)
     for batch in batches:
         args, kw = make_args(batch, g)
         with torch.inference_mode(), _ClockSampler() as clocks:
-            pipe.unet(*args, **kw)
+            forward(*args, **kw)
             torch.cuda.synchronize()
             before = {name: fn.launches for name, fn in _wrappers().items()}
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                pipe.unet(*args, **kw)
+                forward(*args, **kw)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
         averages = prof.key_averages()
@@ -1515,7 +1842,7 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3)):
         if silent:
             raise RuntimeError(f"profile {arch} batch {batch}: {silent} launched but no "
                                "device event carries its kernel's name")
-        log(f"profile {arch} UNet forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
+        log(f"profile {arch} {what} forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); by group (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
             + f"; {sum(e.count for e in events)} device ops, host waits: {syncs} "

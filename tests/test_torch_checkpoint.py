@@ -310,8 +310,117 @@ def test_validation_is_strict(folders):
         checkpoint.validate(states, meta, "consisti2v")
 
 
-def test_editors_and_seine_without_ckpt_are_refused(folders):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert_checkpoint.convert("instructpix2pix", folders["consisti2v"][0])
+def test_editors_and_seine_without_ckpt_are_refused(folders, editor_folders):
+    """An SD1.5 editor folder is not a CosXL checkpoint, nor the reverse;
+    SEINE needs its ``seine.pt``."""
+    with pytest.raises(ValueError, match="not a cosxl"):
+        convert_checkpoint.convert("cosxl", editor_folders["instructpix2pix"][0])
+    with pytest.raises(ValueError, match="not a instructpix2pix"):
+        convert_checkpoint.convert("instructpix2pix", editor_folders["cosxl"][0])
     with pytest.raises(ValueError, match="--ckpt"):
         convert_checkpoint.convert("seine", folders["seine"][0])
+
+
+# ---------------------------------------------------------------------------
+# the first-frame editors' folders and the IP-Adapter file
+# ---------------------------------------------------------------------------
+
+EDITOR_SPECS = {"instructpix2pix": "instructpix2pix-tiny", "cosxl": "cosxl-tiny"}
+
+
+@pytest.fixture(scope="module")
+def editor_folders(tmp_path_factory):
+    """Tiny SD1.5-layout (ip2p: 4-wide heads at level 0, padded at load) and
+    SDXL-layout (CosXL: per-level heads and depths, text_time addition
+    embedding, linear projections) folders from seeded port weights."""
+    root = str(tmp_path_factory.mktemp("editors"))
+    out = {}
+    for i, (backbone, arch) in enumerate(EDITOR_SPECS.items()):
+        spec = ARCHS[arch]
+        states = _seeded(spec, 60 + i, torch.float32)
+        src = os.path.join(root, backbone)
+        chip_smoke.write_snapshot(src, {n: (spec[n], states[n]) for n in spec},
+                                  shards={"unet": 2})
+        out[backbone] = (src, arch, states)
+    return out
+
+
+@pytest.mark.parametrize("backbone", sorted(EDITOR_SPECS))
+def test_editor_folders_match_jax_converter(editor_folders, backbone):
+    """``--backbone instructpix2pix|cosxl``: the port reads the folder's
+    tensors as written, the JAX ``convert_sd_editor_dir`` on the same folder
+    carried back by ``state_dict_from_jax`` gives them exactly, and the
+    architecture from ``config.json`` is the tiny arch the folder came from."""
+    src, arch, written = editor_folders[backbone]
+    states, meta = convert_checkpoint.convert(backbone, src)
+    params, jmeta = jconvert.convert_sd_editor_dir(src, backbone)
+    assert jmeta["sdxl"] == (backbone == "cosxl") and meta["backbone"] == backbone
+    back = state_dict_from_jax(params, ARCHS[arch])
+    assert set(back) == set(states) == set(written)
+    for name in written:
+        assert set(back[name]) == set(states[name]) == set(written[name]), name
+        for k, v in written[name].items():
+            np.testing.assert_array_equal(back[name][k], v.numpy(), err_msg=f"{name} {k}")
+            assert torch.equal(states[name][k], v), f"{name} {k}"
+    for name, fields in checkpoint.config_overrides(meta).items():
+        for k, v in fields.items():
+            assert getattr(ARCHS[arch][name], k) == v, (name, k)
+
+
+@pytest.mark.parametrize("backbone", sorted(EDITOR_SPECS))
+def test_editor_cli_output_loads_through_init(editor_folders, tmp_path, backbone):
+    from anyv2v_torch.utils.model_zoo import build_image_edit_pipeline
+
+    src, arch, written = editor_folders[backbone]
+    out = str(tmp_path / "out.npz")
+    convert_checkpoint.main(["--backbone", backbone, "--src", src, "--out", out])
+    pipe = build_image_edit_pipeline(arch, device="cpu", init=out, dtype=torch.float32)
+    for name, sd in written.items():
+        got = getattr(pipe, {"text": "text_encoder"}.get(name, name)).state_dict()
+        assert set(got) == set(sd) and all(torch.equal(got[k], v) for k, v in sd.items()), name
+
+
+def test_ip_adapter_reader_matches_jax(tmp_path):
+    """A synthetic ``ip-adapter_sdxl.bin`` at instantstyle-tiny's widths (as
+    ``test_convert_golden.py`` builds one: every attn2's weights filled with
+    its position): the port's reader and the JAX ``convert_ip_adapter`` pick
+    the same weights for ``up_0_attn_1``, and they load into the UNet."""
+    from anyv2v_torch.utils.model_zoo import build_modules
+    from anyv2v_torch.utils.weights import image_proj_state_dict
+
+    cfg = ARCHS["instantstyle-tiny"]["unet"]
+    ch, ctx = cfg.block_out_channels, cfg.cross_attention_dim
+    order = jconvert.sdxl_attn2_order(ch, cfg.layers_per_block, cfg.cross_attn_blocks,
+                                      cfg.transformer_depth)
+    assert checkpoint.sdxl_attn2_order(cfg) == order
+    g = torch.Generator().manual_seed(70)
+    ip = {"image_proj": {"proj.weight": torch.randn(4 * ctx, 16, generator=g),
+                         "proj.bias": torch.randn(4 * ctx, generator=g),
+                         "norm.weight": torch.randn(ctx, generator=g),
+                         "norm.bias": torch.randn(ctx, generator=g)},
+          "ip_adapter": {}}
+    for pos, (kind, i, _, _) in enumerate(order):
+        c = ch[-1] if kind == "mid" else ch[i] if kind == "down" else ch[::-1][i]
+        for proj in ("to_k_ip", "to_v_ip"):
+            ip["ip_adapter"][f"{2 * pos + 1}.{proj}.weight"] = torch.full(
+                (c, ctx), float(pos)) + torch.randn(c, ctx, generator=g)
+    path = str(tmp_path / "ip-adapter_sdxl.bin")
+    torch.save(ip, path)
+    proj, unet_keys = checkpoint.read_ip_adapter(path, cfg)
+    jproj, per_block = jconvert.convert_ip_adapter(
+        {part: {k: v.numpy() for k, v in sd.items()} for part, sd in ip.items()},
+        cfg.ip_adapter_targets, ch, cfg.layers_per_block, cfg.cross_attn_blocks,
+        cfg.transformer_depth)
+    back = image_proj_state_dict(jproj)
+    assert set(back) == set(proj)
+    for k, v in proj.items():
+        np.testing.assert_array_equal(back[k], v.numpy())
+    want = {f"up_blocks.0.attentions.1.transformer_blocks.{b[len('blocks_'):]}.attn2.{p}.weight":
+            t["attn2"][p]["kernel"].T
+            for b, t in per_block["up_0_attn_1"].items() for p in ("to_k_ip", "to_v_ip")}
+    assert set(want) == set(unet_keys) and len(want) == 2 * cfg.depth_for(2)
+    for k, v in unet_keys.items():
+        np.testing.assert_array_equal(v.numpy(), want[k])
+    unet = build_modules("instantstyle-tiny", torch.float32, device="cpu")["unet"]
+    missing, unexpected = unet.load_state_dict(unet_keys, strict=False)
+    assert not unexpected and not set(unet_keys) & set(missing)

@@ -34,6 +34,10 @@ PORT_MODULES = [
     "anyv2v_torch.utils.profiling", "anyv2v_torch.ops.freeinit", "anyv2v_torch.utils.camera",
     "anyv2v_torch.utils.checkpoint", "anyv2v_torch.cli.convert_checkpoint",
     "anyv2v_torch.utils.video_prep", "anyv2v_torch.cli.prepare_video",
+    "anyv2v_torch.schedulers.euler", "anyv2v_torch.models.unet_sd",
+    "anyv2v_torch.models.controlnet", "anyv2v_torch.pipelines.image_edit",
+    "anyv2v_torch.pipelines.instantstyle", "anyv2v_torch.ops.attn_maps",
+    "anyv2v_torch.cli.edit_image",
 ]
 FORBIDDEN = ("jax", "anyv2v_tpu")
 # host packages the card's machine lacks: only functions that need them

@@ -109,6 +109,25 @@ def test_flash_plan_fits_one_block(dh):
         assert plan["grid"][0] <= GRID_X and max(plan["grid"][1:]) <= GRID_YZ
 
 
+def _chip_smoke_cases(*names):
+    return [pytest.param(getattr(make, "shape", None), id=f"{name}: {label}")
+            for name, label, make, *_ in chip_smoke._kernel_cases() if name in names]
+
+
+@pytest.mark.parametrize("shape", [
+    p for p in _chip_smoke_cases("flash_attention") if p.values[0] is not None])
+def test_flash_plan_covers_each_chip_smoke_case(shape):
+    """Each (128-query tile, head, batch row) of every K5 case with a tagged
+    shape (the first-frame editors' among them: 3 rows of 64 queries at dh
+    160, 4 keys, 16 queries) falls in exactly one block, which one H100
+    block can hold."""
+    b, sq, heads, dh = (shape[x] for x in ("b", "sq", "heads", "dh"))
+    plan = fl.flash_plan(b, sq, heads, dh)
+    _build.check_plan("flash_attention", plan)
+    assert plan["smem_bytes"] <= SMEM and plan["grid"] == (-(-sq // fl.BLOCK_ROWS), heads, b)
+    assert dh in fl.HEAD_DIMS and plan["grid"][0] * fl.BLOCK_ROWS >= sq
+
+
 def test_flash_plan_holds_its_tiles():
     """Q (the score depth padded to 16) and each stage of K and V, all as
     [128 rows, channels] bf16, plus the barriers: the depth pad appears at
@@ -130,11 +149,6 @@ def test_plan_check_refuses_what_one_block_cannot_hold():
                 {**ok, "grid": (1, GRID_YZ + 1)}, {**ok, "grid": (1, 1, GRID_YZ + 1)}):
         with pytest.raises(ValueError, match="no launch"):
             _build.check_plan("k", bad)
-
-
-def _chip_smoke_cases(*names):
-    return [pytest.param(make.shape, id=f"{name}: {label}")
-            for name, label, make, *_ in chip_smoke._kernel_cases() if name in names]
 
 
 def _check_folded_plan(plan, b, sq, sk, heads, dh):

@@ -17,6 +17,7 @@ import torch
 
 from anyv2v_torch.models import layers, unet_videoldm
 from anyv2v_torch.ops import _build, attention, ffn
+from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops import folded_attention as fa
 from anyv2v_torch.ops import frame_attention as fr
 from anyv2v_torch.ops import temporal_conv as tc
@@ -27,8 +28,11 @@ def _meta(*shape):
     return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
 
 
-def _routes(monkeypatch, arch, frames, hw=None, batch=3):
-    """{wrapper name: set of (q shape, k shape, heads)} of one forward."""
+def _stub_kernels(monkeypatch):
+    """Replace every kernel wrapper (and the dispatcher's SDPA) by a stand-in
+    that records its operands' shapes: returns {wrapper name: set of (q
+    shape, k shape, heads)}, K3's entries (rows, C, inner) and K4's (x
+    shape, C', prologue)."""
     seen = {}
 
     def record(name):
@@ -38,7 +42,7 @@ def _routes(monkeypatch, arch, frames, hw=None, batch=3):
         return call
 
     for name in ("frame_attention", "frame_attention_long", "folded_attention",
-                 "flash_attention"):
+                 "flash_attention", "sdpa_attention"):
         monkeypatch.setattr(attention, name, record(name))
     def ffn(x, w1, b1, w2, b2):
         seen.setdefault("ffn_geglu", set()).add((x.numel() // x.shape[-1], x.shape[-1],
@@ -54,7 +58,12 @@ def _routes(monkeypatch, arch, frames, hw=None, batch=3):
 
     monkeypatch.setattr(layers, "gn_silu_temporal_conv", tconv)
     monkeypatch.setattr(unet_videoldm, "gn_silu_temporal_conv", tconv)
+    return seen
 
+
+def _routes(monkeypatch, arch, frames, hw=None, batch=3):
+    """{wrapper name: set of (q shape, k shape, heads)} of one forward."""
+    seen = _stub_kernels(monkeypatch)
     cfg = ARCHS[arch]["unet"]
     hw = hw or (64 if cfg.block_out_channels[0] >= 320 else 16)
     unet = build_modules(arch, torch.bfloat16)["unet"].to(torch.bfloat16).eval()
@@ -128,3 +137,94 @@ def test_dropped_widths_are_refused():
     for dh in (2, 4):
         assert not fr.takes(16, 16, dh) and not fr.takes_long(64, 64, dh)
     assert fr.takes(16, 32, 32) and fr.takes(16, 32, 64)   # widths 32/64 at Sk > S
+
+
+# the first-frame editors at full width: InstructPix2Pix at 512^2 (batch 3),
+# CosXL at 1024^2 (batch 3), InstantStyle's UNet with IP tokens and its
+# ControlNet at 1024^2 (batch 2), and the IP-Adapter Plus resampler
+_EDITORS = [("instructpix2pix", 512, 3), ("cosxl", 1024, 3), ("instantstyle", 1024, 2),
+            ("instructpix2pix-tiny", 64, 3), ("cosxl-tiny", 64, 3), ("instantstyle-tiny", 64, 2)]
+
+
+def _editor_routes(monkeypatch, arch, size, batch):
+    from anyv2v_torch.pipelines.instantstyle import Resampler
+
+    seen = _stub_kernels(monkeypatch)
+    modules = {k: m.to(torch.bfloat16).eval() for k, m in build_modules(arch, torch.bfloat16).items()}
+    cfg = ARCHS[arch]["unet"]
+    h, ctx = size // 8, cfg.cross_attention_dim
+    kw = {}
+    if cfg.addition_embed == "sdxl":
+        pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+        kw = {"added_text_embeds": _meta(batch, pooled), "added_time_ids": _meta(batch, 6)}
+    with torch.inference_mode():
+        if "controlnet" in modules:
+            down, mid = modules["controlnet"](_meta(batch, h, h, 4), 501.0, _meta(batch, 77, ctx),
+                                              _meta(batch, size, size, 3), 0.6, **kw)
+            kw.update(ip_tokens=_meta(batch, 4, ctx), down_block_residuals=down,
+                      mid_block_residual=mid)
+        modules["unet"](_meta(batch, h, h, cfg.in_channels), 501.0, _meta(batch, 77, ctx), **kw)
+        if arch == "instantstyle":
+            Resampler().to(device="meta", dtype=torch.bfloat16)(_meta(batch, 257, 1280))
+    return seen, modules
+
+
+@pytest.mark.parametrize("arch,size,batch", _EDITORS[3:])
+def test_tiny_editor_attentions_have_a_kernel_and_a_plan(monkeypatch, arch, size, batch):
+    """The tiny editors' attentions (the card's reference checks run them)
+    take K1 (short, 8 wide) or K5, each with a plan; none reaches SDPA."""
+    seen, _ = _editor_routes(monkeypatch, arch, size, batch)
+    assert seen.get("folded_attention") and set(seen) - {"ffn_geglu"} <= {
+        "folded_attention", "flash_attention"}, sorted(seen)
+    for (b, sq, c), k, heads in seen["folded_attention"]:
+        assert c // heads in fa.HEAD_DIMS
+        _build.check_plan("folded_attention", fa.folded_plan(b, sq, k[1], heads, c // heads))
+    for (b, sq, c), k, heads in seen.get("flash_attention", ()):
+        _build.check_plan("flash_attention", fl.flash_plan(b, sq, heads, c // heads))
+
+
+@pytest.mark.parametrize("arch,size,batch", _EDITORS[:3])
+def test_editor_attentions_route_to_k5_with_a_plan(monkeypatch, arch, size, batch):
+    """Every UNet (and ControlNet, and resampler) attention of the editors is
+    K5's, with a launch plan one block can hold: self-attention at every
+    level, cross over 77 text tokens, InstantStyle's IP attention over 4
+    keys on each of ``up_0_attn_1``'s transformer blocks, the resampler's 16
+    queries over 273 keys. No attention reaches K1, K2 or SDPA."""
+    seen, modules = _editor_routes(monkeypatch, arch, size, batch)
+    assert set(seen) - {"ffn_geglu"} == {"flash_attention"}, sorted(seen)
+    for (b, sq, c), k, heads in seen["flash_attention"]:
+        assert c // heads in fl.HEAD_DIMS
+        _build.check_plan("flash_attention", fl.flash_plan(b, sq, heads, c // heads))
+    keys = {k[1] for _, k, _ in seen["flash_attention"]}
+    assert 77 in keys
+    if arch.startswith("instantstyle"):
+        ip_calls = [(q, k) for q, k, _ in seen["flash_attention"] if k[1] == 4]
+        ip_blocks = len(modules["unet"].up_blocks[0].attentions[1].transformer_blocks)
+        assert ip_calls and all(q[1] == (size // 32) ** 2 for q, _ in ip_calls)
+        assert ip_blocks == ARCHS[arch]["unet"].depth_for(2)
+    if arch == "instantstyle":
+        assert ((2, 16, 768), (2, 273, 768), 12) in seen["flash_attention"]
+    if arch == "cosxl":   # SDXL's self-attention: 10 heads of 64 at 4096 tokens, 20 at 1024
+        assert {((3, 4096, 640), 10), ((3, 1024, 1280), 20)} <= {
+            (q, h) for q, k, h in seen["flash_attention"] if k[1] == q[1]}
+
+
+@pytest.mark.parametrize("arch,size,batch", _EDITORS[:3])
+def test_editor_ffns_take_k3_below_c768_only(monkeypatch, arch, size, batch):
+    """K3 takes the GEGLU feed-forwards at C 320 / 640 (with plans for their
+    rows) and refuses C 1280, which stays on cuBLAS as the JAX gate leaves
+    it; no feed-forward has the GELU form and no attention a score bias
+    (the two operand modes still to port)."""
+    from anyv2v_torch.models.layers import FeedForward
+
+    seen, modules = _editor_routes(monkeypatch, arch, size, batch)
+    assert {c for _, c, _ in seen["ffn_geglu"]} == ({320, 640} if arch == "instructpix2pix"
+                                                    else {640})
+    for n, c, inner in seen["ffn_geglu"]:
+        plan = ffn.ffn_plan(min(ffn.CHUNK_ROWS, n), c, inner)
+        for part in ("geglu", "out"):
+            _build.check_plan("ffn_geglu", plan[part])
+    ffns = [m for mod in modules.values() for m in mod.modules() if isinstance(m, FeedForward)]
+    assert all(m.activation == "geglu" for m in ffns)
+    wide = {m.net[2].out_features for m in ffns} - {320, 640}
+    assert wide == {1280} and not ffn.fits(1280, 5120)
