@@ -40,14 +40,17 @@ def output_stem(cfg_scale, n_steps, t_idx, pnp_f_t, pnp_spatial_attn_t, pnp_temp
 def edit_video(pipe, traj, inv_ts: np.ndarray, src01: np.ndarray, edited01: np.ndarray, *,
                text_ids: tuple, n_frames: int, n_steps: int, t_idx: int,
                guidance_scale: float, pnp: PnPConfig, fps: int = 8,
-               clip_width: int | None = None, random_ratio: float = 0.0, seed: int = 0):
+               clip_width: int | None = None, random_ratio: float = 0.0, seed: int = 0,
+               noise=None):
     """One entry: the PnP edit of a cached trajectory, conditioned on the
     source first frame ``src01`` and the edited first frame ``edited01``
     (``[H, W, 3]`` in [0, 1]). ``text_ids``: token ids of (inversion prompt,
     negative prompt, edit prompt). ``traj``: a host array (the cache as read
     from disk) or a :class:`HostTrajectory`, of which only the rows the edit
-    reads reach the device, or a device tensor. Returns (latents ``[1, F, h,
-    w, 4]``, video ``[F, H, W, 3]``)."""
+    reads reach the device, or a device tensor. ``random_ratio`` blends the
+    initial latent with ``noise`` (a draw of its shape), or with a draw from a
+    ``torch.Generator`` seeded with ``seed`` when ``noise`` is None. Returns
+    (latents ``[1, F, h, w, 4]``, video ``[F, H, W, 3]``)."""
     width = clip_width or src01.shape[1]
     text_all = torch.cat([pipe.encode_text(ids) for ids in text_ids])
     lat_src = pipe.prepare_image_latents(src01, n_frames)
@@ -61,10 +64,11 @@ def edit_video(pipe, traj, inv_ts: np.ndarray, src01: np.ndarray, edited01: np.n
     start_t = int(sampling_timesteps(pipe.schedule, n_steps)[t_idx])
     init_latent = traj[int(np.where(inv_ts == start_t)[0][0])]
     if random_ratio > 0.0:
-        # torch's generator: the same blend as the JAX CLI, not its noise
-        gen = torch.Generator(device=pipe.device).manual_seed(int(seed))
-        noise = torch.randn(init_latent.shape, generator=gen, device=pipe.device)
-        init_latent = random_ratio * noise + (1.0 - random_ratio) * init_latent
+        if noise is None:
+            # torch's generator: the same blend as the JAX CLI, not its noise
+            gen = torch.Generator(device=pipe.device).manual_seed(int(seed))
+            noise = torch.randn(init_latent.shape, generator=gen, device=pipe.device)
+        init_latent = random_ratio * pipe._tensor(noise) + (1.0 - random_ratio) * init_latent
 
     latents = pipe.sample_with_pnp(
         traj, inv_ts, text_all,

@@ -100,7 +100,21 @@ Phases:
     0.6, IP scale 1), decode; the same checks, K5 over the 4 IP keys on each
     of up_0_attn_1's 10 transformer blocks in every forward and nowhere
     else, the peak device memory, one profiled forward (ControlNet and
-    UNet).
+    UNet);
+12. the product layer at full width (``anyv2v_torch.product``), both
+    pipelines resident: ``Predictor.setup`` (i2vgen-xl + InstructPix2Pix,
+    seeded random bf16 weights) timed, then three requests in a row on a
+    seeded synthetic 16-frame 512x512 video through the array-level entry
+    points: ``predict_arrays`` twice (the editor's 100-step grid, 10
+    inversion and 10 edit steps at PnP 1.0/1.0/1.0, all at batch 3), then
+    the runner's ``edit_arrays`` at the gradio defaults (PnP 0.2/0.2/0.5, a
+    batch-2 tail) on request 2's edited frame; each request timed in three
+    stages (editor, inversion, edit + decode); the outputs must be finite,
+    K1-K4 must launch in the video stages and K5 not, K5 and K3 in the
+    editor stage and K1, K2, K4 not, K2 long nowhere, neither open mode be
+    reached, requests 2 and 3 must build nothing (the same pipeline and
+    editor objects, device memory within 64 MiB of its level after request
+    1) and the peak stay under 80 GB.
 
 Each tiny-arch reference check runs the card's bf16 UNet against the plain
 fp32 path on the CPU with the same bf16-rounded weights and inputs. Phases
@@ -110,7 +124,8 @@ fp32 path on the CPU with the same bf16-rounded weights and inputs. Phases
 must pass ``check_scan_time`` for its step count; phases 9-11 time theirs
 the same way, their floor per step the operations of one forward counted
 from its shapes (``torch.utils.flop_counter`` on the ``meta`` device) at
-989 TFLOP/s.
+989 TFLOP/s; phase 12 its DDIM stages as phase 4 and its editor stage as
+phase 9.
 
 Video preparation (``utils/video_prep.py``, ``cli/prepare_video.py``) and
 camera motion (``utils/camera.py``) are host code on OpenCV and PIL, which
@@ -683,6 +698,8 @@ def main():
     by_path["cosxl"] = phase_cosxl()
     torch.cuda.empty_cache()
     by_path["instantstyle"] = phase_instantstyle()
+    torch.cuda.empty_cache()
+    by_path["product"] = phase_product()
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -1760,6 +1777,172 @@ def phase_instantstyle():
         ip_roles == {"IP Sq1024 Sk4": ip_blocks * STYLE_STEPS} and ip_blocks == 10,
     })
     _editor_profile(pipe, "instantstyle", 1024, 2)
+    return counts
+
+
+PRODUCT_EDITOR_STEPS = 100   # the Predictor's default: InstructPix2Pix's whole grid
+PRODUCT_MEM_SLACK = 64 * 2**20   # bytes a later request may hold beyond request 1
+
+
+class _StageTimers:
+    """Times the three stages of a product request, each between two
+    synchronisations (``PhaseTimers`` with ``sync=`` its output): the
+    first-frame editor, the inversion (encode + invert) and the PnP edit +
+    decode, by wrapping the predictor's ``edit_first_frame`` and the
+    runner's two per-entry functions; it also counts each stage's kernel
+    launches. ``new_request()`` starts a request's timers."""
+
+    STAGES = {"edit_first_frame": "editor", "invert_video": "inversion",
+              "edit_video": "edit+decode"}
+
+    def __init__(self, predictor):
+        from anyv2v_torch.product import anyv2v as product
+
+        self.predictor, self.product = predictor, product
+        self.launches = {stage: {} for stage in self.STAGES.values()}
+
+    def new_request(self):
+        from anyv2v_torch.utils.profiling import PhaseTimers
+
+        self.timers = PhaseTimers("cuda")
+        return self.timers
+
+    def _wrap(self, fn, stage):
+        def call(*a, **kw):
+            before = {n: w.launches for n, w in _wrappers().items()}
+            out = {}
+            with self.timers.phase(stage, sync=out):
+                out["result"] = fn(*a, **kw)
+            counts = self.launches[stage]
+            for n, w in _wrappers().items():
+                counts[n] = counts.get(n, 0) + w.launches - before[n]
+            return out["result"]
+        return call
+
+    def __enter__(self):
+        p, mod = self.predictor, self.product
+        self.saved = {n: getattr(mod, n) for n in ("invert_video", "edit_video")}
+        p.edit_first_frame = self._wrap(p.edit_first_frame, "editor")
+        for n, f in self.saved.items():
+            setattr(mod, n, self._wrap(f, self.STAGES[n]))
+        return self
+
+    def __exit__(self, *exc):
+        del self.predictor.__dict__["edit_first_frame"]
+        for n, f in self.saved.items():
+            setattr(self.product, n, f)
+
+
+def phase_product():
+    """The product layer at full width, both pipelines resident: one
+    ``Predictor`` set up (seeded random bf16 weights), then three requests in
+    a row through the array-level entry points on a seeded synthetic video:
+    ``predict_arrays`` at the Predictor's defaults (PnP 1.0 / 1.0 / 1.0, every
+    edit step at batch 3; the editor's whole 100-step grid), again with
+    another prompt and seed, then the runner's core ``edit_arrays`` at the
+    gradio defaults (PnP 0.2 / 0.2 / 0.5, t_idx 0: a batch-2 tail) on
+    request 2's edited frame. DDIM at INV_STEPS / EDIT_STEPS. Each request
+    timed in its stages; nothing may be built again, nor device memory grow
+    past request 1's level by more than 64 MiB. Returns each kernel's launch
+    count over the three requests."""
+    from anyv2v_torch.models.layers import FeedForward
+    from anyv2v_torch.product import DEFAULTS, Predictor
+    from anyv2v_torch.utils.benchguard import check_scan_time, hard_sync
+
+    arch, editor, size, frames = "i2vgen-xl", "instructpix2pix", 512, 16
+    flops = _forward_flops(editor, size, 3)
+    editor_floor = flops / PEAK_FLOPS
+    log(f"product editor {editor} forward at batch 3, {size}x{size}: {flops:.6e} operations "
+        f"counted from the shapes; check_scan_time's floor {editor_floor * 1e3:.4f} ms per step")
+    t0 = time.perf_counter()
+    predictor = Predictor()
+    predictor.setup(arch=arch, image_edit_arch=editor, device="cuda")
+    torch.cuda.synchronize()
+    log(f"product: Predictor.setup({arch} + {editor}, seeded random bf16 weights): "
+        f"{time.perf_counter() - t0!r} s")
+    pipe, image_editor = predictor.runner._pipe, predictor.image_editor
+    video = _synthetic_video(np.random.RandomState(30), frames, size)
+    ddim = dict(ddim_inversion_steps=INV_STEPS, num_inference_steps=EDIT_STEPS)
+    requests = [
+        ("request 1: predict_arrays, PnP 1.0/1.0/1.0", lambda: predictor.predict_arrays(
+            video, "turn it into a watercolour", "a watercolour painting", seed=42,
+            image_edit_steps=PRODUCT_EDITOR_STEPS, **ddim)),
+        ("request 2: predict_arrays, PnP 1.0/1.0/1.0", lambda: predictor.predict_arrays(
+            video, "make it snowy", "a snowy scene", seed=7,
+            image_edit_steps=PRODUCT_EDITOR_STEPS, **ddim)),
+        ("request 3: edit_arrays, PnP 0.2/0.2/0.5", lambda: predictor.runner.edit_arrays(
+            video, edited2, "a snowy scene", **{**DEFAULTS, **ddim})),
+    ]
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    checks, allocated, edited2 = {}, [], None
+    with _RouteLog(_editor_k5_role) as routes, _StageTimers(predictor) as stages:
+        for i, (label, run) in enumerate(requests):
+            timers = stages.new_request()
+            t0 = time.perf_counter()
+            out = run()
+            hard_sync(out[:2])
+            wall = time.perf_counter() - t0
+            log(f"product {label}: wall {wall!r} s")
+            _log_times(f"product {label}", timers, {"inversion": INV_STEPS,
+                                                    "edit+decode": EDIT_STEPS})
+            if "editor" in timers.seconds:
+                check_scan_time(f"product {label} editor", timers.seconds["editor"],
+                                PRODUCT_EDITOR_STEPS, editor_floor)
+            video_out, second = out[0], out[1]
+            checks[f"{label}: video [{frames},{size},{size},3] finite in [0,1]"] = (
+                tuple(video_out.shape) == (frames, size, size, 3)
+                and bool(torch.isfinite(video_out).all()) and float(video_out.min()) >= 0.0
+                and float(video_out.max()) <= 1.0)
+            if i < 2:
+                edited2 = second
+                checks[f"{label}: edited frame [{size},{size},3] finite"] = (
+                    second.shape == (size, size, 3) and bool(np.isfinite(second).all()))
+            else:
+                checks[f"{label}: trajectory finite"] = bool(torch.isfinite(second).all())
+            del out, video_out, second
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated())
+            log(f"product {label}: device memory allocated after it (its outputs freed): "
+                f"{allocated[-1]} bytes")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"product peak device memory over the three requests: {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    log(f"kernel launches in the product path: {counts}; by stage: {stages.launches}")
+    gelu_ffns = [m for mod in (pipe.unet, image_editor.unet) for m in mod.modules()
+                 if isinstance(m, FeedForward) and m.activation == "gelu"]
+    log(f"product routes: K5 by role {routes.k5}; K2 by shape {routes.k2}; SDPA through the "
+        f"dispatcher by head width {routes.sdpa}")
+    log(f"product GELU-form feed-forwards: {len(gelu_ffns)}, inner widths "
+        f"{sorted({m.net[2].in_features for m in gelu_ffns})}")
+    video_k = {n: sum(stages.launches[s].get(n, 0) for s in ("inversion", "edit+decode"))
+               for n in wrappers}
+    editor_k = stages.launches["editor"]
+    checks.update({
+        "K1, K2, K3, K4 launched in the video stages; K5 not": all(
+            video_k[n] > 0 for n in ("folded_attention", "frame_attention", "ffn_geglu",
+                                     "gn_silu_temporal_conv")) and video_k["flash_attention"] == 0,
+        "K5 and K3 launched in the editor stage; K1, K2, K4 not": editor_k.get(
+            "flash_attention", 0) > 0 and editor_k.get("ffn_geglu", 0) > 0 and not any(
+            editor_k.get(n, 0) for n in ("folded_attention", "frame_attention",
+                                         "gn_silu_temporal_conv")),
+        "K2 long not launched": counts["frame_attention_long"] == 0,
+        "no attention with a score bias (K5's bias mode unreached)":
+        not any(key.endswith(" bias") for key in routes.k2),
+        # the image-latent encoder's GELU feed-forward (C 4) fails the Pallas
+        # kernel's gate, (4 C) % 128 == 0 (pallas_ffn.py:147), as in the JAX package
+        "no GELU-form feed-forward that the Pallas gate admits (K3's GELU mode "
+        "unreached)": all(m.net[2].in_features % 128 for m in gelu_ffns),
+        "requests 2 and 3 built nothing (the same pipeline and editor)":
+        predictor.runner._pipe is pipe and predictor.image_editor is image_editor,
+        "memory allocated after requests 2 and 3 within 64 MiB of request 1's": all(
+            abs(a - allocated[0]) <= PRODUCT_MEM_SLACK for a in allocated[1:]),
+        "peak device memory under 80 GB": peak < 80e9,
+    })
+    _check_outputs(checks)
     return counts
 
 

@@ -37,12 +37,16 @@ PORT_MODULES = [
     "anyv2v_torch.schedulers.euler", "anyv2v_torch.models.unet_sd",
     "anyv2v_torch.models.controlnet", "anyv2v_torch.pipelines.image_edit",
     "anyv2v_torch.pipelines.instantstyle", "anyv2v_torch.ops.attn_maps",
-    "anyv2v_torch.cli.edit_image",
+    "anyv2v_torch.cli.edit_image", "anyv2v_torch.product", "anyv2v_torch.product.anyv2v",
+    "anyv2v_torch.product.predictor", "anyv2v_torch.product.gradio_app",
+    "anyv2v_torch.product.web_demo", "anyv2v_torch.product.walkthrough",
+    "anyv2v_torch.cli.gradio_demo", "anyv2v_torch.cli.gradio_demo_cosxl",
+    "anyv2v_torch.cli.gradio_demo_style",
 ]
 FORBIDDEN = ("jax", "anyv2v_tpu")
 # host packages the card's machine lacks: only functions that need them
 # import them
-HOST_ONLY = ("cv2", "PIL", "safetensors", "imageio", "yaml")
+HOST_ONLY = ("cv2", "PIL", "safetensors", "imageio", "yaml", "gradio")
 
 
 def _no_cuda():
@@ -63,9 +67,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_imports_without_host_packages():
-    """Every port module (video preparation, camera motion and the
-    checkpoint reader included) and chip_smoke.py import where OpenCV, PIL,
-    safetensors, imageio and PyYAML are missing."""
+    """Every port module (video preparation, camera motion, the checkpoint
+    reader and the product layer included) and chip_smoke.py import where
+    OpenCV, PIL, safetensors, imageio, PyYAML and gradio are missing."""
     code = ("import importlib, sys\n"
             "class Block:\n"
             "    def find_spec(self, name, path=None, target=None):\n"
