@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from ..ops.attention import multi_head_attention, padded_head_dim, temporal_attention
 from ..ops.ffn import ffn_geglu, fits as ffn_fits
 from ..ops.pnp import inject_source_rows
-from ..ops.temporal_conv import gn_silu_temporal_conv, groupnorm_scale_shift
+from ..ops.temporal_conv import groupnorm_silu_temporal_conv
+from ..parallel.mesh import around_frame_op
 
 # ---------------------------------------------------------------------------
 # functional helpers
@@ -188,11 +189,13 @@ class TemporalConv3(nn.Module):
 class TemporalConvLayer(nn.Module):
     """diffusers ``TemporalConvLayer``: four (groupnorm -> silu -> (3,1,1)
     conv) stages with an identity residual, on ``[B, F, H, W, C]``. Each stage
-    is one K4 launch; the group statistics are a plain reduction."""
+    is one K4 launch; the group statistics are a plain reduction. Inside a
+    manual-SPMD region one all-to-all to pixel sharding, hoisted around the
+    four stages, gives them every frame (where the pixels divide into shares
+    of at least 8; elsewhere each stage gathers the frames itself)."""
 
     def __init__(self, channels: int, groups: int = 32, dtype=torch.float32):
         super().__init__()
-        self.groups = groups
         for i in range(1, 5):
             stage = nn.Module()
             stage.add_module("0", nn.GroupNorm(groups, channels, eps=1e-5))
@@ -201,14 +204,16 @@ class TemporalConvLayer(nn.Module):
 
     def forward(self, x):
         b, f = x.shape[:2]
-        h = x.reshape(b, f, -1, x.shape[-1])
+        h = around_frame_op(self._stages, (x.reshape(b, f, -1, x.shape[-1]),), gather=False)
+        return x + h.reshape(x.shape[:-1] + (h.shape[-1],))
+
+    def _stages(self, h, mode):
         for i in range(1, 5):
             stage = getattr(self, f"conv{i}")
-            norm = stage._modules["0"]
             conv = stage._modules["2" if i == 1 else "3"]
-            s, t = groupnorm_scale_shift(h, norm.weight, norm.bias, self.groups, norm.eps)
-            h = gn_silu_temporal_conv(h, s, t, conv.weight, conv.bias)
-        return x + h.reshape(x.shape[:-1] + (h.shape[-1],))
+            h = groupnorm_silu_temporal_conv(h, stage._modules["0"], conv.weight, conv.bias,
+                                             pixel_sharded=mode == "pixels")
+        return h
 
 
 # ---------------------------------------------------------------------------
@@ -282,14 +287,16 @@ class Attention(nn.Module):
             state_dict[key] = w.reshape(w.shape[0], h * p)
 
     def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False,
-                ip_tokens: Optional[torch.Tensor] = None, ip_scale: float = 1.0):
+                ip_tokens: Optional[torch.Tensor] = None, ip_scale: float = 1.0,
+                pixel_sharded: bool = False):
         ctx = x if context is None else context
         q = inject_source_rows(self.to_q(x), inject, self.pnp_chunks)
         k = inject_source_rows(self.to_k(ctx), inject, self.pnp_chunks)
         v = self.to_v(ctx)
         if frame_axis:
             # temporal tokens [B, F, HW, C]: attend over F in place
-            out = temporal_attention(q, k, v, self.heads, self.scale)
+            out = temporal_attention(q, k, v, self.heads, self.scale,
+                                     pixel_sharded=pixel_sharded)
         else:
             out = multi_head_attention(q, k, v, self.heads, self.scale)
         if ip_tokens is not None and hasattr(self, "to_k_ip"):
@@ -352,12 +359,13 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False,
-                ip_tokens=None, ip_scale: float = 1.0):
+                ip_tokens=None, ip_scale: float = 1.0, pixel_sharded: bool = False):
         dt = self.dtype
         x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inject,
-                           frame_axis=frame_axis)
+                           frame_axis=frame_axis, pixel_sharded=pixel_sharded)
         x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context,
-                           frame_axis=frame_axis, ip_tokens=ip_tokens, ip_scale=ip_scale)
+                           frame_axis=frame_axis, ip_tokens=ip_tokens, ip_scale=ip_scale,
+                           pixel_sharded=pixel_sharded)
         return x + self.ff(layer_norm(x, self.norm3).to(dt))
 
 
@@ -395,7 +403,10 @@ class SpatialTransformer(nn.Module):
 class TemporalTransformer(nn.Module):
     """diffusers TransformerTemporalModel over ``[B, F, H, W, C]``: tokens are
     frames per pixel and stay in the module-native ``[B, F, HW, C]`` layout;
-    both attentions of the block attend over F (K2)."""
+    both attentions of the block attend over F (K2). Inside a manual-SPMD
+    region one all-to-all at the module boundary gives the whole block every
+    frame (norms, projections and FF are per token), where the pixels divide
+    into shares of at least 8; elsewhere each attention gathers the frames."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32,
                  dtype=torch.float32, pnp_chunks: int = 3):
@@ -411,9 +422,14 @@ class TemporalTransformer(nn.Module):
     def forward(self, x, inject: bool = False):
         b, f, h, w, c = x.shape
         y = group_norm(x.reshape(b * f, h, w, c), self.norm).to(self.dtype)
-        y = self.proj_in(y.reshape(b, f, h * w, c))
-        y = self.transformer_blocks[0](y, inject=inject, frame_axis=True)
-        return self.proj_out(y).reshape(b, f, h, w, c) + x
+
+        def block(y, mode):
+            y = self.transformer_blocks[0](self.proj_in(y), inject=inject, frame_axis=True,
+                                           pixel_sharded=mode == "pixels")
+            return self.proj_out(y)
+
+        y = around_frame_op(block, (y.reshape(b, f, h * w, c),), gather=False)
+        return y.reshape(b, f, h, w, c) + x
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,11 @@ PnP: ``pnp=(conv, spatial, temporal)`` Python bools with the CFG batch
 (``pnp_attn_targets``: up-block (i, j) spatial and temporal attn1 Q/K;
 ``pnp_conv_target``: after conv2 of that up-block resnet).
 
+Frame sharding: inside a manual-SPMD region
+(:func:`anyv2v_torch.parallel.mesh.manual_axis`) ``sample`` holds one
+rank's frames and ``image_latents`` the whole clip's; the temporal layers
+reshard themselves.
+
 Head split: i2vgen-xl's checkpoint has 64 heads per block (diffusers issue
 #2011), so head widths are C/64 = 5/10/20; :class:`..layers.Attention` stores
 them padded to 8/16/32 for the kernels.
@@ -26,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import current_manual_axis, local_frame_slice
 from .layers import (
     Attention,
     Downsample2D,
@@ -204,15 +210,25 @@ class I2VGenUNet(nn.Module):
         context = torch.cat([encoder_hidden_states.to(dt), img_ctx, gtok], dim=1)
         context = context.repeat_interleave(F_, dim=0)
 
-        # image-latent path: per-frame convs, then attention over frames per pixel
+        # image-latent path: per-frame convs, then attention over frames per
+        # pixel. Inside a manual-SPMD region image_latents arrive replicated
+        # with every frame (the encoder attends across all of them) while
+        # sample holds this rank's frames: the result is cut to its window.
         pi = self.image_latents_proj_in
+        F_il = image_latents.shape[1]
         il = fold_frames(image_latents.to(dt))
         il = F.silu(conv_nhwc(pi[0], il))
         il = F.silu(conv_nhwc(pi[2], il))
         il = conv_nhwc(pi[4], il)
-        il = unfold_frames(il, F_).permute(0, 2, 3, 1, 4).reshape(B * H * W, F_, C)
+        il = unfold_frames(il, F_il).permute(0, 2, 3, 1, 4).reshape(B * H * W, F_il, C)
         il = self.image_latents_temporal_encoder(il)
-        il = il.reshape(B, H, W, F_, C).permute(0, 3, 1, 2, 4)
+        il = il.reshape(B, H, W, F_il, C).permute(0, 3, 1, 2, 4)
+        if F_il != F_:
+            region = current_manual_axis()
+            if region is None or F_il != F_ * region[1]:
+                raise ValueError(f"image_latents have {F_il} frames and sample {F_}: they must "
+                                 "match, or be the whole clip's inside a manual-SPMD region")
+            il = local_frame_slice(il, region[0], F_)
 
         x = torch.cat([sample.to(dt), il], dim=-1)
         x = conv_nhwc(self.conv_in, fold_frames(x))

@@ -23,8 +23,14 @@ the up-block targets with the source rows, the temporal one before rotation;
 the conv family the features of ``pnp_conv_target``'s resnet. No mid-block or
 ``up_0`` resnet injects.
 
+Frame sharding: inside a manual-SPMD region
+(:func:`anyv2v_torch.parallel.mesh.manual_axis`) ``sample`` holds one rank's
+frames; the temporal attention, the only frame-coupled op, reshards around
+itself (an all-to-all to pixel sharding, or a gather of the frame axis where
+the pixels do not divide), with positions and bias over the global frames.
+
 Not here: the rotary modules' ``freqs`` buffers (the JAX converter skips them
-too) and the JAX module's multi-chip branches.
+too).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..ops.attention import temporal_attention
 from ..ops.pnp import inject_source_rows
 from ..ops.relpos import relative_position_bias
 from ..ops.rotary import apply_rotary_partial, rotary_angles, rotary_freqs
+from ..parallel.mesh import around_frame_op
 from .layers import (
     Attention,
     Downsample2D,
@@ -134,9 +141,11 @@ class SeineTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def _temporal(self, x4: torch.Tensor, inject: bool) -> torch.Tensor:
-        """attn_temp on ``[B, F, HW, C]``: Q/K injection, per-head partial
-        rotary at frame positions, then K2 with the relative-position bias."""
+    def _temporal(self, x4: torch.Tensor, inject: bool, pixel_sharded: bool = False
+                  ) -> torch.Tensor:
+        """attn_temp on ``[B, F, HW, C]`` holding every frame: Q/K injection,
+        per-head partial rotary at frame positions, then K2 with the
+        relative-position bias."""
         a = self.attn_temp
         b, f, hw, _ = x4.shape
         q = inject_source_rows(a.to_q(x4), inject, a.pnp_chunks)
@@ -151,7 +160,8 @@ class SeineTransformerBlock(nn.Module):
                 return apply_rotary_partial(zh, ang, rot).reshape(z.shape)
 
             q, k = rotate(q), rotate(k)
-        out = temporal_attention(q, k, v, a.heads, a.scale, bias=a.time_rel_pos_bias(f))
+        out = temporal_attention(q, k, v, a.heads, a.scale, bias=a.time_rel_pos_bias(f),
+                                 pixel_sharded=pixel_sharded)
         return a.to_out[0](out)
 
     def forward(self, x, context, frames: int, inject=(False, False, False)):
@@ -163,7 +173,11 @@ class SeineTransformerBlock(nn.Module):
         x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inj_spatial)
         x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context, inject=inj_cross)
         h4 = layer_norm(x, self.norm_temp).to(dt).reshape(bf // frames, frames, hw, c)
-        x = x + self._temporal(h4, inj_temporal).reshape(bf, hw, c)
+        # sharded: every frame local around the whole op, whose positions and
+        # bias span the global frames
+        out4 = around_frame_op(lambda h, mode: self._temporal(h, inj_temporal, mode is not None),
+                               (h4,))
+        x = x + out4.reshape(bf, hw, c)
         return x + self.ff(layer_norm(x, self.norm3).to(dt))
 
 

@@ -17,9 +17,18 @@ PnP: ``pnp=(conv, spatial, temporal)`` Python bools over a CFG batch of
 module's (spatial attn1 Q/K and the first-frame K, temporal attn1 Q/K before
 rotation, the conv features of ``pnp_conv_target``).
 
+Frame sharding: inside a manual-SPMD region
+(:func:`anyv2v_torch.parallel.mesh.manual_axis`) ``sample`` holds one rank's
+frames and ``first_frame_latents`` rides every rank, so in the first-frame
+modes the conditioning frame is row 0 of every rank's frame axis. The
+temporal modules assemble the true frame sequence (the conditioning frame
+once, then every rank's frames) around their frame-coupled ops
+(:func:`anyv2v_torch.parallel.mesh.around_frame_op`), and the temporal transformer's positions
+are global.
+
 Not here: the reference's unused ``conv3ds.*.time_emb_proj`` and the rotary
 modules' ``rotary_bias`` / ``freqs`` buffers (the JAX converter skips them
-too), and the JAX module's multi-chip branches.
+too).
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ import torch.nn.functional as F
 from ..ops.attention import multi_head_attention, spatial_attention_ffconcat, temporal_attention
 from ..ops.pnp import inject_source_rows
 from ..ops.rotary import apply_rotary_partial, rotary_angles, rotary_freqs
-from ..ops.temporal_conv import gn_silu_temporal_conv, groupnorm_scale_shift
+from ..ops.temporal_conv import groupnorm_silu_temporal_conv
+from ..parallel.mesh import (around_frame_op, axis_index, gather_frames, local_pixel_slice,
+                             sharded_region)
 from .layers import (
     Attention,
     Downsample2D,
@@ -93,11 +104,16 @@ def _alpha(p: torch.Tensor) -> torch.Tensor:
 class AlphaTemporalResnet(nn.Module):
     """Reference ``TemporalResnetBlock`` on ``[B, F, H, W, C]``: two
     (groupnorm -> SiLU -> (3,1,1) conv) stages, one K4 launch each, then the
-    gate ``a*x + (1-a)*(x + h)`` with ``a`` clamped to [0, 1]."""
+    gate ``a*x + (1-a)*(x + h)`` with ``a`` clamped to [0, 1].
+    ``first_frame_replicated``: in a manual-SPMD region, row 0 of the frame
+    axis is the conditioning frame every rank holds (the first-frame modes);
+    the true sequence is assembled once around both stages, so that the conv
+    and the group statistics count that frame once."""
 
-    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6,
+                 first_frame_replicated: bool = False):
         super().__init__()
-        self.groups = groups
+        self.first_frame_replicated = first_frame_replicated
         self.norm1 = nn.GroupNorm(groups, channels, eps=eps)
         self.conv1 = TemporalConv3(channels, channels)
         self.norm2 = nn.GroupNorm(groups, channels, eps=eps)
@@ -106,13 +122,17 @@ class AlphaTemporalResnet(nn.Module):
 
     def forward(self, x):
         b, f = x.shape[:2]
-        h = x.reshape(b, f, -1, x.shape[-1])
-        for norm, conv in ((self.norm1, self.conv1), (self.norm2, self.conv2)):
-            s, t = groupnorm_scale_shift(h, norm.weight, norm.bias, self.groups, norm.eps)
-            h = gn_silu_temporal_conv(h, s, t, conv.weight, conv.bias)
+        f0row = int(self.first_frame_replicated and sharded_region() is not None)
+        h = around_frame_op(self._stages, (x.reshape(b, f, -1, x.shape[-1]),), f0row)
         out = x + h.reshape(x.shape)
         a = _alpha(self.alpha)
         return (a * x + (1.0 - a) * out).to(x.dtype)
+
+    def _stages(self, h, mode):
+        for norm, conv in ((self.norm1, self.conv1), (self.norm2, self.conv2)):
+            h = groupnorm_silu_temporal_conv(h, norm, conv.weight, conv.bias,
+                                             pixel_sharded=mode is not None)
+        return h
 
 
 class _Block(nn.Module):
@@ -208,9 +228,11 @@ class VideoLDMTemporalTransformer(nn.Module):
     ``F*HW`` tokens of a batch row to its text (K5), the query rotated."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, cross_attention_dim: int,
-                 augment: bool, rotary: bool, groups: int = 32, dtype=torch.float32):
+                 augment: bool, rotary: bool, groups: int = 32, dtype=torch.float32,
+                 first_frame_replicated: bool = False):
         super().__init__()
         self.heads, self.dtype, self.augment, self.rotary = heads, dtype, augment, rotary
+        self.first_frame_replicated = first_frame_replicated
         inner = heads * head_dim
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, inner)
@@ -219,7 +241,8 @@ class VideoLDMTemporalTransformer(nn.Module):
         self.proj_out = nn.Linear(inner, channels)
         self.alpha = nn.Parameter(torch.ones(1))
 
-    def _self_attention(self, x, adj, inject: bool, pnp_chunks: int):
+    def _self_attention(self, x, adj, inject: bool, pnp_chunks: int,
+                        pixel_sharded: bool = False):
         a1 = self.transformer_blocks[0].attn1
         b, f, hw, inner = x.shape
         if not self.rotary:
@@ -238,7 +261,7 @@ class VideoLDMTemporalTransformer(nn.Module):
             k_pos = pos if adj is None else torch.cat(
                 [pos, torch.zeros(ctx.shape[1] - f, device=x.device)])
             k = _rotate(k, k_pos, inner)
-        out = temporal_attention(q, k, v, self.heads, a1.scale)
+        out = temporal_attention(q, k, v, self.heads, a1.scale, pixel_sharded=pixel_sharded)
         return a1.to_out[0](out)
 
     def forward(self, x, context, frames: int, inject: bool = False, pnp_chunks: int = 4):
@@ -250,16 +273,34 @@ class VideoLDMTemporalTransformer(nn.Module):
         inner = tokens.shape[-1]
 
         normed4 = layer_norm(tokens, blk.norm1).to(dt).reshape(b, f, hw, inner)
-        adj = _first_frame_adjacent_slices(normed4[:, 0], h_, w_) if self.augment else None
-        tokens = tokens + self._self_attention(normed4, adj, inject, pnp_chunks).reshape(
-            bf, hw, inner)
+        region = sharded_region()
+        f0row = int(bool(region) and self.first_frame_replicated)
+        adj = None
+        if self.augment:
+            # frame 0's tokens, whole: a rank that does not hold global frame
+            # 0 (no conditioning row in front) gathers it
+            ff = (gather_frames(normed4[:, :1], region[0], 1)[:, 0] if region and not f0row
+                  else normed4[:, 0])
+            adj = _first_frame_adjacent_slices(ff, h_, w_)
+
+        def attend(seq, mode):
+            # sharded: every frame local, positions over the true sequence
+            a = local_pixel_slice(adj, *region, 2) if adj is not None and mode == "pixels" else adj
+            return self._self_attention(seq, a, inject, pnp_chunks, pixel_sharded=mode is not None)
+
+        attn = around_frame_op(attend, (normed4,), f0row)
+        tokens = tokens + attn.reshape(bf, hw, inner)
 
         normed4 = layer_norm(tokens, blk.norm2).to(dt).reshape(b, f, hw, inner)
-        pos = torch.arange(f, device=x.device, dtype=torch.float32)
+        f_glob, pos = f, torch.arange(f, device=x.device, dtype=torch.float32)
+        if region:
+            f_real = f - f0row
+            f_glob = f0row + f_real * region[1]
+            pos = torch.cat([pos[:f0row], f0row + axis_index(region[0]) * f_real + pos[:f_real]])
         if not self.rotary:
             # the reference adds the sinusoidal PE in every call, attn2 included
-            pe = torch.from_numpy(videoldm_positional_encoding(f, inner)).to(x.device, dt)
-            normed4 = normed4 + pe[None, :, None, :]
+            pe = torch.from_numpy(videoldm_positional_encoding(f_glob, inner)).to(x.device, dt)
+            normed4 = normed4 + pe[pos.long()][None, :, None, :]
         a2 = blk.attn2
         q4 = a2.to_q(normed4)
         if self.rotary:
@@ -288,6 +329,7 @@ class VideoLDMUNet(nn.Module):
         if mode not in ("none", "concat", "conv2d", "input_only"):
             raise ValueError(f"first_frame_condition_mode {mode!r}")
         cond_spatial = mode in ("concat", "conv2d")
+        ff_row = mode != "none"   # the conditioning frame rides as frame 0
         rotary = cfg.temp_pos_embedding == "rotary"
 
         def spatial(ch):
@@ -296,7 +338,8 @@ class VideoLDMUNet(nn.Module):
 
         def temporal(ch):
             return VideoLDMTemporalTransformer(ch, cfg.n_temp_heads, ch // cfg.n_temp_heads, ctx,
-                                               cfg.augment_temporal_attention, rotary, g, dt)
+                                               cfg.augment_temporal_attention, rotary, g, dt,
+                                               first_frame_replicated=ff_row)
 
         def block(cin, ch, n_layers, cross, skip_ch=None):
             blk = nn.Module()
@@ -313,7 +356,7 @@ class VideoLDMUNet(nn.Module):
                 extra = skip_ch.pop() if skip_ch is not None else 0
                 blk.resnets.append(ResnetBlock2D(cin + extra, ch, ted, g, dtype=dt))
                 if cfg.use_temporal:
-                    blk.conv3ds.append(AlphaTemporalResnet(ch, g))
+                    blk.conv3ds.append(AlphaTemporalResnet(ch, g, first_frame_replicated=ff_row))
                 if cross:
                     blk.attentions.append(spatial(ch))
                     if cfg.use_temporal:
@@ -344,7 +387,8 @@ class VideoLDMUNet(nn.Module):
         mid.resnets = nn.ModuleList([ResnetBlock2D(ch, ch, ted, g, dtype=dt),
                                      ResnetBlock2D(ch, ch, ted, g, dtype=dt)])
         if cfg.use_temporal:
-            mid.conv3ds = nn.ModuleList([AlphaTemporalResnet(ch, g), AlphaTemporalResnet(ch, g)])
+            mid.conv3ds = nn.ModuleList([AlphaTemporalResnet(ch, g, first_frame_replicated=ff_row)
+                                         for _ in range(2)])
         mid.attentions = nn.ModuleList([spatial(ch)])
         if mode == "conv2d":
             mid.first_frame_conv = nn.Conv2d(cfg.in_channels, ch, 1)

@@ -4,7 +4,7 @@ with diffusers key names. Frames are a batch axis."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -139,7 +139,28 @@ class AutoencoderKL(nn.Module):
     def decode(self, latents):
         return self.decoder(linear_1x1(self.post_quant_conv, latents.to(self.config.dtype)))
 
+    def forward(self, images, generator: Optional[torch.Generator] = None, noise=None):
+        """Encode, draw from the posterior (its mode without ``generator``
+        and ``noise``: :func:`sample_from_moments`), decode."""
+        z = sample_from_moments(self.encode_moments(images), generator, noise)
+        return self.decode(z)
+
 
 def mode_from_moments(moments: torch.Tensor) -> torch.Tensor:
     """The diagonal Gaussian's mean (deterministic encode, as inversion wants)."""
     return moments.chunk(2, dim=-1)[0]
+
+
+def sample_from_moments(moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A draw from the diagonal Gaussian of ``moments`` (mean and log-variance
+    on the last axis), or its mean when neither ``generator`` nor ``noise``
+    is given. ``noise``: a standard-normal draw of the mean's shape that
+    replaces the generator's (``jax.random`` cannot be reproduced here)."""
+    mean, logvar = moments.chunk(2, dim=-1)
+    if generator is None and noise is None:
+        return mean
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0).float())
+    return mean + (std * noise.float()).to(mean.dtype)

@@ -135,12 +135,29 @@ def spatial_attention_ffconcat(query: torch.Tensor, k_self: torch.Tensor,
 
 
 def temporal_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                       heads: int, scale: float,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       heads: int, scale: float, bias: Optional[torch.Tensor] = None,
+                       pixel_sharded: bool = False) -> torch.Tensor:
     """Self-attention over the frame axis S of ``[B, S, HW, C]`` tokens; keys
     and values ``[B, Sk, HW, C]`` may carry up to 16 extra frames. ``bias``:
-    an fp32 ``[heads, S, Sk]`` table added to the scaled scores of every
-    batch row and pixel (SEINE's relative-position bias)."""
+    an fp32 ``[heads, S, Sk]`` table over the global frame axis, added to the
+    scaled scores of every batch row and pixel (SEINE's relative-position
+    bias).
+
+    Inside a manual-SPMD region (:func:`anyv2v_torch.parallel.mesh.manual_axis`:
+    the tokens hold this rank's frames) the op reshards itself around the
+    attention (:func:`anyv2v_torch.parallel.mesh.around_frame_op`: an
+    all-to-all to pixel sharding and back, or a gather of the short frame
+    axis). ``pixel_sharded``: the caller already holds every frame (it
+    hoisted the all-to-all to its module boundary)."""
+    from ..parallel.mesh import around_frame_op
+
+    if pixel_sharded:
+        return _temporal_attention(query, key, value, heads, scale, bias)
+    return around_frame_op(lambda q, k, v, _: _temporal_attention(q, k, v, heads, scale, bias),
+                           (query, key, value))
+
+
+def _temporal_attention(query, key, value, heads: int, scale: float, bias=None):
     s, sk, dh = query.shape[1], key.shape[1], query.shape[-1] // heads
     if takes(s, sk, dh):
         return frame_attention(query, key, value, heads, scale, bias)

@@ -10,6 +10,8 @@ inner // 2)``, so only the first ``inner // 2`` channels of the flattened
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -42,3 +44,13 @@ def apply_rotary_partial(x: torch.Tensor, angles: torch.Tensor, rot_dim: int) ->
     if rot_dim >= x.shape[-1]:
         return apply_rotary(x, angles)
     return torch.cat([apply_rotary(x[..., :rot_dim], angles), x[..., rot_dim:]], dim=-1)
+
+
+def rotate_queries_or_keys(x: torch.Tensor, freqs,
+                           seq_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate ``[..., S, D]`` at positions 0..S-1, or at ``seq_pos`` (the
+    reference's ``rotate_queries_or_keys(..., seq_pos=key_pos_idx)``,
+    ``rotary_embedding.py:143-165``)."""
+    if seq_pos is None:
+        seq_pos = torch.arange(x.shape[-2], dtype=torch.float32, device=x.device)
+    return apply_rotary(x, rotary_angles(seq_pos, freqs))

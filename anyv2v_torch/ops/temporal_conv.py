@@ -51,10 +51,23 @@ def tconv_plan(b: int, f: int, p: int, c: int, c_out: int, sms: int = _build.H10
 def groupnorm_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                           groups: int, eps: float):
     """Per-(batch, channel) fp32 ``s, t`` such that groupnorm(x) = x*s + t,
-    statistics over every axis but batch and channel. x ``[B, ..., C]``."""
+    statistics over every axis but batch and channel. x ``[B, ..., C]``.
+
+    Inside a manual-SPMD region x is this rank's share (of the frames, or of
+    the pixels of every frame) and the statistics are global: the per-rank
+    mean and mean square are averaged over the ranks (one all-reduce; equal
+    shares make the mean of means exact)."""
+    from ..parallel.mesh import pmean_axis, sharded_region
+
     b, c = x.shape[0], x.shape[-1]
     xf = x.float().reshape(b, -1, groups, c // groups)
-    var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False)     # [B, G]
+    region = sharded_region()
+    if region is None:
+        var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False)     # [B, G]
+    else:
+        moments = pmean_axis(torch.stack([xf.mean(dim=(1, 3)), xf.square().mean(dim=(1, 3))]),
+                             region[0])
+        mean, var = moments[0], moments[1] - moments[0].square()
     inv = torch.rsqrt(var + eps)
     s = inv.repeat_interleave(c // groups, dim=1) * gamma.float()[None]
     t = beta.float()[None] - mean.repeat_interleave(c // groups, dim=1) * s
@@ -110,3 +123,22 @@ def gn_silu_temporal_conv(x: torch.Tensor, s: Optional[torch.Tensor],
 
 
 gn_silu_temporal_conv.launches = 0
+
+
+def groupnorm_silu_temporal_conv(x: torch.Tensor, norm: torch.nn.GroupNorm, w: torch.Tensor,
+                                 b: torch.Tensor, pixel_sharded: bool = False) -> torch.Tensor:
+    """groupnorm (``norm``'s groups, eps and affine) -> SiLU -> (3,1,1) conv
+    of ``[B, F, P, C]``: the statistics (:func:`groupnorm_scale_shift`), then
+    one K4 launch.
+
+    Inside a manual-SPMD region the conv needs every frame, and the op
+    reshards itself around it
+    (:func:`anyv2v_torch.parallel.mesh.around_frame_op`).
+    ``pixel_sharded``: the caller already holds every frame of its pixels
+    (it hoisted the all-to-all around several convs)."""
+    from ..parallel.mesh import around_frame_op
+
+    s, t = groupnorm_scale_shift(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+    if pixel_sharded:
+        return gn_silu_temporal_conv(x, s, t, w, b)
+    return around_frame_op(lambda y, _: gn_silu_temporal_conv(y, s, t, w, b), (x,))

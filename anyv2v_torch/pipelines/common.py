@@ -1,17 +1,39 @@
-"""Shared pipeline plumbing (counterpart of ``anyv2v_tpu/pipelines/common.py``,
-the parts the single-GPU pipelines use): the VAE latent codec, text encoding,
-:func:`group_constant_runs`, and the host-resident inversion trajectory
-(:class:`HostTrajectory`, :func:`resolve_chunk_steps`,
-:func:`device_rows_for_scan`) of the long-video route."""
+"""Shared pipeline plumbing (counterpart of ``anyv2v_tpu/pipelines/common.py``):
+the VAE latent codec, text encoding, :func:`group_constant_runs`, the
+host-resident inversion trajectory (:class:`HostTrajectory`,
+:func:`resolve_chunk_steps`, :func:`device_rows_for_scan`) of the long-video
+route, and the frame sharding over a mesh (:class:`ShardingMixin`).
+
+Sharding, when a pipeline has a ``mesh`` (:func:`anyv2v_torch.parallel.
+mesh.make_mesh`): every rank runs the same call with the same arguments
+(the whole clip's tensors), and gets the same result (the whole clip's).
+Inside, the frames split over the mesh's "frame" ranks:
+
+- the step loop carries this rank's frame window of the latent; the UNet
+  forward runs in a manual-SPMD region and sees only those frames (the
+  image conditioning of i2vgen-xl and ConsistI2V's first frame ride every
+  rank whole); the scheduler step is per frame;
+- each inversion step's latent is gathered once over the frame ranks, so
+  the trajectory (a device tensor or a :class:`HostTrajectory`) holds the
+  whole clip on every rank, and the edit reads its window of each row;
+- the VAE encodes and decodes each rank's share of the frames (over both
+  mesh axes) and gathers the results;
+- a mesh with a "cfg" axis of more than one rank runs the plain program on
+  every rank, its CFG rows split over "cfg" where no PnP injection couples
+  them (i2vgen-xl's plain CFG sampling), as the JAX package gates it."""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
 from ..models.vae import mode_from_moments
+from ..parallel.mesh import (all_gather_axis, axis_size, frames_sharding, gather_frame_shares,
+                             gather_frames, local_frame_slice, manual_axis, shard_params)
 
 DEFAULT_CHUNK_STEPS = 25
 
@@ -174,8 +196,69 @@ def group_constant_runs(masks, k: int):
     return runs
 
 
-class LatentCodecMixin:
-    """Expects ``vae``, ``text_encoder`` and ``device`` attributes."""
+@dataclasses.dataclass(frozen=True)
+class FramePlan:
+    """How one pipeline call splits its frames: over the ``n`` ranks of the
+    process group ``group``, or not (n = 1)."""
+
+    group: object = None
+    n: int = 1
+
+    def local(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        """This rank's frame window of the whole clip's ``x``."""
+        return x if self.n == 1 else local_frame_slice(x, self.group, x.shape[axis] // self.n,
+                                                        axis)
+
+    def gather(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        """The whole clip from every rank's window."""
+        return x if self.n == 1 else gather_frames(x, self.group, axis)
+
+    def region(self):
+        """The manual-SPMD region of the UNet forwards."""
+        return manual_axis(self.group, self.n) if self.n > 1 else contextlib.nullcontext()
+
+
+class ShardingMixin:
+    """Frame and CFG sharding over the pipeline's ``mesh`` attribute (absent
+    or None: one device); see the module docstring."""
+
+    @property
+    def _mesh(self):
+        return getattr(self, "mesh", None)
+
+    def __post_init__(self):
+        """Every module's weights replicated from the mesh's first rank."""
+        if self._mesh is not None:
+            for f in dataclasses.fields(self):
+                m = getattr(self, f.name)
+                if isinstance(m, torch.nn.Module):
+                    shard_params(m, self._mesh)
+
+    def _frame_plan(self, frames: int) -> FramePlan:
+        """The frame split of a call on ``frames`` denoised frames: over the
+        mesh's "frame" ranks where they divide the frames and the "cfg" axis
+        is one rank, else none (the plain program)."""
+        mesh = self._mesh
+        n = axis_size(mesh, "frame")
+        if n <= 1 or frames % n or axis_size(mesh, "cfg") > 1:
+            return FramePlan()
+        return FramePlan(mesh.get_group("frame"), n)
+
+    def _cfg_split(self, fn, rows: torch.Tensor, *row_args) -> torch.Tensor:
+        """``fn(rows, *row_args)`` with the rows (and each row-aligned
+        argument's) split over the mesh's "cfg" ranks and the results
+        gathered, where the ranks divide the rows; else ``fn`` whole."""
+        n = axis_size(self._mesh, "cfg")
+        if n <= 1 or rows.shape[0] % n:
+            return fn(rows, *row_args)
+        k, c = rows.shape[0] // n, self._mesh.get_local_rank("cfg")
+        out = fn(*(a[c * k:(c + 1) * k] for a in (rows, *row_args)))
+        return all_gather_axis(out, self._mesh.get_group("cfg"), 0)
+
+
+class LatentCodecMixin(ShardingMixin):
+    """Expects ``vae``, ``text_encoder`` and ``device`` attributes (and
+    ``mesh``, where the pipeline shards)."""
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -189,10 +272,14 @@ class LatentCodecMixin:
 
     def encode_video(self, frames01, chunk_size: int = 16) -> torch.Tensor:
         """``[F, H, W, 3]`` -> ``[1, F, h, w, 4]``, in chunks of frames to bound
-        activation memory."""
+        activation memory (with a mesh, each rank's share of the frames)."""
         n = frames01.shape[0]
-        outs = [self._encode_frames(frames01[i:i + chunk_size]) for i in range(0, n, chunk_size)]
-        return torch.cat(outs, dim=0)[None]
+        if self._mesh is not None:
+            frames01 = frames_sharding(self._tensor(frames01), self._mesh)
+        outs = [self._encode_frames(frames01[i:i + chunk_size])
+                for i in range(0, frames01.shape[0], chunk_size)]
+        z = torch.cat(outs, dim=0)
+        return (z if self._mesh is None else gather_frame_shares(z, self._mesh, n))[None]
 
     @torch.inference_mode()
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
@@ -200,10 +287,15 @@ class LatentCodecMixin:
         return torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
 
     def decode_latents(self, latents, chunk_size: int = 16) -> torch.Tensor:
-        """``[1, F, h, w, 4]`` -> video ``[F, H, W, 3]`` in [0, 1], fp32."""
+        """``[1, F, h, w, 4]`` -> video ``[F, H, W, 3]`` in [0, 1], fp32 (with a
+        mesh, each rank decodes its share of the frames)."""
         z = self._tensor(latents)[0]
-        return torch.cat([self._decode(z[i:i + chunk_size])
-                          for i in range(0, z.shape[0], chunk_size)], dim=0)
+        n = z.shape[0]
+        if self._mesh is not None:
+            z = frames_sharding(z, self._mesh)
+        video = torch.cat([self._decode(z[i:i + chunk_size])
+                           for i in range(0, z.shape[0], chunk_size)], dim=0)
+        return video if self._mesh is None else gather_frame_shares(video, self._mesh, n)
 
     @torch.inference_mode()
     def encode_text(self, input_ids) -> torch.Tensor:

@@ -25,6 +25,10 @@ the UNet computes in its configured dtype (bf16 on the GPU).
 ``traj_store="host"`` keeps the trajectory in host memory, chunk by chunk
 (as ``I2VGenPipeline.invert``); the edit then moves only the rows it reads.
 
+``mesh``: the denoised frames (frames 1..F-1) split over the "frame" ranks
+where they divide (:mod:`anyv2v_torch.pipelines.common`); the conditioning
+frame rides every rank whole, and each cached row keeps the whole clip.
+
 Plain generation (:meth:`ConsistI2VPipeline.sample`) draws vanilla or pyoco
 noise (:func:`sample_video_noise`) and optionally re-initialises it with
 FreeInit (:meth:`ConsistI2VPipeline.apply_frameinit`), both only when no
@@ -49,7 +53,7 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
-from .common import (HostTrajectory, LatentCodecMixin, device_rows_for_scan,
+from .common import (FramePlan, HostTrajectory, LatentCodecMixin, device_rows_for_scan,
                      group_constant_runs, run_inversion)
 from .i2vgen import PnPConfig
 
@@ -77,15 +81,19 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
 
 
 def combine_guidance(eps_rows: torch.Tensor, mode: Optional[str], cfg_txt: float,
-                     cfg_img: float, guidance_rescale: float = 0.0) -> torch.Tensor:
-    """The guided eps from the non-source rows ``[uncond?, img?, cond]``."""
+                     cfg_img: float, guidance_rescale: float = 0.0,
+                     plan: FramePlan = FramePlan()) -> torch.Tensor:
+    """The guided eps from the non-source rows ``[uncond?, img?, cond]``
+    (this rank's frames under ``plan``)."""
     if mode is None:
         return eps_rows
     if mode == "text":
         e_u, e_t = eps_rows.chunk(2, dim=0)
         eps = e_u + cfg_txt * (e_t - e_u)
         if guidance_rescale > 0.0:
-            eps = rescale_noise_cfg(eps, e_t, guidance_rescale)
+            # the rescale's standard deviations are over the whole clip
+            eps = plan.local(rescale_noise_cfg(plan.gather(eps), plan.gather(e_t),
+                                               guidance_rescale))
         return eps
     e_u, e_i, e_b = eps_rows.chunk(3, dim=0)
     return e_u + cfg_img * (e_i - e_u) + cfg_txt * (e_b - e_i)
@@ -107,6 +115,7 @@ class ConsistI2VPipeline(LatentCodecMixin):
     schedule: DiffusionSchedule
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None
 
     @torch.inference_mode()
     def _eps(self, sample, t: int, text, first_frame, frame_stride: int,
@@ -131,13 +140,16 @@ class ConsistI2VPipeline(LatentCodecMixin):
         lat = self._tensor(video_latents)
         ff, x = lat[:, :1], lat[:, 1:]
         text = self._tensor(text_embeds)
+        plan = self._frame_plan(x.shape[1])
+        x = plan.local(x)
 
         def step(i):
             nonlocal x
             t = int(inv_ts[i])
-            x = ddim_inverse_step(self.schedule, x, self._eps(x, t, text, ff, frame_stride), t,
-                                  num_inversion_steps)
-            return torch.cat([ff, x], dim=1)
+            with plan.region():
+                eps = self._eps(x, t, text, ff, frame_stride)
+            x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
+            return torch.cat([ff, plan.gather(x)], dim=1)
 
         traj = run_inversion(step, np.ones(len(inv_ts), bool), lat.shape, self.device,
                              traj_store, chunk_steps)
@@ -175,7 +187,8 @@ class ConsistI2VPipeline(LatentCodecMixin):
             traj = self._tensor(traj)
         init_row = traj[cache_idx[0]]
         cache_ff = init_row[:, :1]
-        x = init_row[:, 1:] if init_latent is None else self._tensor(init_latent)
+        plan = self._frame_plan(init_row.shape[1] - 1)
+        x = plan.local(init_row[:, 1:] if init_latent is None else self._tensor(init_latent))
         text_all = self._tensor(text_embeds_all)
         ff_src, ff_edit = self._tensor(src_ff_latent), self._tensor(edited_ff_latent)
         ff_rows = _first_frame_rows(mode, cache_ff, ff_edit)
@@ -191,25 +204,28 @@ class ConsistI2VPipeline(LatentCodecMixin):
         ffl = torch.cat([ff_src] + ff_rows, dim=0)
         for start, pat, stop in group_constant_runs(masks, k_inj):
             for i in range(start, stop):
-                inp = torch.cat([traj[cache_idx[i]][:, 1:]] + [x] * n_rows, dim=0)
-                eps = self._eps(inp, int(ts_run[i]), text_all, ffl, frame_stride, pnp=pat,
-                                pnp_chunks=n_rows + 1)
-                eps = combine_guidance(eps[1:], mode, cfg_txt, cfg_img, guidance_rescale)
+                inp = torch.cat([plan.local(traj[cache_idx[i]][:, 1:])] + [x] * n_rows, dim=0)
+                with plan.region():
+                    eps = self._eps(inp, int(ts_run[i]), text_all, ffl, frame_stride, pnp=pat,
+                                    pnp_chunks=n_rows + 1)
+                eps = combine_guidance(eps[1:], mode, cfg_txt, cfg_img, guidance_rescale, plan)
                 x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
         if k_inj < n_run:
             x = self._guided_loop(x, text_all[1:], torch.cat(ff_rows, dim=0), ts_run[k_inj:],
                                   ts_prev[k_inj:], mode, cfg_txt, cfg_img, guidance_rescale,
-                                  frame_stride)
-        return torch.cat([ff_edit, x], dim=1)
+                                  frame_stride, plan)
+        return torch.cat([ff_edit, plan.gather(x)], dim=1)
 
     @torch.inference_mode()
     def _guided_loop(self, x, text_rows, ff_rows, ts, ts_prev, mode, cfg_txt, cfg_img,
-                     guidance_rescale, frame_stride):
+                     guidance_rescale, frame_stride, plan: FramePlan = FramePlan()):
+        """Guided DDIM steps on ``x``, this rank's frames under ``plan``."""
         n_rows = _UNCOND_ROWS[mode]
         for t, t_prev in zip(ts, ts_prev):
-            eps = self._eps(torch.cat([x] * n_rows, dim=0), int(t), text_rows, ff_rows,
-                            frame_stride)
-            eps = combine_guidance(eps, mode, cfg_txt, cfg_img, guidance_rescale)
+            with plan.region():
+                eps = self._eps(torch.cat([x] * n_rows, dim=0), int(t), text_rows, ff_rows,
+                                frame_stride)
+            eps = combine_guidance(eps, mode, cfg_txt, cfg_img, guidance_rescale, plan)
             x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
         return x
 
@@ -246,11 +262,12 @@ class ConsistI2VPipeline(LatentCodecMixin):
         mode = guidance_mode(cfg_txt, cfg_img)
         ts = sampling_timesteps(self.schedule, num_inference_steps)[t_idx:]
         ts_prev = ts - self.schedule.num_train_timesteps // num_inference_steps
-        out = self._guided_loop(init_latent[:, 1:], self._tensor(text_embeds_all),
+        plan = self._frame_plan(init_latent.shape[1] - 1)
+        out = self._guided_loop(plan.local(init_latent[:, 1:]), self._tensor(text_embeds_all),
                                 torch.cat(_first_frame_rows(mode, init_latent[:, :1], ff), dim=0),
                                 ts, ts_prev, mode, cfg_txt, cfg_img, guidance_rescale,
-                                frame_stride)
-        return torch.cat([ff, out], dim=1)
+                                frame_stride, plan)
+        return torch.cat([ff, plan.gather(out)], dim=1)
 
     # ------------------------------------------------------------------
     # FreeInit (reference :208-227, applied at :623-633)

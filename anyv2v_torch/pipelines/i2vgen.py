@@ -16,6 +16,13 @@ The JAX package's ``lax.scan`` programs become Python step loops:
 
 Precision: the scan carries and the trajectory are fp32; the UNet computes in
 its configured dtype (bf16 on the GPU).
+
+``mesh`` (:func:`anyv2v_torch.parallel.mesh.make_mesh`): the frames split
+over its "frame" ranks when they divide the frames and its "cfg" axis is one
+rank; else every rank runs the
+plain program, the rows of plain CFG sampling split over "cfg"
+(:mod:`anyv2v_torch.pipelines.common`). The image latents ride every rank
+whole: the UNet's temporal encoder attends over all their frames.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
-from .common import (HostTrajectory, LatentCodecMixin, device_rows_for_scan,
+from .common import (FramePlan, HostTrajectory, LatentCodecMixin, device_rows_for_scan,
                      group_constant_runs, run_inversion)
 
 
@@ -56,6 +63,7 @@ class I2VGenPipeline(LatentCodecMixin):
     schedule: DiffusionSchedule
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None
 
     # ------------------------------------------------------------------
     # conditioning
@@ -77,7 +85,12 @@ class I2VGenPipeline(LatentCodecMixin):
     @torch.inference_mode()
     def _eps(self, sample, t: int, text, fps: int, image_latents, image_embeds,
              pnp: Optional[Tuple[bool, bool, bool]] = None) -> torch.Tensor:
-        return self.unet(sample, t, text, fps, image_latents, image_embeds, pnp=pnp).float()
+        """One UNet forward, fp32 out. Without PnP (whose injection couples
+        the rows) the rows split over a mesh's "cfg" ranks."""
+        if pnp is not None:
+            return self.unet(sample, t, text, fps, image_latents, image_embeds, pnp=pnp).float()
+        return self._cfg_split(lambda x, tx, il, ie: self.unet(x, t, tx, fps, il, ie).float(),
+                               sample, text, image_latents, image_embeds)
 
     # ------------------------------------------------------------------
     # inversion
@@ -102,16 +115,20 @@ class I2VGenPipeline(LatentCodecMixin):
         if num_save_steps is not None and num_save_steps < num_inversion_steps:
             keep = np.isin(inv_ts, inversion_timesteps(self.schedule, num_save_steps))
         x = self._tensor(video_latents)
+        row_shape = x.shape
         text, il, ie = (self._tensor(a) for a in (text_embeds, image_latents, image_embeds))
+        plan = self._frame_plan(x.shape[1])
+        x = plan.local(x)
 
         def step(i):
             nonlocal x
             t = int(inv_ts[i])
-            x = ddim_inverse_step(self.schedule, x, self._eps(x, t, text, fps, il, ie), t,
-                                  num_inversion_steps)
-            return x
+            with plan.region():
+                eps = self._eps(x, t, text, fps, il, ie)
+            x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
+            return plan.gather(x)
 
-        traj = run_inversion(step, keep, x.shape, self.device, traj_store, chunk_steps)
+        traj = run_inversion(step, keep, row_shape, self.device, traj_store, chunk_steps)
         return traj, inv_ts[keep]
 
     # ------------------------------------------------------------------
@@ -149,7 +166,8 @@ class I2VGenPipeline(LatentCodecMixin):
 
         if not isinstance(traj, HostTrajectory):
             traj = self._tensor(traj)
-        x = traj[cache_idx[0]] if init_latent is None else self._tensor(init_latent)
+        plan = self._frame_plan(traj.shape[2])
+        x = plan.local(traj[cache_idx[0]] if init_latent is None else self._tensor(init_latent))
         text3, il3, ie3 = (self._tensor(a) for a in
                            (text_embeds_all, image_latents_all, image_embeds_all))
 
@@ -163,22 +181,25 @@ class I2VGenPipeline(LatentCodecMixin):
         # static segments: each run of steps has one Python-bool flag pattern
         for start, pat, stop in group_constant_runs(masks, k_inj):
             for i in range(start, stop):
-                inp = torch.cat([traj[cache_idx[i]], x, x], dim=0)
-                eps3 = self._eps(inp, int(ts_run[i]), text3, fps, il3, ie3, pnp=pat)
+                inp = torch.cat([plan.local(traj[cache_idx[i]]), x, x], dim=0)
+                with plan.region():
+                    eps3 = self._eps(inp, int(ts_run[i]), text3, fps, il3, ie3, pnp=pat)
                 _eps_src, eps_neg, eps_edit = eps3.chunk(3, dim=0)
                 eps = eps_neg + guidance_scale * (eps_edit - eps_neg)
                 x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
         if k_inj < n_run:
             x = self._sample_loop(x, text3[1:], il3[1:], ie3[1:], ts_run[k_inj:],
-                                  ts_prev[k_inj:], guidance_scale, fps, do_cfg=True)
-        return x
+                                  ts_prev[k_inj:], guidance_scale, fps, do_cfg=True, plan=plan)
+        return plan.gather(x)
 
     @torch.inference_mode()
     def _sample_loop(self, x, text_all, il_all, ie_all, ts, ts_prev, guidance_scale,
-                     fps, do_cfg: bool):
+                     fps, do_cfg: bool, plan: FramePlan = FramePlan()):
+        """Guided DDIM steps on ``x``, this rank's frames under ``plan``."""
         for t, t_prev in zip(ts, ts_prev):
             inp = torch.cat([x, x], dim=0) if do_cfg else x
-            eps = self._eps(inp, int(t), text_all, fps, il_all, ie_all)
+            with plan.region():
+                eps = self._eps(inp, int(t), text_all, fps, il_all, ie_all)
             if do_cfg:
                 eps_neg, eps_cond = eps.chunk(2, dim=0)
                 eps = eps_neg + guidance_scale * (eps_cond - eps_neg)
@@ -191,7 +212,10 @@ class I2VGenPipeline(LatentCodecMixin):
         """Vanilla DDIM sampling (the reconstruction check)."""
         ts = sampling_timesteps(self.schedule, num_inference_steps)[t_idx:]
         ts_prev = ts - self.schedule.num_train_timesteps // num_inference_steps
-        return self._sample_loop(
-            self._tensor(init_latent), self._tensor(text_embeds_all),
-            self._tensor(image_latents_all), self._tensor(image_embeds_all), ts, ts_prev,
-            guidance_scale, fps, do_cfg=guidance_scale > 1.0)
+        x = self._tensor(init_latent)
+        plan = self._frame_plan(x.shape[1])
+        x = self._sample_loop(
+            plan.local(x), self._tensor(text_embeds_all), self._tensor(image_latents_all),
+            self._tensor(image_embeds_all), ts, ts_prev, guidance_scale, fps,
+            do_cfg=guidance_scale > 1.0, plan=plan)
+        return plan.gather(x)

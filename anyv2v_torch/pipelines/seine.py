@@ -26,7 +26,9 @@ UNet computes in its configured dtype (bf16 on the GPU).
 chunk (as ``I2VGenPipeline.invert``); the edit then moves only the rows it
 reads.
 
-Not ported yet (``ROADMAP.md``): the multi-chip path.
+``mesh``: the frames, with their mask and masked-latent channels, split over
+the "frame" ranks where they divide (:mod:`anyv2v_torch.pipelines.common`);
+the DDPM noise is drawn whole on every rank and each takes its window.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ class SeinePipeline(LatentCodecMixin):
     schedule: DiffusionSchedule
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None
 
     def build_masked_inputs(self, first_frame01, num_frames: int):
         """(mask ``[1, F, h, w, 1]``, masked latent ``[1, F, h, w, 4]``), fp32:
@@ -132,17 +135,20 @@ class SeinePipeline(LatentCodecMixin):
         inv_ts = inversion_timesteps(self.schedule, num_inversion_steps)
         keep = np.isin(inv_ts, sampling_timesteps(self.schedule, num_save_steps))
         x = self._tensor(video_latents)
-        mask, masked = self._tensor(mask), self._tensor(masked_latent)
+        row_shape = x.shape
         text = self._tensor(text_embeds)
+        plan = self._frame_plan(x.shape[1])
+        x, mask, masked = (plan.local(self._tensor(a)) for a in (x, mask, masked_latent))
 
         def step(i):
             nonlocal x
             t = int(inv_ts[i])
-            eps = self._eps(self._nine_channel(x, mask, masked), t, text)
+            with plan.region():
+                eps = self._eps(self._nine_channel(x, mask, masked), t, text)
             x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
-            return x
+            return plan.gather(x)
 
-        traj = run_inversion(step, keep, x.shape, self.device, traj_store, chunk_steps)
+        traj = run_inversion(step, keep, row_shape, self.device, traj_store, chunk_steps)
         return traj, inv_ts[keep]
 
     # ------------------------------------------------------------------
@@ -194,9 +200,11 @@ class SeinePipeline(LatentCodecMixin):
             noises = torch.randn((len(ts),) + tuple(x.shape), generator=gen, device=self.device)
         else:
             noises = self._tensor(noises)
+        plan = self._frame_plan(x.shape[1])
+        x, noises = plan.local(x), plan.local(noises, axis=2)
         text_all = self._tensor(text_embeds_all)
-        mask = self._tensor(mask)
-        m_edit, m_src = self._tensor(masked_edit_latent), self._tensor(masked_src_latent)
+        mask, m_edit, m_src = (plan.local(self._tensor(a)) for a in
+                               (mask, masked_edit_latent, masked_src_latent))
         do_cfg = cfg_scale > 1.0
 
         def guided(eps_cond, eps_uncond):
@@ -211,14 +219,16 @@ class SeinePipeline(LatentCodecMixin):
         for start, pat, stop in group_constant_runs(masks, k_inj):
             for i in range(start, stop):
                 x_in = self._nine_channel(x, mask, m_edit)
-                inp = torch.cat([self._nine_channel(traj[cache_idx[i]], mask, m_src),
+                inp = torch.cat([self._nine_channel(plan.local(traj[cache_idx[i]]), mask, m_src),
                                  x_in, x_in], dim=0)
-                _, e_cond, e_uncond = self._eps(inp, int(ts[i]), text_all, pnp=pat).chunk(3)
+                with plan.region():
+                    _, e_cond, e_uncond = self._eps(inp, int(ts[i]), text_all, pnp=pat).chunk(3)
                 x = self._step(sampler, x, guided(e_cond, e_uncond), ts[i], ts_prev[i],
                                noises[i])
         for i in range(k_inj, len(ts)):
             x_in = self._nine_channel(x, mask, m_edit)
-            e_cond, e_uncond = self._eps(torch.cat([x_in, x_in], dim=0), int(ts[i]),
-                                         text_all[1:]).chunk(2)
+            with plan.region():
+                e_cond, e_uncond = self._eps(torch.cat([x_in, x_in], dim=0), int(ts[i]),
+                                             text_all[1:]).chunk(2)
             x = self._step(sampler, x, guided(e_cond, e_uncond), ts[i], ts_prev[i], noises[i])
-        return x
+        return plan.gather(x)

@@ -57,7 +57,9 @@ def read_frames01(video_path: str) -> np.ndarray:
 class AnyV2VRunner:
     """Holds a built pipeline, so that request after request skips building
     it again (the reference re-loads its pipeline on every click,
-    ``gradio_demo.py:96-100``)."""
+    ``gradio_demo.py:96-100``). ``mesh``: the pipeline's frames shard over
+    it (:func:`anyv2v_torch.parallel.mesh.make_mesh`); every rank then makes
+    the same calls and gets the same edit."""
 
     arch: str = "i2vgen-xl"
     init: str = "random"
@@ -65,6 +67,7 @@ class AnyV2VRunner:
     seed: int = 42
     tokenizer_path: Optional[str] = None
     device: str = "cuda"
+    mesh: object = None
     _pipe: object = field(default=None, repr=False)
     _tokenizer: object = field(default=None, repr=False)
 
@@ -77,7 +80,8 @@ class AnyV2VRunner:
             from ..utils.model_zoo import build_i2vgen_pipeline
 
             self._pipe = build_i2vgen_pipeline(self.arch, device=self.device, init=self.init,
-                                               seed=self.seed, dtype=_DTYPES[self.dtype])
+                                               seed=self.seed, dtype=_DTYPES[self.dtype],
+                                               mesh=self.mesh)
             if self.tokenizer_path:
                 from ..utils.tokenizer import CLIPTokenizer
 

@@ -9,6 +9,7 @@ and all stepping arithmetic is fp32.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -23,6 +24,19 @@ def scaled_linear_betas(num_train_timesteps: int, beta_start: float, beta_end: f
     """The Stable-Diffusion-family schedule: linear in sqrt(beta)."""
     return np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps,
                        dtype=np.float64) ** 2
+
+
+def squaredcos_cap_v2_betas(num_train_timesteps: int, max_beta: float = 0.999) -> np.ndarray:
+    """The Glide cosine schedule: beta_t = 1 - alpha_bar(t+1) / alpha_bar(t),
+    capped at ``max_beta`` (the reference's ``betas_for_alpha_bar``,
+    ``consisti2v/ddim_inverse_scheduler.py:49``)."""
+
+    def alpha_bar(t: float) -> float:
+        return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+
+    return np.array([min(1.0 - alpha_bar((i + 1) / num_train_timesteps)
+                         / alpha_bar(i / num_train_timesteps), max_beta)
+                     for i in range(num_train_timesteps)], dtype=np.float64)
 
 
 def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
@@ -47,6 +61,9 @@ class DiffusionSchedule:
     timestep_spacing: str
     steps_offset: int
     set_alpha_to_one: bool
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+    thresholding: bool = False            # stored, not applied (as the JAX package)
 
     def alpha_bar(self, t: int) -> torch.Tensor:
         """0-dim fp32 alphas_cumprod[t]; t < 0 maps to the final alpha."""
@@ -66,15 +83,26 @@ def make_schedule(
     prediction_type: str = "epsilon",
     timestep_spacing: str = "leading",
     steps_offset: int = 1,
+    clip_sample: bool = False,
+    clip_sample_range: float = 1.0,
+    thresholding: bool = False,
     rescale_betas_zero_snr: bool = False,
     set_alpha_to_one: bool = False,
+    trained_betas=None,
     device="cpu",
 ) -> DiffusionSchedule:
     """Schedule with the diffusers semantics the JAX package implements
-    (defaults: the SD-family scaled_linear, leading spacing, offset 1)."""
-    if beta_schedule not in _BETAS:
+    (defaults: the SD-family scaled_linear, leading spacing, offset 1).
+    ``trained_betas`` overrides ``beta_schedule``; ``clip_sample`` clips the
+    predicted x0 to ``clip_sample_range`` in :func:`to_x0_and_eps`."""
+    if trained_betas is not None:
+        betas = np.asarray(trained_betas, dtype=np.float64)
+    elif beta_schedule == "squaredcos_cap_v2":
+        betas = squaredcos_cap_v2_betas(num_train_timesteps)
+    elif beta_schedule in _BETAS:
+        betas = _BETAS[beta_schedule](num_train_timesteps, beta_start, beta_end)
+    else:
         raise ValueError(f"unknown beta_schedule: {beta_schedule}")
-    betas = _BETAS[beta_schedule](num_train_timesteps, beta_start, beta_end)
     if rescale_betas_zero_snr:
         betas = rescale_zero_terminal_snr(betas)
     alphas_cumprod = np.cumprod(1.0 - betas).astype(np.float32)
@@ -82,7 +110,8 @@ def make_schedule(
         alphas_cumprod=torch.from_numpy(alphas_cumprod).to(device),
         num_train_timesteps=num_train_timesteps, prediction_type=prediction_type,
         timestep_spacing=timestep_spacing, steps_offset=steps_offset,
-        set_alpha_to_one=set_alpha_to_one)
+        set_alpha_to_one=set_alpha_to_one, clip_sample=clip_sample,
+        clip_sample_range=clip_sample_range, thresholding=thresholding)
 
 
 def sampling_timesteps(schedule: DiffusionSchedule, num_inference_steps: int) -> np.ndarray:
@@ -131,12 +160,18 @@ def to_x0_and_eps(schedule: DiffusionSchedule, sample: torch.Tensor,
     sqrt_a, sqrt_1ma = torch.sqrt(a_t), torch.sqrt(1.0 - a_t)
     p = schedule.prediction_type
     if p == "epsilon":
-        return (x - sqrt_1ma * out) / sqrt_a, out
-    if p == "sample":
-        return out, (x - sqrt_a * out) / sqrt_1ma
-    if p == "v_prediction":
-        return sqrt_a * x - sqrt_1ma * out, sqrt_a * out + sqrt_1ma * x
-    raise ValueError(f"unknown prediction_type: {p}")
+        x0, eps = (x - sqrt_1ma * out) / sqrt_a, out
+    elif p == "sample":
+        x0, eps = out, (x - sqrt_a * out) / sqrt_1ma
+    elif p == "v_prediction":
+        x0, eps = sqrt_a * x - sqrt_1ma * out, sqrt_a * out + sqrt_1ma * x
+    else:
+        raise ValueError(f"unknown prediction_type: {p}")
+    if schedule.clip_sample:
+        r = schedule.clip_sample_range
+        x0 = torch.clamp(x0, -r, r)
+        eps = (x - sqrt_a * x0) / sqrt_1ma   # eps of the clipped x0, as the JAX package
+    return x0, eps
 
 
 def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor,

@@ -39,6 +39,13 @@ def center_crop_wide(img, size: Tuple[int, int]):
     return img.crop((x0, y0, x0 + w, y0 + h))
 
 
+def resize_bilinear(img, size: Tuple[int, int]):
+    """A PIL image resized to (width, height), bilinear."""
+    from PIL import Image
+
+    return img.resize(size, Image.BILINEAR)
+
+
 def image_to_array01(img) -> np.ndarray:
     return np.asarray(img.convert("RGB"), np.float32) / 255.0
 
@@ -150,3 +157,12 @@ def load_ddim_trajectory(cache_dir: str, per_step_files: bool = False) -> Tuple[
     ts = np.array([t for t, _ in entries], np.int64)
     traj = np.stack([np.load(os.path.join(cache_dir, n)) for _, n in entries])
     return traj, ts
+
+
+def load_ddim_latents_at_t(t: int, cache_dir: str) -> np.ndarray:
+    """One cached latent, ``ddim_latents_{t}.npy`` (the reference's
+    ``load_ddim_latents_at_t``, ``i2vgen-xl/utils.py:25-30``)."""
+    p = os.path.join(cache_dir, f"ddim_latents_{int(t)}.npy")
+    if not os.path.exists(p):
+        raise FileNotFoundError(p)
+    return np.load(p)

@@ -1,6 +1,7 @@
 """Reconstruction metrics on videos in [0, 1] (the port's own copy of the
 parts of ``anyv2v_tpu/utils/metrics.py`` its CLIs report): PSNR, windowed
-SSIM and the temporal consistency of consecutive frames."""
+SSIM, the temporal consistency of consecutive frames, and the Frechet
+distance between two Gaussians."""
 
 from __future__ import annotations
 
@@ -66,3 +67,16 @@ def video_report(recon: np.ndarray, source: np.ndarray) -> Dict[str, float]:
     }
     out.update(temporal_consistency(recon))
     return out
+
+
+def frechet_distance(mu1, sigma1, mu2, sigma2) -> float:
+    """Frechet distance between two Gaussians (the FID formula; the features
+    are the caller's: the reference's ``util.py:101-135`` used a downloaded
+    InceptionV3)."""
+    from scipy import linalg
+
+    diff = np.asarray(mu1) - np.asarray(mu2)
+    covmean = linalg.sqrtm(np.asarray(sigma1) @ np.asarray(sigma2))
+    if np.iscomplexobj(covmean):
+        covmean = covmean.real
+    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2) - 2 * np.trace(covmean))

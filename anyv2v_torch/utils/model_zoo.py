@@ -283,41 +283,55 @@ def _load_modules(arch: str, dev: torch.device, init: str, seed: int,
     return modules
 
 
+def _mesh_device(device, mesh) -> torch.device:
+    """The checked device; a mesh must be over the same device type."""
+    dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a pipeline on {dev}")
+    return dev
+
+
 def build_i2vgen_pipeline(arch: str = "i2vgen-xl", *, device, init: str = "random",
                           seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                          scheduler_kwargs: Optional[dict] = None) -> I2VGenPipeline:
-    dev = resolve_device(device)
+                          scheduler_kwargs: Optional[dict] = None, mesh=None) -> I2VGenPipeline:
+    """``mesh``: shard the frames (and plain CFG rows) over it
+    (:func:`anyv2v_torch.parallel.mesh.make_mesh`); the weights are
+    replicated from its first rank."""
+    dev = _mesh_device(device, mesh)
     modules = _load_modules(arch, dev, init, seed, dtype)
     schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
     return I2VGenPipeline(unet=modules["unet"], vae=modules["vae"],
                           text_encoder=modules["text"], vision_encoder=modules["vision"],
-                          schedule=schedule, device=dev, dtype=dtype)
+                          schedule=schedule, device=dev, dtype=dtype, mesh=mesh)
 
 
 def build_consisti2v_pipeline(arch: str = "consisti2v", *, device, init: str = "random",
                               seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                              scheduler_kwargs: Optional[dict] = None) -> ConsistI2VPipeline:
+                              scheduler_kwargs: Optional[dict] = None,
+                              mesh=None) -> ConsistI2VPipeline:
+    """``mesh``: as :func:`build_i2vgen_pipeline`'s."""
     if not isinstance(ARCHS[arch]["unet"], VideoLDMUNetConfig):
         raise ValueError(f"{arch} is not a ConsistI2V architecture")
-    dev = resolve_device(device)
+    dev = _mesh_device(device, mesh)
     modules = _load_modules(arch, dev, init, seed, dtype)
     schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
     return ConsistI2VPipeline(unet=modules["unet"], vae=modules["vae"],
                               text_encoder=modules["text"], schedule=schedule,
-                              device=dev, dtype=dtype)
+                              device=dev, dtype=dtype, mesh=mesh)
 
 
 def build_seine_pipeline(arch: str = "seine", *, device, init: str = "random", seed: int = 0,
                          dtype: torch.dtype = torch.bfloat16,
-                         scheduler_kwargs: Optional[dict] = None) -> SeinePipeline:
-    """SEINE with its linear-beta schedule (``scheduler_kwargs`` override it)."""
+                         scheduler_kwargs: Optional[dict] = None, mesh=None) -> SeinePipeline:
+    """SEINE with its linear-beta schedule (``scheduler_kwargs`` override it);
+    ``mesh`` as :func:`build_i2vgen_pipeline`'s."""
     if not isinstance(ARCHS[arch]["unet"], SeineUNetConfig):
         raise ValueError(f"{arch} is not a SEINE architecture")
-    dev = resolve_device(device)
+    dev = _mesh_device(device, mesh)
     modules = _load_modules(arch, dev, init, seed, dtype)
     schedule = make_schedule(**{**SEINE_SCHEDULER, **(scheduler_kwargs or {})}, device=dev)
     return SeinePipeline(unet=modules["unet"], vae=modules["vae"], text_encoder=modules["text"],
-                         schedule=schedule, device=dev, dtype=dtype)
+                         schedule=schedule, device=dev, dtype=dtype, mesh=mesh)
 
 
 def build_image_edit_pipeline(model: str = "instructpix2pix", *, device, init: str = "random",

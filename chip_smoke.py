@@ -114,7 +114,28 @@ Phases:
     editor stage and K1, K2, K4 not, K2 long nowhere, neither open mode be
     reached, requests 2 and 3 must build nothing (the same pipeline and
     editor objects, device memory within 64 MiB of its level after request
-    1) and the peak stay under 80 GB.
+    1) and the peak stay under 80 GB;
+13. frame sharding, one rank's program on this card (``mock_manual_axis(4)``:
+    every collective a local copy of the same shape; run after phase 5, and
+    for ConsistI2V and SEINE after phases 6 and 8, on their pipelines):
+    i2vgen-xl's 128-frame forward at 32 frames per rank (the image latents
+    whole), one at batch 3 (every PnP flag on) and one at batch 1, timed by
+    CUDA events beside phase 5's unsharded forwards and profiled by kernel
+    group; K2 long must launch on all 34 temporal attentions at S 128 over
+    a quarter of the pixels, K1, K3, K4 must launch, K2 and K5 not, the
+    outputs must be finite; then ConsistI2V's and SEINE's forwards at 4 of
+    16 frames (K2 at S 17 / Sk 25 and at S 16 with the bias); phase 3 holds
+    K2 long, K4 (with given s, t) and K3 at the per-rank shapes ("rank of
+    4" cases);
+14. the NCCL leg, only where two or more GPUs are visible (else one line
+    says it did not run): 2 or 4 ranks, one process per GPU (this script
+    with ``--nccl-rank rank world port dir``), run one i2vgen-xl forward and
+    the 16-frame invert (4 steps) + edit (2 steps at guidance 1: a batch-3
+    injection step and a batch-2 tail step) at full width on the frame
+    mesh; each rank's forward and trajectory within 0.02 + 0.05*max|ref| of
+    this process's single-GPU run, its edited latents and video finite and
+    whole (their distance reported, not held: :func:`nccl_checks`), every
+    rank's arrays equal.
 
 Each tiny-arch reference check runs the card's bf16 UNet against the plain
 fp32 path on the CPU with the same bf16-rounded weights and inputs. Phases
@@ -517,6 +538,21 @@ def _kernel_cases():
                                          ("L2", 256, 64, 32, 20), ("L3 (mid)", 64, 64, 32, 20),
                                          ("transformer_in", 4096, 8, 64, 64))],
         (k1, "long image-latent encoder b3*4096 S128 h2 dh8", attn(3 * 4096, 128, 128, 2, 8, 4)),
+        # one rank's program of a 4-rank frame split of the 128-frame path:
+        # every frame over a quarter of the pixels after the all-to-all
+        # (K2 long, K4 with s, t from the all-reduced moments), a quarter of
+        # the frames for the per-frame kernels (K3)
+        *[(k2l, f"rank of 4: {lv} temporal b{b} S128 HW{hw} h{h} dh{dh}",
+           frames(b, 128, hw, h, dh, true_dh))
+          for lv, hw, h, dh, true_dh, batches in (
+              ("L0", 1024, 64, 8, 5, (1, 3)), ("L1", 256, 64, 16, 10, (3,)),
+              ("L2", 64, 64, 32, 20, (3,)), ("L3 (mid)", 16, 64, 32, 20, (1, 3)),
+              ("transformer_in", 1024, 8, 64, 64, (3,)))
+          for b in batches],
+        (k4, "rank of 4: L0 C320 P1024 F128 b3", tconv_args(3, 128, 1024, 320)),
+        (k4, "rank of 4: L2 C1280 P64 F128 b3", tconv_args(3, 128, 64, 1280)),
+        (k4, "rank of 4: mid C1280 P16 F128 b3", tconv_args(3, 128, 16, 1280)),
+        (k3, "rank of 4: L0 C320 rows 3*32*4096", ffn_args(3 * 32 * 4096, 320)),
         (k3, "long L0 C320 rows 3*128*4096", ffn_args(3 * 128 * 4096, 320)),
         (k4, "long L0 C320 P4096 F128 b3", tconv_args(3, 128, 4096, 320)),
         (k4, "long L2 C1280 P256 F128 b3", tconv_args(3, 128, 256, 1280)),
@@ -675,6 +711,12 @@ def main():
     if not torch.cuda.is_available():
         log("no CUDA GPU: torch.cuda.is_available() is False")
         return 1
+    if sys.argv[1:2] == ["--nccl-rank"]:   # one rank of phase 14's NCCL group
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        sys.path.insert(0, REPO)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return nccl_rank_main(rank, world, port, sys.argv[5])
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -684,14 +726,22 @@ def main():
     records = phase_kernels()
     by_path = {}
     by_path["i2vgen-xl"], pipe = phase_main_path()
-    by_path["i2vgen-xl long video"] = phase_long_video(pipe)
+    by_path["i2vgen-xl long video"], unsharded_ms = phase_long_video(pipe)
+    by_path["i2vgen-xl per rank of 4"] = phase_sharded(pipe, unsharded_ms)
+    phase_nccl(pipe)
     del pipe
     torch.cuda.empty_cache()
-    by_path["consisti2v"] = phase_consisti2v()
+    by_path["consisti2v"], pipe = phase_consisti2v()
+    by_path["consisti2v per rank of 4"] = phase_sharded_backbone(
+        "consisti2v", pipe.unet, consisti2v_rank_args, "S17 Sk25")
+    del pipe
     torch.cuda.empty_cache()
     by_path["consisti2v checkpoint folder"] = phase_checkpoint_folder()
     torch.cuda.empty_cache()
-    by_path["seine"] = phase_seine()
+    by_path["seine"], pipe = phase_seine()
+    by_path["seine per rank of 4"] = phase_sharded_backbone(
+        "seine", pipe.unet, seine_rank_args, "S16 Sk16", _seine_k5_role)
+    del pipe
     torch.cuda.empty_cache()
     by_path["instructpix2pix"] = phase_instructpix2pix()
     torch.cuda.empty_cache()
@@ -954,7 +1004,8 @@ def phase_long_video(pipe):
     CLIs' per-entry functions, the trajectory in host memory (two chunks of
     2 steps), the cache files, a PnP edit of one batch-3 injection step and
     one batch-2 tail step, decode. Returns each kernel's launch count over
-    this run."""
+    this run, and the profiled wall ms of one unsharded UNet forward by
+    batch (1 and 3)."""
     from anyv2v_torch.cli.run_group_ddim_inversion import invert_video
     from anyv2v_torch.cli.run_group_pnp_edit import edit_video
     from anyv2v_torch.pipelines.common import HostTrajectory
@@ -1044,12 +1095,309 @@ def phase_long_video(pipe):
     def long_args(batch, g):
         def rn(*shape, scale=1.0):
             return torch.randn(*shape, generator=g, device="cuda") * scale
+        kw = {"pnp": (True, True, True)} if batch == 3 else {}
         return (rn(batch, frames, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
-                rn(batch, frames, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), {
-                    "pnp": (True, True, True)}
+                rn(batch, frames, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), kw
 
-    phase_profile(pipe, "i2vgen-xl 128 frames", long_args, batches=(3,))
+    # batch 1 too: the unsharded forwards beside phase 13's per-rank ones
+    return counts, phase_profile(pipe, "i2vgen-xl 128 frames", long_args, batches=(1, 3))
+
+
+SHARD_RANKS = 4
+
+
+def _mocked(forward):
+    """``forward`` as one rank's program of a SHARD_RANKS-rank frame split,
+    every collective a local op of the same shape."""
+    from anyv2v_torch.parallel.mesh import mock_manual_axis
+
+    def call(*a, **kw):
+        with mock_manual_axis(SHARD_RANKS):
+            return forward(*a, **kw)
+    return call
+
+
+def _per_rank_run(path, forward, make_args, batches, k2_key, k5_role=None):
+    """The per-rank forwards of ``path``: the launch counts of one forward at
+    each of ``batches`` (counts set to 0 just before, read just after), its
+    routes, its outputs' shapes and finiteness, then each forward's device
+    time by CUDA events (2 calls after a warm-up). Returns (counts, routes,
+    outputs' checks, ms by batch)."""
+    wrappers = _wrappers()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    inputs = {b: make_args(b, g) for b in batches}
+    for w in wrappers.values():
+        w.launches = 0
+    outs = {}
+    with torch.inference_mode(), _RouteLog(k5_role or _consisti2v_k5_role) as routes:
+        for b in batches:
+            args, kw = inputs[b]
+            outs[b] = forward(*args, **kw)
+        torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    finite = {b: (tuple(o.shape), bool(torch.isfinite(o).all())) for b, o in outs.items()}
+    del outs
+    ms = {}
+    with torch.inference_mode():
+        for b in batches:
+            args, kw = inputs[b]
+            ms[b] = _time_ms(lambda: forward(*args, **kw), 2)
+            log(f"{path} UNet forward batch {b}: {ms[b]:.1f} ms (CUDA events, mean of 2 after "
+                f"a warm-up)")
+    log(f"kernel launches in the {path} forwards (batches {list(batches)}): {counts}")
+    log(f"{path} routes: K2 by shape {routes.k2}; K5 by role {routes.k5}; SDPA through the "
+        f"dispatcher by head width {routes.sdpa}")
+    if not all(key.startswith(k2_key) for key in routes.k2):
+        raise RuntimeError(f"{path}: a temporal attention off {k2_key}: {routes.k2}")
+    return counts, routes, finite, ms
+
+
+def phase_sharded(pipe, unsharded_ms):
+    """One rank's program of i2vgen-xl's 128-frame path split over 4 ranks,
+    on this card (``mock_manual_axis``): 32 frames per rank, the image
+    latents whole, every frame-coupled op at its per-rank shape (K2 long at
+    all 128 frames over a quarter of the pixels, K4 likewise with the
+    all-reduced moments' s, t). One forward at batch 3 (every PnP flag on)
+    and one at batch 1, timed by CUDA events beside phase 5's unsharded
+    forwards (``unsharded_ms``: their profiled wall ms by batch), then
+    profiled by kernel group. The collectives are local copies
+    of the same shapes: the outputs mean nothing, and are only checked
+    finite. Returns each kernel's launch count over the two forwards."""
+    frames, f_loc = LONG_FRAMES, LONG_FRAMES // SHARD_RANKS
+
+    def args(batch, g):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        kw = {"pnp": (True, True, True)} if batch == 3 else {}
+        return (rn(batch, f_loc, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
+                rn(batch, frames, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), kw
+
+    forward = _mocked(pipe.unet)
+    counts, routes, finite, ms = _per_rank_run(
+        "i2vgen-xl per rank of 4 (128 frames)", forward, args, (3, 1), "long S128 Sk128")
+    for b in (3, 1):
+        whole = unsharded_ms.get(b)
+        log(f"i2vgen-xl 128 frames batch {b}: one rank of 4 {ms[b]:.1f} ms"
+            + ("" if whole is None else f", the unsharded forward {whole:.1f} ms (phase 5's "
+               f"profiled wall), ratio {whole / ms[b]:.2f}"))
+    _check_outputs({
+        **{f"batch {b} per-rank output [{b},{f_loc},64,64,4] finite":
+           finite[b] == ((b, f_loc, 64, 64, 4), True) for b in (3, 1)},
+        f"K2 long on all {TEMPORAL_PER_FORWARD} temporal attentions of 2 forwards, at S128":
+        counts["frame_attention_long"] == 2 * TEMPORAL_PER_FORWARD
+        and sum(routes.k2.values()) == counts["frame_attention_long"],
+        "K2 (S <= 32) and K5 not launched": counts["frame_attention"] == 0
+        and counts["flash_attention"] == 0,
+        "K1, K3, K4 launched": all(counts[n] > 0 for n in (
+            "folded_attention", "ffn_geglu", "gn_silu_temporal_conv")),
+    })
+
+    phase_profile(pipe, "i2vgen-xl per rank of 4 (128 frames)", args, forward=forward)
     return counts
+
+
+def phase_sharded_backbone(arch, unet, make_args, k2_key, k5_role=None):
+    """One rank's program of ``arch``'s 16-frame path split over 4 ranks on
+    this card: 4 frames per rank (ConsistI2V's conditioning frame on every
+    rank), one forward at batch 3 and one at batch 1, outputs finite, K2 at
+    the whole frame axis (``k2_key``). Returns the launch counts."""
+    f_loc = 16 // SHARD_RANKS
+    counts, routes, finite, ms = _per_rank_run(
+        f"{arch} per rank of 4 (16 frames)", _mocked(unet),
+        lambda b, g: make_args(b, g, f_loc), (3, 1), k2_key, k5_role)
+    _check_outputs({
+        **{f"batch {b} per-rank output [{b},{f_loc},64,64,4] finite":
+           finite[b] == ((b, f_loc, 64, 64, 4), True) for b in (3, 1)},
+        "K2 and K3 launched": counts["frame_attention"] > 0 and counts["ffn_geglu"] > 0,
+        "K2 long not launched": counts["frame_attention_long"] == 0,
+    })
+    return counts
+
+
+# the NCCL leg: the 16-frame i2vgen-xl forward and invert + edit on n GPUs
+# against one
+NCCL_FRAMES, NCCL_INV_STEPS, NCCL_EDIT_STEPS = 16, 4, 2
+NCCL_TIMEOUT_S = 900
+
+
+def _nccl_forward(pipe, region=None, rank=0, world=1, size=512):
+    """One i2vgen UNet forward at the edit batch (3 rows, every PnP flag on)
+    on seeded inputs made whole on every device; with ``region`` (the frame
+    group and its size) this rank's frames in a manual-SPMD region, the
+    outputs gathered. Returns the host array."""
+    from anyv2v_torch.parallel.mesh import gather_frames, manual_axis
+
+    g = torch.Generator(device=pipe.device).manual_seed(5)
+    hw, ctx = size // 8, pipe.unet.config.cross_attention_dim
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=pipe.device) * scale
+
+    sample = rn(3, NCCL_FRAMES, hw, hw, 4)
+    args = (501, rn(3, 77, ctx, scale=0.1), 8, rn(3, NCCL_FRAMES, hw, hw, 4),
+            rn(3, 1, ctx, scale=0.1))
+    with torch.inference_mode():
+        if region is None:
+            return pipe.unet(sample, *args, pnp=(True, True, True)).float().cpu().numpy()
+        f = NCCL_FRAMES // world
+        with manual_axis(*region):
+            eps = pipe.unet(sample[:, rank * f:(rank + 1) * f].contiguous(), *args,
+                            pnp=(True, True, True))
+        return gather_frames(eps, region[0], 1).float().cpu().numpy()
+
+
+def _nccl_workload(pipe, size=512):
+    """invert NCCL_INV_STEPS + PnP edit NCCL_EDIT_STEPS (thresholds
+    0.5/0.5/0.5: a batch-3 step, then the batch-2 tail) of a seeded
+    synthetic 16-frame video through the CLIs' per-entry functions. The edit
+    runs at guidance 1, so that its distance to one device shows the
+    sharded path's bf16 drift and not the guidance weight's amplification of
+    it. Returns the host arrays of the
+    trajectory, the edited latents and the video, and the seconds of each
+    stage (between synchronisations)."""
+    from anyv2v_torch.cli.run_group_ddim_inversion import invert_video
+    from anyv2v_torch.cli.run_group_pnp_edit import edit_video
+    from anyv2v_torch.pipelines.i2vgen import PnPConfig
+
+    video = _synthetic_video(np.random.RandomState(9), NCCL_FRAMES, size)
+    ids = np.zeros((1, 77), np.int64)
+    cuda = pipe.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    _, traj, inv_ts, *_ = invert_video(pipe, video, text_ids=ids, n_steps=NCCL_INV_STEPS, fps=8,
+                                       clip_width=size)
+    sync()
+    t1 = time.perf_counter()
+    out, edited = edit_video(pipe, traj, inv_ts, video[0], np.ascontiguousarray(video[0][::-1]),
+                             text_ids=(ids, ids, ids), n_frames=NCCL_FRAMES,
+                             n_steps=NCCL_EDIT_STEPS, t_idx=0, guidance_scale=1.0,
+                             pnp=PnPConfig(0.5, 0.5, 0.5), fps=8, clip_width=size)
+    sync()
+    t2 = time.perf_counter()
+    return ({"traj": traj.float().cpu().numpy(), "out": out.float().cpu().numpy(),
+             "video": edited.float().cpu().numpy()},
+            {"encode+invert": t1 - t0, "edit+decode": t2 - t1})
+
+
+def nccl_rank_main(rank, world, port, out_dir, backend="nccl", device="cuda",
+                   arch="i2vgen-xl", size=512, dtype=torch.bfloat16):
+    """One rank of the NCCL leg: join the group, build ``arch`` with the
+    frame mesh (the same seeded weights on every rank), run one sharded UNet
+    forward and :func:`_nccl_workload`, write the arrays to
+    ``<out_dir>/<rank>.npz``."""
+    import torch.distributed as dist
+
+    from anyv2v_torch.parallel.mesh import make_mesh
+    from anyv2v_torch.utils.model_zoo import build_i2vgen_pipeline
+
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(1, world, device_type=device)
+        pipe = build_i2vgen_pipeline(arch, device=device, seed=0, dtype=dtype, mesh=mesh)
+        wrappers = _wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        arrays = {"forward": _nccl_forward(pipe, (mesh.get_group("frame"), world), rank, world,
+                                           size)}
+        with torch.inference_mode():
+            workload, secs = _nccl_workload(pipe, size)
+        arrays.update(workload)
+        np.savez(os.path.join(out_dir, f"{rank}.npz"), **arrays)
+        log(f"NCCL rank {rank}/{world}: {secs} s; kernel launches "
+            f"{ {n: w.launches for n, w in wrappers.items()} }")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_nccl(pipe):
+    """The sharded path across cards, where two or more GPUs are visible: 2
+    or 4 NCCL ranks (one process per GPU, this script with
+    ``--nccl-rank``) run one i2vgen-xl UNet forward and the 16-frame invert
+    + edit at full width on the frame mesh, against this process's
+    single-GPU runs, by :func:`nccl_checks`. With one GPU visible the leg
+    does not run, and says so."""
+    n_gpu = torch.cuda.device_count()
+    if n_gpu < 2:
+        log(f"sharded NCCL leg: NOT RUN ({n_gpu} GPU visible; it needs 2 or more) - the "
+            "collectives across cards are not exercised by this run")
+        return
+    world = 4 if n_gpu >= 4 else 2
+    want = {"forward": _nccl_forward(pipe)}
+    with torch.inference_mode():
+        workload, secs = _nccl_workload(pipe)
+    want.update(workload)
+    log(f"NCCL leg single-GPU reference: {secs} s")
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nccl-rank",
+                                   str(r), str(world), str(port), out_dir])
+                 for r in range(world)]
+        deadline = time.monotonic() + NCCL_TIMEOUT_S
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        rcs = [proc.returncode for proc in procs]
+        if any(rcs):
+            raise RuntimeError(f"NCCL leg: rank exit codes {rcs}")
+        got = []
+        for r in range(world):
+            with np.load(os.path.join(out_dir, f"{r}.npz")) as arrays:
+                got.append(dict(arrays))
+    checks, errors = nccl_checks(want, got)
+    log(f"sharded NCCL leg on {world} GPUs of {n_gpu} (max_abs_err, bound) against one GPU "
+        f"(the edit's out and video reported, not held): {errors}")
+    _check_outputs(checks)
+
+
+NCCL_HELD = ("forward", "traj")
+
+
+def nccl_checks(want, got_by_rank):
+    """The NCCL leg's checks of every rank's arrays (``got_by_rank``) against
+    the single-device run's (``want``): the forward and the trajectory
+    within 0.02 + 0.05*max|ref| (the tiny reference checks' bf16 bound); the
+    edited latents and video finite, of the whole clip's shape; every
+    array equal on every rank (each rank gathers the whole clip). The
+    edit's distance to one device is reported and not held: its last step
+    returns the x0 prediction, which divides the UNet's bf16 differences
+    (the sharded forwards' smaller GEMMs round otherwise) by sqrt(alpha) of
+    a noisy step, and decoding spreads them further; on four H100s a
+    2-step guidance-1 edit's latents moved 0.111 (bound 0.101) and its
+    video 0.242 (bound 0.07). The fp32 gloo tests hold the sharded edit
+    loop to one process. Returns (checks, {"rank r key": (max_abs_err,
+    bound)})."""
+    checks, errors = {}, {}
+    for r, got in enumerate(got_by_rank):
+        for key, ref in want.items():
+            shaped = got[key].shape == ref.shape
+            err = float(np.abs(got[key] - ref).max()) if shaped else float("inf")
+            bound = 0.02 + 0.05 * float(np.abs(ref).max())
+            errors[f"rank {r} {key}"] = (err, bound)
+            if key in NCCL_HELD:
+                checks[f"NCCL rank {r} {key} within its bound"] = bool(np.isfinite(err)
+                                                                      and err <= bound)
+            else:
+                checks[f"NCCL rank {r} {key} finite, the whole clip's shape"] = bool(
+                    shaped and np.isfinite(got[key]).all())
+        checks[f"NCCL rank {r} equal to rank 0"] = all(
+            np.array_equal(got[key], got_by_rank[0][key]) for key in want)
+    return checks, errors
 
 
 def _consisti2v_k5_role(q, k, heads, k_ctx):
@@ -1109,7 +1457,7 @@ class _RouteLog:
 def phase_consisti2v():
     """ConsistI2V at full width: invert -> cache files -> dual-CFG PnP edit ->
     decode, through the CLIs' per-entry functions. Returns each kernel's
-    launch count over this run."""
+    launch count over this run, and the pipeline."""
     from anyv2v_torch.cli.consisti2v_run_ddim_inversion import invert_video
     from anyv2v_torch.cli.consisti2v_run_pnp_edit import edit_video, output_stem
     from anyv2v_torch.pipelines.i2vgen import PnPConfig
@@ -1199,7 +1547,17 @@ def phase_consisti2v():
                 rn(batch, 1, 64, 64, 4), 3), kw
 
     phase_profile(pipe, "consisti2v", consisti2v_args)
-    return counts
+    return counts, pipe
+
+
+def consisti2v_rank_args(batch, g, frames):
+    """A full-width ConsistI2V UNet forward's inputs at ``frames`` denoised
+    frames, the conditioning frame apart; every PnP flag on at batch 3."""
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+    kw = {"pnp": (True, True, True), "pnp_chunks": 3} if batch == 3 else {}
+    return (rn(batch, frames, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1),
+            rn(batch, 1, 64, 64, 4), 3), kw
 
 
 # ---------------------------------------------------------------------------
@@ -1450,7 +1808,7 @@ def seine_tiny_args(seed):
 def phase_seine():
     """SEINE at full width: invert (every step on the save grid) -> cache
     files -> DDPM PnP edit -> decode, through the CLIs' per-entry functions.
-    Returns each kernel's launch count over this run."""
+    Returns each kernel's launch count over this run, and the pipeline."""
     from anyv2v_torch.cli.seine_run_ddim_inversion import invert_video
     from anyv2v_torch.cli.seine_run_pnp_edit import edit_video
     from anyv2v_torch.pipelines.seine import SeinePnPConfig
@@ -1528,16 +1886,21 @@ def phase_seine():
     })
 
     phase_profile(pipe, "seine", seine_forward_args)
-    return counts
+    return counts, pipe
 
 
-def seine_forward_args(batch, g):
-    """A full-width SEINE UNet forward's inputs for the profile: 16 frames
-    of 64x64 9-channel latents, every PnP flag on at the edit batch 3."""
+def seine_rank_args(batch, g, frames):
+    """A full-width SEINE UNet forward's inputs: ``frames`` frames of 64x64
+    9-channel latents, every PnP flag on at the edit batch 3."""
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale
     kw = {"pnp": (True, True, True, True)} if batch == 3 else {}
-    return (rn(batch, 16, 64, 64, 9), 501, rn(batch, 77, 768, scale=0.1)), kw
+    return (rn(batch, frames, 64, 64, 9), 501, rn(batch, 77, 768, scale=0.1)), kw
+
+
+def seine_forward_args(batch, g):
+    """The profile's SEINE forward: 16 frames."""
+    return seine_rank_args(batch, g, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -1993,11 +2356,13 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNe
     and the host's waits on the device (stream syncs, host-to-device copies)
     inside the forward. ``forward`` (default ``pipe.unet``) is what one
     forward calls, ``what`` its name in the log (InstantStyle: its
-    ControlNet, then its UNet)."""
+    ControlNet, then its UNet). Returns each forward's profiled wall ms by
+    batch."""
     from torch.profiler import ProfilerActivity, profile
 
     forward = forward or pipe.unet
     g = torch.Generator(device="cuda").manual_seed(2)
+    walls = {}
     for batch in batches:
         args, kw = make_args(batch, g)
         with torch.inference_mode(), _ClockSampler() as clocks:
@@ -2025,6 +2390,7 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNe
         if silent:
             raise RuntimeError(f"profile {arch} batch {batch}: {silent} launched but no "
                                "device event carries its kernel's name")
+        walls[batch] = wall_ms
         log(f"profile {arch} {what} forward batch {batch}: wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); by group (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
@@ -2034,6 +2400,7 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNe
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         for e in top:
             log(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<4d} {e.key[:110]}")
+    return walls
 
 
 if __name__ == "__main__":

@@ -41,7 +41,8 @@ PORT_MODULES = [
     "anyv2v_torch.product.predictor", "anyv2v_torch.product.gradio_app",
     "anyv2v_torch.product.web_demo", "anyv2v_torch.product.walkthrough",
     "anyv2v_torch.cli.gradio_demo", "anyv2v_torch.cli.gradio_demo_cosxl",
-    "anyv2v_torch.cli.gradio_demo_style",
+    "anyv2v_torch.cli.gradio_demo_style", "anyv2v_torch.parallel",
+    "anyv2v_torch.parallel.mesh",
 ]
 FORBIDDEN = ("jax", "anyv2v_tpu")
 # host packages the card's machine lacks: only functions that need them

@@ -15,7 +15,7 @@ and so must every K3 (GEGLU feed-forward) and K4 (temporal conv) shape.
 import pytest
 import torch
 
-from anyv2v_torch.models import layers, unet_videoldm
+from anyv2v_torch.models import layers
 from anyv2v_torch.ops import _build, attention, ffn
 from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops import folded_attention as fa
@@ -55,9 +55,9 @@ def _stub_kernels(monkeypatch):
         return torch.empty(*x.shape[:-1], w.shape[2], device=x.device, dtype=x.dtype)
 
     monkeypatch.setattr(layers, "ffn_geglu", ffn)
-
-    monkeypatch.setattr(layers, "gn_silu_temporal_conv", tconv)
-    monkeypatch.setattr(unet_videoldm, "gn_silu_temporal_conv", tconv)
+    # the temporal convs of both UNets launch K4 through
+    # temporal_conv.groupnorm_silu_temporal_conv
+    monkeypatch.setattr(tc, "gn_silu_temporal_conv", tconv)
     return seen
 
 
