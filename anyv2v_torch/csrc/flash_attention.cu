@@ -1,15 +1,20 @@
-// K5 flash_attention: softmax(q k^T * scale) v with an fp32 online softmax,
-// heads folded into the channel dim: q [B, Sq, H*DH], k/v [B, Sk, H*DH],
-// bf16 in and out. Optional split-KV: a second K/V source kc/vc
+// K5 flash_attention: softmax(q k^T * scale + bias) v with an fp32 online
+// softmax, heads folded into the channel dim: q [B, Sq, H*DH], k/v
+// [B, Sk, H*DH], bf16 in and out. Optional score bias (fp32, [H, Sq, Sk]
+// shared by the batch, or [B, H, Sq, Sk]), added after the scale. Optional
+// split-KV (never with a bias): a second K/V source kc/vc
 // [B / frames, Sk2, H*DH] that query row b reads at b / frames, under the
 // same softmax as the row's own keys.
 //
 // Replaces (anyv2v_tpu/ops/):
-//   pallas_attention.py       _flash_kernel         (split-head flash; here
+//   pallas_attention.py       _flash_kernel         (split-head flash, with
+//                                                    its additive bias; here
 //                                                    the temporal transformer's
 //                                                    cross-attention, Sq 17*HW,
-//                                                    and SEINE's spatial self-
-//                                                    attention)
+//                                                    SEINE's spatial self-
+//                                                    attention, and any biased
+//                                                    attention outside the
+//                                                    frame kernels' class)
 //   pallas_attention.py       _flash_splitkv_kernel (ConsistI2V first-frame
 //                                                    concat self-attention)
 //   pallas_cross_attention.py _cross_kernel         (long queries over short
@@ -29,9 +34,10 @@
 // TMA without register traffic; 128 query rows per block halve the K/V
 // rereads of 64-row blocks (17.1 GB from L2 at L0 split-KV).
 //
-// Design (every head width 8/16/40/64/80/160 takes this one body; 8 and 16
-// run it with the score depth padded to 16): a block of three warpgroups
-// owns 128 query rows of one (batch row, head).
+// Design (every head width that is a multiple of 8 up to 128, and 160, takes
+// this one body; the odd multiples of 8 run it with the score depth padded to
+// 16): a block of three warpgroups owns 128 query rows of one (batch row,
+// head).
 //  - Producer (warpgroup 2, one thread): TMA loads of Q once and of 128-key
 //    K/V tiles into a ring of 3 stages (2 at dh 160) guarded by mbarriers
 //    (full: bytes landed; empty: all 8 consumer warps done), first the row's
@@ -48,10 +54,21 @@
 //    contiguous bytes; one TMA box of [rows, 8 channels] per chunk, from a
 //    3-D tensor map over [B, S, C] whose row bound zero-fills past a batch
 //    row's end without reading the next row. A box never spans more than its
-//    own head's channels: at dh 8 and 40 the score depth's pad chunk is zero
-//    in Q and K, written once before the pipeline starts.
+//    own head's channels: at dh 8, 24, 40, ... the score depth's pad chunk is
+//    zero in Q and K, written once before the pipeline starts.
 //  - Output: normalised, staged as bf16 in the warpgroup's own Q rows, then
 //    stored with 16-byte stores; query rows past Sq store nothing.
+//  - Bias (a template flag, so the unbiased instances compile as before):
+//    each consumer thread reads its own accumulator fragment's bias values
+//    (2 rows x 64 keys of a tile) straight from global memory after the
+//    score wgmma, and the softmax runs on s * scale * log2e + bias * log2e
+//    (the row maxima can no longer be taken on the raw scores). Nothing is
+//    staged, so shared memory is as without a bias (a 128x128 fp32 tile
+//    would not fit beside dh 160's ring). Rows past Sq read row Sq - 1 (their
+//    outputs are never stored), keys past Sk are never read. Bytes: the bias
+//    is read once per block, so a bias shared by the batch is read B times
+//    from HBM (the grid's batch index is its slowest): at SEINE's L0 self
+//    shape, 48 rows x 8 heads x 4096^2 x 4 bytes = 25.8 GB.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,27 +105,29 @@ struct Cfg {
 
 // O[64 x DH] += P[64 x 16] . V[16 x DH] for one 16-key step of a V tile at
 // `vaddr` (MN-major: 8-key groups 128 bytes apart, channel chunks BK*16),
-// DH split into instructions of width 128/64/32/16/8.
-template <int DH>
+// DH split greedily into instructions of width 128/64/32/16/8 from column C0
+// on (40 = 32 + 8, 80 = 64 + 16, 160 = 128 + 32); each piece's accumulators
+// follow the previous piece's, 4 registers per 8 columns.
+template <int DH, int C0 = 0>
 __device__ __forceinline__ void pv_step(float* o, const uint32_t (&a)[4], uint32_t vaddr) {
   using namespace hopper;
-  auto desc = [&](int c0) { return wgmma_desc(vaddr + (c0 / 8) * BK * 16, 128, BK * 16); };
-  if constexpr (DH == 8) {
-    wgmma_rs_n8(o, a, desc(0));
-  } else if constexpr (DH == 16) {
-    wgmma_rs_n16(o, a, desc(0));
-  } else if constexpr (DH == 40) {
-    wgmma_rs_n32(o, a, desc(0));
-    wgmma_rs_n8(o + 16, a, desc(32));
-  } else if constexpr (DH == 64) {
-    wgmma_rs_n64(o, a, desc(0));
-  } else if constexpr (DH == 80) {
-    wgmma_rs_n64(o, a, desc(0));
-    wgmma_rs_n16(o + 32, a, desc(64));
-  } else {
-    static_assert(DH == 160, "head widths 8/16/40/64/80/160");
-    wgmma_rs_n128(o, a, desc(0));
-    wgmma_rs_n32(o + 64, a, desc(128));
+  static_assert(DH % 8 == 0 && DH <= 160, "head widths: multiples of 8 up to 160");
+  constexpr int R = DH - C0;
+  if constexpr (R > 0) {
+    constexpr int N = R >= 128 ? 128 : R >= 64 ? 64 : R >= 32 ? 32 : R >= 16 ? 16 : 8;
+    const uint64_t d = wgmma_desc(vaddr + (C0 / 8) * BK * 16, 128, BK * 16);
+    if constexpr (N == 128) {
+      wgmma_rs_n128(o + C0 / 2, a, d);
+    } else if constexpr (N == 64) {
+      wgmma_rs_n64(o + C0 / 2, a, d);
+    } else if constexpr (N == 32) {
+      wgmma_rs_n32(o + C0 / 2, a, d);
+    } else if constexpr (N == 16) {
+      wgmma_rs_n16(o + C0 / 2, a, d);
+    } else {
+      wgmma_rs_n8(o + C0 / 2, a, d);
+    }
+    pv_step<DH, C0 + N>(o, a, vaddr);
   }
 }
 
@@ -153,6 +172,20 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int n, float sc
   l1 = l1 * c1 + r1;
 }
 
+// The score tile in the exp2 domain with its bias: s * scale_log2 + bias *
+// log2e for this thread's rows (ba, bb: the bias rows of g and g+8) and keys
+// below n; keys >= n are left for softmax_tile to mask.
+__device__ __forceinline__ void add_bias(float (&s)[BK / 2], const float* __restrict__ ba,
+                                         const float* __restrict__ bb, int n, float scale_log2) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int key = (i / 4) * 8 + 2 * t + (i & 1);
+    if (key < n) s[i] = fmaf(s[i], scale_log2, LOG2E * __ldg((i & 2 ? bb : ba) + key));
+  }
+}
+
 // The numerators as bf16 A fragments: a 16-key step pairs two 8-key tiles.
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
@@ -167,9 +200,12 @@ struct Maps {
   CUtensorMap q, k, v, kc, vc;
 };
 
-template <int DH>
+// bias: [H, Sq, Sk] per batch row, `bias_stride` floats apart (0: shared by
+// the batch); read only by the BIAS instances.
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(
-    const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o, int Sq, int Sk, int Sk2,
+    const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o,
+    const float* __restrict__ bias, long long bias_stride, int Sq, int Sk, int Sk2,
     int frames, int C, float scale_log2) {
   using namespace hopper;
   using F = Cfg<DH>;
@@ -193,7 +229,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(
     mbar_init(qbar, 1);
     mbar_fence_init();
   }
-  if constexpr (F::QCH > F::VCH) {   // the zero pad chunk of the score depth (dh 8, 40)
+  if constexpr (F::QCH > F::VCH) {   // the zero pad chunk of the score depth (dh 8, 24, 40, ...)
     for (int e = threadIdx.x; e < BQ + F::STAGES * BK; e += THREADS) {
       unsigned char* dst = e < BQ ? qs + F::VCH * BQ * 16 + e * 16
                                   : smem + F::K_OFF + ((e - BQ) / BK) * F::K_BYTES +
@@ -242,6 +278,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(
     for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
+    // this thread's bias rows g and g+8 (rows past Sq read row Sq - 1)
+    const float *bias_a = nullptr, *bias_b = nullptr;
+    if constexpr (BIAS) {
+      const int ra = r0 + role * 64 + (tw / 32) * 16 + lane / 4;
+      const float* bh = bias + b * bias_stride + (size_t)h * Sq * Sk;
+      bias_a = bh + (size_t)min(ra, Sq - 1) * Sk;
+      bias_b = bh + (size_t)min(ra + 8, Sq - 1) * Sk;
+    }
+
     mbar_wait(qbar, 0);
     for (int tile = 0; tile < tiles; ++tile) {
       const int stage = tile % F::STAGES;
@@ -264,7 +309,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(
       for (int i = 0; i < BK / 2; ++i) fence_operand(s[i]);
 
       float c0, c1;
-      softmax_tile(s, n, scale_log2, m0, m1, l0, l1, c0, c1);
+      if constexpr (BIAS) {   // one key source: the tile's keys start at tile * BK
+        add_bias(s, bias_a + tile * BK, bias_b + tile * BK, n, scale_log2);
+        softmax_tile(s, n, 1.f, m0, m1, l0, l1, c0, c1);
+      } else {
+        softmax_tile(s, n, scale_log2, m0, m1, l0, l1, c0, c1);
+      }
 #pragma unroll
       for (int i = 0; i < DH / 2; i += 4) {
         acc[i + 0] *= c0;
@@ -325,10 +375,10 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int C, int rows) 
   return hopper::make_bf16_map(map, ptr, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <int DH>
+template <int DH, bool BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kc,
-                   const void* vc, void* o, int B, int Sq, int Sk, int Sk2,
-                   int frames, int H, float scale, cudaStream_t stream) {
+                   const void* vc, void* o, const float* bias, long long bias_stride, int B,
+                   int Sq, int Sk, int Sk2, int frames, int H, float scale, cudaStream_t stream) {
   const int C = H * DH;
   Maps maps;
   if (!make_map(&maps.q, q, B, Sq, C, BQ) || !make_map(&maps.k, k, B, Sk, C, BK) ||
@@ -343,42 +393,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kc,
     maps.vc = maps.v;
   }
   const int smem = Cfg<DH>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DH, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-  flash_attention_kernel<DH><<<grid, THREADS, smem, stream>>>(
-      maps, (__nv_bfloat16*)o, Sq, Sk, Sk2, frames, C, scale * 1.4426950408889634f);
+  flash_attention_kernel<DH, BIAS><<<grid, THREADS, smem, stream>>>(
+      maps, (__nv_bfloat16*)o, bias, bias_stride, Sq, Sk, Sk2, frames, C,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// kc/vc may be null with Sk2 == 0. Every pointer 16-byte aligned, rows
-// contiguous with stride H*DH; scale > 0. smem_bytes is ops/flash_attention.py's plan,
-// refused unless it matches this file's layout.
+// kc/vc may be null with Sk2 == 0; bias null, or contiguous fp32 [H, Sq, Sk]
+// (bias_per_batch 0) or [B, H, Sq, Sk] (1), never with Sk2 > 0. Every
+// pointer 16-byte aligned, rows contiguous with stride H*DH; scale > 0.
+// smem_bytes is ops/flash_attention.py's plan, refused unless it matches this
+// file's layout.
 extern "C" int anyv2v_flash_attention(const void* q, const void* k, const void* v,
                                       const void* kc, const void* vc, void* o,
+                                      const void* bias, int bias_per_batch,
                                       int B, int Sq, int Sk, int Sk2, int frames,
                                       int H, int DH, float scale, int smem_bytes,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || Sk2 < 0 || H <= 0 ||
       H > 65535 || frames <= 0 || B % frames != 0 || !(scale > 0.f) ||
-      (Sk2 > 0 && (kc == nullptr || vc == nullptr)))
+      (Sk2 > 0 && (kc == nullptr || vc == nullptr)) || (bias != nullptr && Sk2 > 0))
     return (int)cudaErrorInvalidValue;
+  const float* bf = (const float*)bias;
+  const long long stride = bias_per_batch ? (long long)H * Sq * Sk : 0;
   switch (DH) {
-#define ANYV2V_CASE(D) \
-  case D:              \
-    return smem_bytes == Cfg<D>::SMEM                                              \
-               ? (int)launch<D>(q, k, v, kc, vc, o, B, Sq, Sk, Sk2, frames, H, scale, s) \
-               : (int)cudaErrorInvalidValue;
-    ANYV2V_CASE(8)
-    ANYV2V_CASE(16)
-    ANYV2V_CASE(40)
-    ANYV2V_CASE(64)
-    ANYV2V_CASE(80)
-    ANYV2V_CASE(160)
+#define ANYV2V_CASE(D)                                                                         \
+  case D:                                                                                      \
+    if (smem_bytes != Cfg<D>::SMEM) return (int)cudaErrorInvalidValue;                         \
+    return bf ? (int)launch<D, true>(q, k, v, kc, vc, o, bf, stride, B, Sq, Sk, Sk2, frames, H, \
+                                     scale, s)                                                 \
+              : (int)launch<D, false>(q, k, v, kc, vc, o, bf, 0, B, Sq, Sk, Sk2, frames, H,     \
+                                      scale, s);
+    ANYV2V_CASE(8) ANYV2V_CASE(16) ANYV2V_CASE(24) ANYV2V_CASE(32) ANYV2V_CASE(40)
+    ANYV2V_CASE(48) ANYV2V_CASE(56) ANYV2V_CASE(64) ANYV2V_CASE(72) ANYV2V_CASE(80)
+    ANYV2V_CASE(88) ANYV2V_CASE(96) ANYV2V_CASE(104) ANYV2V_CASE(112) ANYV2V_CASE(120)
+    ANYV2V_CASE(128) ANYV2V_CASE(160)
 #undef ANYV2V_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -28,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention, padded_head_dim, temporal_attention
-from ..ops.ffn import ffn_geglu, fits as ffn_fits
+from ..ops.ffn import ffn_geglu, ffn_gelu, fits as ffn_fits
 from ..ops.pnp import inject_source_rows
 from ..ops.temporal_conv import groupnorm_silu_temporal_conv
 from ..parallel.mesh import around_frame_op
@@ -288,17 +288,19 @@ class Attention(nn.Module):
 
     def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False,
                 ip_tokens: Optional[torch.Tensor] = None, ip_scale: float = 1.0,
-                pixel_sharded: bool = False):
+                pixel_sharded: bool = False, bias: Optional[torch.Tensor] = None):
+        """``bias``: an additive score bias, broadcastable to ``[B, heads, Sq,
+        Sk]`` (with ``frame_axis``: fp32 ``[heads, S, Sk]``)."""
         ctx = x if context is None else context
         q = inject_source_rows(self.to_q(x), inject, self.pnp_chunks)
         k = inject_source_rows(self.to_k(ctx), inject, self.pnp_chunks)
         v = self.to_v(ctx)
         if frame_axis:
             # temporal tokens [B, F, HW, C]: attend over F in place
-            out = temporal_attention(q, k, v, self.heads, self.scale,
+            out = temporal_attention(q, k, v, self.heads, self.scale, bias=bias,
                                      pixel_sharded=pixel_sharded)
         else:
-            out = multi_head_attention(q, k, v, self.heads, self.scale)
+            out = multi_head_attention(q, k, v, self.heads, self.scale, bias=bias)
         if ip_tokens is not None and hasattr(self, "to_k_ip"):
             # out + ip_scale * attn(q, k_ip, v_ip): the same queries over the
             # image tokens, under a softmax of their own
@@ -316,7 +318,8 @@ class _Proj(nn.Module):
 
 class FeedForward(nn.Module):
     """diffusers FeedForward (``net.0.proj``, ``net.2``) with exact-erf GELU.
-    The GEGLU form routes to the K3 kernel where it fits (C <= 768)."""
+    Both forms route to the K3 kernel where it fits (C <= 768, C % 32 == 0),
+    as the JAX package's to its fused Pallas kernel."""
 
     def __init__(self, dim: int, mult: int = 4, activation: str = "geglu"):
         super().__init__()
@@ -337,6 +340,8 @@ class FeedForward(nn.Module):
                 return ffn_geglu(x.contiguous(), proj.weight, proj.bias, out.weight, out.bias)
             h, gate = proj(x).chunk(2, dim=-1)
             return out(h * F.gelu(gate))
+        if ffn_fits(x.shape[-1], out.in_features):
+            return ffn_gelu(x.contiguous(), proj.weight, proj.bias, out.weight, out.bias)
         return out(F.gelu(proj(x)))
 
 
@@ -359,10 +364,12 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context=None, inject: bool = False, frame_axis: bool = False,
-                ip_tokens=None, ip_scale: float = 1.0, pixel_sharded: bool = False):
+                ip_tokens=None, ip_scale: float = 1.0, pixel_sharded: bool = False,
+                bias: Optional[torch.Tensor] = None):
+        """``bias`` reaches attn1 only, as in the JAX block."""
         dt = self.dtype
         x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inject,
-                           frame_axis=frame_axis, pixel_sharded=pixel_sharded)
+                           frame_axis=frame_axis, pixel_sharded=pixel_sharded, bias=bias)
         x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context,
                            frame_axis=frame_axis, ip_tokens=ip_tokens, ip_scale=ip_scale,
                            pixel_sharded=pixel_sharded)
@@ -406,7 +413,14 @@ class TemporalTransformer(nn.Module):
     both attentions of the block attend over F (K2). Inside a manual-SPMD
     region one all-to-all at the module boundary gives the whole block every
     frame (norms, projections and FF are per token), where the pixels divide
-    into shares of at least 8; elsewhere each attention gathers the frames."""
+    into shares of at least 8; elsewhere each attention gathers the frames.
+
+    With a ``bias`` (broadcastable to ``[B*H*W, heads, F, F]``, added to
+    attn1's scores) the block runs on ``[(B H W), F, C]`` rows through the
+    dispatcher, as the JAX module does; a bias that every row shares reaches
+    K2 there, on the ``[B, S, 1, C]`` view. The frames are then gathered (or
+    the pixels sharded) around the whole block inside a manual-SPMD
+    region."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32,
                  dtype=torch.float32, pnp_chunks: int = 3):
@@ -419,16 +433,23 @@ class TemporalTransformer(nn.Module):
             inner, heads, head_dim, None, dtype, pnp_chunks)])
         self.proj_out = nn.Linear(inner, channels)
 
-    def forward(self, x, inject: bool = False):
+    def forward(self, x, inject: bool = False, bias: Optional[torch.Tensor] = None):
         b, f, h, w, c = x.shape
         y = group_norm(x.reshape(b * f, h, w, c), self.norm).to(self.dtype)
 
         def block(y, mode):
-            y = self.transformer_blocks[0](self.proj_in(y), inject=inject, frame_axis=True,
-                                           pixel_sharded=mode == "pixels")
+            y = self.proj_in(y)
+            if bias is None:
+                y = self.transformer_blocks[0](y, inject=inject, frame_axis=True,
+                                               pixel_sharded=mode == "pixels")
+            else:
+                rb, rf, rp, rc = y.shape
+                rows = y.transpose(1, 2).reshape(rb * rp, rf, rc)
+                y = self.transformer_blocks[0](rows, inject=inject, bias=bias)
+                y = y.reshape(rb, rp, rf, -1).transpose(1, 2)
             return self.proj_out(y)
 
-        y = around_frame_op(block, (y.reshape(b, f, h * w, c),), gather=False)
+        y = around_frame_op(block, (y.reshape(b, f, h * w, c),), gather=bias is not None)
         return y.reshape(b, f, h, w, c) + x
 
 

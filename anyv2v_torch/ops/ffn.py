@@ -1,10 +1,13 @@
-"""K3: GEGLU feed-forward, ``(v * gelu(g)) @ W2 + b2`` with
-``[v, g] = x @ W1 + b1``, without the fp32 ``[N, 2*4C]`` pre-activation in HBM.
+"""K3: the feed-forward in its two forms, without the fp32 pre-activation in
+HBM: GEGLU, ``(v * gelu(g)) @ W2 + b2`` with ``[v, g] = x @ W1 + b1``
+(:func:`ffn_geglu`), and GELU, ``gelu(x @ W1 + b1) @ W2 + b2``
+(:func:`ffn_gelu`).
 
-Replaces ``anyv2v_tpu/ops/pallas_ffn.py::_ffn_kernel``. Weights use the torch
-``nn.Linear`` layout: ``w1 [2I, C]``, ``w2 [C, I]``. GELU is the exact erf
-form (the Pallas body used a degree-9 fit). It serves ``C <= 768`` with
-``C % 32 == 0``.
+Replaces ``anyv2v_tpu/ops/pallas_ffn.py::_ffn_kernel`` (both of its
+``activation`` branches). Weights use the torch ``nn.Linear`` layout:
+``w1 [2I, C]`` (GEGLU) or ``[I, C]`` (GELU), ``w2 [C, I]``. GELU is the exact
+erf form (the Pallas body used a degree-9 fit, 6.5e-6 from it). It serves
+``C <= 768`` with ``C % 32 == 0``.
 
 The Pallas kernel keeps W1 and W2 resident in 16 MB of VMEM and the
 intermediate on chip. An H100 block holds 227 KB, so a fused form would
@@ -13,7 +16,7 @@ BM at most 128 at C 320 and 64 at C 640 for the fp32 accumulator to fit the
 register file: 1.26 GB at L0, 2.5 GB at L1), while writing h in bf16 and
 reading it back costs ``16 * C * N`` bytes (0.34 and 0.17 GB). So the kernel
 (``csrc/ffn.cu``) is two wgmma GEMMs on ``hopper.cuh``'s TMA-fed main loop:
-``x @ W1^T`` with the GEGLU in its epilogue, storing h ``[N, I]`` bf16 (the
+``x @ W1^T`` with the activation in its epilogue, storing h ``[N, I]`` bf16 (the
 tensor the Pallas body and the plain path round at the same point), then
 ``h @ W2^T + b2``. :func:`ffn_plan` sizes both launches; rows run in chunks
 of at most 2^18 so that h stays under 0.7 GB.
@@ -31,7 +34,9 @@ from . import _build
 MAX_CHANNELS = 768
 CHUNK_ROWS = 1 << 18   # rows per launch pair: h [2^18, 1280] bf16 is 0.67 GB
 GEGLU_WIDTH = 256      # launch 1's tile: 128 columns of v and the same of g
+GELU_WIDTH = 128       # launch 1's tile in the GELU form: 128 columns of h
 GEGLU_STAGING = 128 * 128 * 2   # launch 1's h tile, staged for its TMA stores
+ACTIVATIONS = ("geglu", "gelu")
 
 
 def fits(c: int, inner: int) -> bool:
@@ -40,18 +45,22 @@ def fits(c: int, inner: int) -> bool:
     return c <= MAX_CHANNELS and c % 32 == 0 and inner % 64 == 0
 
 
-def ffn_plan(n: int, c: int, inner: int, sms: int = _build.H100_SMS) -> dict:
-    """The two launches over ``n <= CHUNK_ROWS`` rows: ``geglu`` (x @ W1^T,
-    K = C, tiles of 128 h columns, with the tile's h staged beside the ring)
-    and ``out`` (h @ W2^T, K = I, C in tiles of 64..320 columns)."""
+def ffn_plan(n: int, c: int, inner: int, sms: int = _build.H100_SMS,
+             activation: str = "geglu") -> dict:
+    """The two launches over ``n <= CHUNK_ROWS`` rows: the activation's
+    (x @ W1^T, K = C, tiles of 128 h columns, 256 wide for GEGLU's v and g,
+    with the tile's h staged beside the ring), keyed by ``activation``, and
+    ``out`` (h @ W2^T, K = I, C in tiles of 64..320 columns)."""
     if not 0 < n <= CHUNK_ROWS:
         raise ValueError(f"ffn_plan: {n} rows, expected 1..{CHUNK_ROWS}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"ffn_plan: activation {activation!r}, expected one of {ACTIVATIONS}")
     depth = _build.GEMM_DEPTH
-    geglu = _build.gemm_plan(n, -(-inner // (GEGLU_WIDTH // 2)), GEGLU_WIDTH, -(-c // depth),
-                             GEGLU_STAGING, sms)
+    width1 = GEGLU_WIDTH if activation == "geglu" else GELU_WIDTH
+    first = _build.gemm_plan(n, -(-inner // 128), width1, -(-c // depth), GEGLU_STAGING, sms)
     col_tiles, width = _build.gemm_width(c)
     out = _build.gemm_plan(n, col_tiles, width, -(-inner // depth), sms=sms)
-    return {"geglu": geglu, "out": out}
+    return {activation: first, "out": out}
 
 
 def ffn_geglu_plain(x, w1, b1, w2, b2):
@@ -68,41 +77,76 @@ def ffn_geglu_plain(x, w1, b1, w2, b2):
     return out.reshape(*x.shape[:-1], w2.shape[0])
 
 
-def ffn_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x ``[..., C]`` -> ``[..., C]``."""
-    if x.device.type == "cpu":
-        return ffn_geglu_plain(x, w1, b1, w2, b2)
-    _build.require_cuda("ffn_geglu", x, w1, b1, w2, b2)
-    _build.require_aligned("ffn_geglu", x, w1, b1, w2, b2)
+def ffn_gelu_plain(x, w1, b1, w2, b2):
+    """Plain PyTorch version of the GELU form: the pre-activation in fp32,
+    ``gelu`` of it rounded to x's dtype before the second matmul (where the
+    Pallas kernel and the unfused JAX path round), 2^18 rows at a time."""
+    flat = x.reshape(-1, x.shape[-1])
+    out = torch.empty((flat.shape[0], w2.shape[0]), dtype=x.dtype, device=x.device)
+    for i in range(0, flat.shape[0], CHUNK_ROWS):
+        h = F.gelu(F.linear(flat[i:i + CHUNK_ROWS], w1, b1).float())
+        out[i:i + CHUNK_ROWS] = F.linear(h.to(x.dtype), w2, b2)
+    return out.reshape(*x.shape[:-1], w2.shape[0])
+
+
+def _launch(activation: str, x, w1, b1, w2, b2) -> torch.Tensor:
+    """Check the operands, then launch both GEMMs per chunk of rows."""
+    name = f"ffn_{activation}"
+    _build.require_cuda(name, x, w1, b1, w2, b2)
+    _build.require_aligned(name, x, w1, b1, w2, b2)
     c = x.shape[-1]
     inner = w2.shape[1]
-    if (w1.shape != (2 * inner, c) or b1.shape != (2 * inner,)
+    rows1 = 2 * inner if activation == "geglu" else inner
+    if (w1.shape != (rows1, c) or b1.shape != (rows1,)
             or w2.shape != (c, inner) or b2.shape != (c,)):
-        raise ValueError(f"ffn_geglu: x{tuple(x.shape)} w1{tuple(w1.shape)} "
+        raise ValueError(f"{name}: x{tuple(x.shape)} w1{tuple(w1.shape)} "
                          f"b1{tuple(b1.shape)} w2{tuple(w2.shape)} b2{tuple(b2.shape)}")
     if not fits(c, inner):
-        raise ValueError(f"ffn_geglu: C={c}, inner={inner} outside the kernel's range")
+        raise ValueError(f"{name}: C={c}, inner={inner} outside the kernel's range")
     n = x.numel() // c
     flat, out = x.reshape(n, c), torch.empty_like(x)
     flat_out = out.view(n, c)
     h = torch.empty((min(n, CHUNK_ROWS), inner), dtype=x.dtype, device=x.device)
     sms = _build.sm_count(x.device)
+    entry = getattr(_build.library(), f"anyv2v_{name}")
     for i in range(0, n, CHUNK_ROWS):
         rows = min(CHUNK_ROWS, n - i)
-        plan = ffn_plan(rows, c, inner, sms)
-        for part in ("geglu", "out"):
-            _build.check_plan("ffn_geglu", plan[part])
-        rc = _build.library().anyv2v_ffn_geglu(
+        plan = ffn_plan(rows, c, inner, sms, activation)
+        for part in (activation, "out"):
+            _build.check_plan(name, plan[part])
+        rc = entry(
             _build.ptr(flat[i:]), _build.ptr(w1), _build.ptr(b1), _build.ptr(w2),
             _build.ptr(b2), _build.ptr(h), _build.ptr(flat_out[i:]), ctypes.c_int(rows),
             ctypes.c_int(c), ctypes.c_int(inner), ctypes.c_int(plan["out"]["width"]),
-            ctypes.c_int(plan["geglu"]["grid"][0]), ctypes.c_int(plan["geglu"]["smem_bytes"]),
+            ctypes.c_int(plan[activation]["grid"][0]),
+            ctypes.c_int(plan[activation]["smem_bytes"]),
             ctypes.c_int(plan["out"]["grid"][0]), ctypes.c_int(plan["out"]["smem_bytes"]),
             _build.stream())
-        _build.check(rc, "ffn_geglu")
+        _build.check(rc, name)
+    return out
+
+
+def ffn_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The GEGLU form: x ``[..., C]``, w1 ``[2I, C]`` -> ``[..., C]``."""
+    if x.device.type == "cpu":
+        return ffn_geglu_plain(x, w1, b1, w2, b2)
+    out = _launch("geglu", x, w1, b1, w2, b2)
     ffn_geglu.launches += 1
     return out
 
 
 ffn_geglu.launches = 0
+
+
+def ffn_gelu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The GELU form: x ``[..., C]``, w1 ``[I, C]`` -> ``[..., C]``."""
+    if x.device.type == "cpu":
+        return ffn_gelu_plain(x, w1, b1, w2, b2)
+    out = _launch("gelu", x, w1, b1, w2, b2)
+    ffn_gelu.launches += 1
+    return out
+
+
+ffn_gelu.launches = 0

@@ -56,26 +56,32 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version on a transposed view, fp32 scores and softmax.
 
     Chunks over pixels so the fp32 score tensor stays near 1 GiB: a 128-frame
-    L0 edit call would need [3*4096, 64, 128, 128] fp32 = 51.5 GB at once."""
+    L0 edit call would need [3*4096, 64, 128, 128] fp32 = 51.5 GB at once.
+    A chunk spans several batch rows where their pixels fit in it (the
+    ``[B, S, 1, C]`` view of ``[B, S, C]`` tokens has one pixel a row)."""
     b, s, hw, c = q.shape
     sk = k.shape[1]
     dh = c // heads
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     step = max(1, (1 << 28) // (heads * s * sk))
+    rows = max(1, step // hw)
 
-    def t(x, bi, p0, p1):
-        """Pixels p0:p1 of batch row bi as ``[P, heads, frames, dh]`` fp32."""
-        x = x[bi, :, p0:p1].permute(1, 0, 2)
-        return x.reshape(p1 - p0, x.shape[1], heads, dh).transpose(1, 2).float()
+    def t(x, b0, b1, p0, p1):
+        """Pixels p0:p1 of batch rows b0:b1 as ``[P, heads, frames, dh]`` fp32."""
+        x = x[b0:b1, :, p0:p1].permute(0, 2, 1, 3)
+        return x.reshape(-1, x.shape[2], heads, dh).transpose(1, 2).float()
 
-    for bi in range(b):
+    for b0 in range(0, b, rows):
+        b1 = min(b, b0 + rows)
         for p0 in range(0, hw, step):
             p1 = min(hw, p0 + step)
-            scores = torch.matmul(t(q, bi, p0, p1), t(k, bi, p0, p1).transpose(-1, -2)) * scale
+            scores = torch.matmul(t(q, b0, b1, p0, p1),
+                                  t(k, b0, b1, p0, p1).transpose(-1, -2)) * scale
             if bias is not None:
                 scores = scores + bias.float()
-            o = torch.matmul(torch.softmax(scores, dim=-1), t(v, bi, p0, p1))  # [P, H, s, dh]
-            out[bi, :, p0:p1] = o.transpose(1, 2).reshape(p1 - p0, s, c).permute(1, 0, 2)
+            o = torch.matmul(torch.softmax(scores, dim=-1), t(v, b0, b1, p0, p1))
+            out[b0:b1, :, p0:p1] = o.transpose(1, 2).reshape(
+                b1 - b0, p1 - p0, s, c).permute(0, 2, 1, 3)
     return out
 
 

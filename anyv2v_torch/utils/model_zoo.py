@@ -251,10 +251,17 @@ def random_state_dict(module: nn.Module, generator: torch.Generator,
 
 
 def _load_modules(arch: str, dev: torch.device, init: str, seed: int,
-                  dtype: torch.dtype) -> Dict[str, nn.Module]:
-    """``build_modules`` with weights from ``init``, on ``dev``, in eval mode."""
+                  dtype: torch.dtype, components=None) -> Dict[str, nn.Module]:
+    """``build_modules`` with weights from ``init``, on ``dev``, in eval mode;
+    only the named ``components`` where given. A random init draws the built
+    modules' weights in the order unet, vae, text, vision, so leaving out the
+    encoders leaves the UNet's and the VAE's weights as they were."""
+
+    def chosen(modules):
+        return {n: m for n, m in modules.items() if components is None or n in components}
+
     if init == "random":
-        modules = build_modules(arch, dtype)
+        modules = chosen(build_modules(arch, dtype))
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         states = {name: random_state_dict(m, gen, dev) for name, m in modules.items()}
     elif os.path.exists(init):
@@ -264,11 +271,12 @@ def _load_modules(arch: str, dev: torch.device, init: str, seed: int,
             states, meta = checkpoint.load_checkpoint(init)
             if backbone_of(meta["backbone"]) != backbone_of(arch):
                 raise ValueError(f"{init} holds a {meta['backbone']} checkpoint, not {arch}")
-            modules = build_modules(arch, dtype, overrides=checkpoint.config_overrides(meta))
+            modules = chosen(build_modules(arch, dtype,
+                                           overrides=checkpoint.config_overrides(meta)))
         else:
             from .weights import load_jax_npz, state_dict_from_jax
 
-            modules = build_modules(arch, dtype)
+            modules = chosen(build_modules(arch, dtype))
             tree, _ = load_jax_npz(init)
             states = {name: {k: torch.from_numpy(np.asarray(v, np.float32))
                              for k, v in sd.items()}
@@ -293,44 +301,49 @@ def _mesh_device(device, mesh) -> torch.device:
 
 def build_i2vgen_pipeline(arch: str = "i2vgen-xl", *, device, init: str = "random",
                           seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                          scheduler_kwargs: Optional[dict] = None, mesh=None) -> I2VGenPipeline:
+                          scheduler_kwargs: Optional[dict] = None, mesh=None,
+                          components=None) -> I2VGenPipeline:
     """``mesh``: shard the frames (and plain CFG rows) over it
     (:func:`anyv2v_torch.parallel.mesh.make_mesh`); the weights are
-    replicated from its first rank."""
+    replicated from its first rank. ``components``: the modules to build (default all:
+    unet, vae, text and, for i2vgen, vision; the JAX builders' option); a
+    pipeline without its encoders takes embeddings only."""
     dev = _mesh_device(device, mesh)
-    modules = _load_modules(arch, dev, init, seed, dtype)
+    modules = _load_modules(arch, dev, init, seed, dtype, components)
     schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
     return I2VGenPipeline(unet=modules["unet"], vae=modules["vae"],
-                          text_encoder=modules["text"], vision_encoder=modules["vision"],
+                          text_encoder=modules.get("text"), vision_encoder=modules.get("vision"),
                           schedule=schedule, device=dev, dtype=dtype, mesh=mesh)
 
 
 def build_consisti2v_pipeline(arch: str = "consisti2v", *, device, init: str = "random",
                               seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                               scheduler_kwargs: Optional[dict] = None,
-                              mesh=None) -> ConsistI2VPipeline:
-    """``mesh``: as :func:`build_i2vgen_pipeline`'s."""
+                              mesh=None, components=None) -> ConsistI2VPipeline:
+    """``mesh``, ``components``: as :func:`build_i2vgen_pipeline`'s."""
     if not isinstance(ARCHS[arch]["unet"], VideoLDMUNetConfig):
         raise ValueError(f"{arch} is not a ConsistI2V architecture")
     dev = _mesh_device(device, mesh)
-    modules = _load_modules(arch, dev, init, seed, dtype)
+    modules = _load_modules(arch, dev, init, seed, dtype, components)
     schedule = make_schedule(**(scheduler_kwargs or {}), device=dev)
     return ConsistI2VPipeline(unet=modules["unet"], vae=modules["vae"],
-                              text_encoder=modules["text"], schedule=schedule,
+                              text_encoder=modules.get("text"), schedule=schedule,
                               device=dev, dtype=dtype, mesh=mesh)
 
 
 def build_seine_pipeline(arch: str = "seine", *, device, init: str = "random", seed: int = 0,
                          dtype: torch.dtype = torch.bfloat16,
-                         scheduler_kwargs: Optional[dict] = None, mesh=None) -> SeinePipeline:
+                         scheduler_kwargs: Optional[dict] = None, mesh=None,
+                         components=None) -> SeinePipeline:
     """SEINE with its linear-beta schedule (``scheduler_kwargs`` override it);
-    ``mesh`` as :func:`build_i2vgen_pipeline`'s."""
+    ``mesh``, ``components`` as :func:`build_i2vgen_pipeline`'s."""
     if not isinstance(ARCHS[arch]["unet"], SeineUNetConfig):
         raise ValueError(f"{arch} is not a SEINE architecture")
     dev = _mesh_device(device, mesh)
-    modules = _load_modules(arch, dev, init, seed, dtype)
+    modules = _load_modules(arch, dev, init, seed, dtype, components)
     schedule = make_schedule(**{**SEINE_SCHEDULER, **(scheduler_kwargs or {})}, device=dev)
-    return SeinePipeline(unet=modules["unet"], vae=modules["vae"], text_encoder=modules["text"],
+    return SeinePipeline(unet=modules["unet"], vae=modules["vae"],
+                         text_encoder=modules.get("text"),
                          schedule=schedule, device=dev, dtype=dtype, mesh=mesh)
 
 

@@ -5,7 +5,8 @@
 Phases:
  1. environment: torch and CUDA versions, the card's name and power limit;
  2. build the five CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
-    and print ptxas's registers and spills of every kernel's instances;
+    one nvcc per source, all started together, and print ptxas's registers
+    and spills of every kernel's instances;
  3. hold each kernel against its plain PyTorch version in bf16 at the shapes
     the main paths give it, and time it beside its plain version, its bound
     (the least time the card could take: bytes over 3.35 TB/s or bf16
@@ -29,7 +30,26 @@ Phases:
     self-attention at 4096 and 1024 tokens, 10 and 20 heads of 64, and its
     cross-attention; the IP-Adapter's attention over 4 keys; K3 at C 320
     and 640) and K5 at the IP-Adapter Plus resampler's 16 queries over 273
-    keys;
+    keys; the operand modes that no configuration reaches (records
+    ``flash_attention_bias`` and ``ffn_gelu``): K5 with a score bias shared
+    by the batch at SEINE's L0 self shape and at i2vgen-xl's L2 widths (dh
+    32), per row at ConsistI2V's L0 spatial cross shape (its library time
+    SDPA with a float ``attn_mask``), ragged; K5 unbiased at dh 32, and with
+    and without a bias at the Pallas kernel's other widths (24, 48, ...,
+    128: multiples of 8 that no model has), ragged; K3's GELU
+    form at C 320 x 65536 rows, 640 x 16384 and ragged (no single library
+    call); K2 with a bias on the ``[B, S, 1, C]`` view that a biased short
+    ``[B, S, C]`` call takes;
+ 3b. the op surfaces (before phase 4): the port's ``Attention`` with a score
+    bias (SEINE L0 self, ConsistI2V L0 spatial cross per row, i2vgen-xl L2
+    at dh 32), ``TemporalTransformer`` with a bias over its frames (SEINE L0
+    widths, 3 rows of 16 frames at 64x64) and ``FeedForward(gelu)`` at C
+    320 and 640 at full width (:func:`op_surfaces`), after the same modules
+    at small sizes against their fp32 CPU path, and the dispatcher's two
+    SDPA routes for a bias on bf16 tokens against a float64 reference (the
+    bias kept in fp32); K5 must launch with the bias
+    on the three biased calls, K2 on the view once, K3's GELU form twice,
+    nothing may reach SDPA, the outputs must be finite;
  4. the i2vgen-xl main path at full width (16 frames, 512x512, seeded random
     bf16 weights, a seeded synthetic video): VAE encode, DDIM inversion,
     the ``ddim_latents_{t}.npy`` cache written and read back, PnP edit
@@ -68,9 +88,9 @@ Phases:
     batch 3), the last 5 DDIM steps of a 50-step schedule, and decode; the
     outputs must be finite, K1's short class, K2 with the augmented key
     axis, K3, K4 and K5 must launch, no UNet attention of head width
-    40/64/80/160 may reach SDPA, and neither mode that is still to port may
-    be reached (no attention carries a score bias, no feed-forward has the
-    GELU form);
+    40/64/80/160 may reach SDPA, and every biased or GELU-form call that a
+    kernel takes must have launched it (``_RouteLog.mode_checks``, as in
+    phases 3b and 9-12);
  8. the SEINE main path at full width (SD1.4 widths, 8 heads, 16 frames,
     512x512): a seine-tiny reference check (K2 with the bias at dh 8),
     then VAE encode, the masked conditioning, inversion with every step on
@@ -86,8 +106,8 @@ Phases:
     100-step Euler-Ancestral grid at batch 3 (guidance 7.5, image guidance
     1.5), decode; the image must be finite, K5 and K3 must launch and K1,
     K2, K2 long and K4 must not, no UNet attention may reach SDPA (only the
-    VAE's 512-wide head), and no feed-forward has the GELU form; then one
-    profiled batch-3 forward;
+    VAE's 512-wide head), and the mode checks hold; then one profiled
+    batch-3 forward;
 10. CosXL at full width (SDXL, 1024x1024): a cosxl-tiny check, then
     ``edit_frame``: the whole 20-step EDM grid at batch 3 (guidance 7, image
     guidance 1.5) on zero text embeddings, decode; the same checks, the peak
@@ -111,8 +131,9 @@ Phases:
     batch-2 tail) on request 2's edited frame; each request timed in three
     stages (editor, inversion, edit + decode); the outputs must be finite,
     K1-K4 must launch in the video stages and K5 not, K5 and K3 in the
-    editor stage and K1, K2, K4 not, K2 long nowhere, neither open mode be
-    reached, requests 2 and 3 must build nothing (the same pipeline and
+    editor stage and K1, K2, K4 not, K2 long nowhere, the mode checks hold
+    (the image-latent encoder's GELU feed-forward, C 4, is outside K3's
+    range), requests 2 and 3 must build nothing (the same pipeline and
     editor objects, device memory within 64 MiB of its level after request
     1) and the peak stay under 80 GB;
 13. frame sharding, one rank's program on this card (``mock_manual_axis(4)``:
@@ -135,7 +156,11 @@ Phases:
     mesh; each rank's forward and trajectory within 0.02 + 0.05*max|ref| of
     this process's single-GPU run, its edited latents and video finite and
     whole (their distance reported, not held: :func:`nccl_checks`), every
-    rank's arrays equal.
+    rank's arrays equal;
+15. the bench entries (``anyv2v_torch/bench.py``, ``bench_backbones.py``),
+    projected, at 16 frames for i2vgen-xl, ConsistI2V and SEINE: each
+    prints its JSON line, every value finite and every scan through
+    ``check_scan_time``.
 
 Each tiny-arch reference check runs the card's bf16 UNet against the plain
 fp32 path on the CPU with the same bf16-rounded weights and inputs. Phases
@@ -153,8 +178,9 @@ camera motion (``utils/camera.py``) are host code on OpenCV and PIL, which
 the card's machine lacks; they are tested on the CPU only, and this script
 does not import them.
 
-Prints the card's name and power limit, one JSON line with the kernel
-records, then, as the last line, ``{"ok": true, "device": {...}}``. Exits
+Prints the card's name and power limit, the bench's three JSON lines, one
+JSON line with the kernel records (each with its launches by path), then,
+as the last line, ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result line, when there is no CUDA GPU or any phase fails.
 """
 
@@ -254,12 +280,13 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _attn_cost(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
+def _attn_cost(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1, bias=None):
     """(operations, bytes) of softmax attention on folded heads: q.k and p.v
-    over every key of the row, each operand read once, the output written."""
+    over every key of the row, each operand (the bias too) read once, the
+    output written."""
     b, sq, c = q.shape
     sk = k.shape[1] + (k_ctx.shape[1] if k_ctx is not None else 0)
-    return 4 * b * sq * sk * c, _nbytes(q, q, k, v, k_ctx, v_ctx)
+    return 4 * b * sq * sk * c, _nbytes(q, q, k, v, k_ctx, v_ctx, bias)
 
 
 def _frame_cost(q, k, v, heads, scale, bias=None):
@@ -268,9 +295,11 @@ def _frame_cost(q, k, v, heads, scale, bias=None):
 
 
 def _ffn_cost(x, w1, b1, w2, b2):
+    """Both products: x @ W1^T over W1's rows (2I for GEGLU, I for GELU),
+    then h @ W2^T."""
     n, c = x.numel() // x.shape[-1], x.shape[-1]
     inner = w2.shape[1]
-    return 6 * n * c * inner, _nbytes(x, x, w1, b1, w2, b2)
+    return 2 * n * c * (w1.shape[0] + inner), _nbytes(x, x, w1, b1, w2, b2)
 
 
 def _tconv_cost(x, s, t, w, b):
@@ -286,7 +315,7 @@ def _exp2_count(name, args):
         q, k, heads = args[0], args[1], args[3]
         b, s, hw, _ = q.shape
         return b * hw * heads * s * k.shape[1]
-    if name in ("folded_attention", "flash_attention"):
+    if name in ("folded_attention", "flash_attention", "flash_attention_bias"):
         q, k, heads = args[0], args[1], args[3]
         k_ctx = args[5] if len(args) > 5 else None
         return q.shape[0] * heads * q.shape[1] * (
@@ -297,15 +326,17 @@ def _exp2_count(name, args):
 SFU_EXP2_PER_CLOCK = 16   # ex2 per clock per SM (Hopper's special-function units)
 
 
-def _attn_library(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
+def _attn_library(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1, bias=None):
     """One SDPA call on the same inputs; the split-KV context is repeated and
-    concatenated beforehand, outside the timed call."""
+    concatenated beforehand, outside the timed call; a bias becomes a float
+    ``attn_mask`` (in q's dtype, cast beforehand)."""
     if k_ctx is not None:
         k = torch.cat([k, k_ctx.repeat_interleave(frames, dim=0)], dim=1)
         v = torch.cat([v, v_ctx.repeat_interleave(frames, dim=0)], dim=1)
+    mask = None if bias is None else bias.to(q.dtype)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         *(x.view(x.shape[0], x.shape[1], heads, -1).transpose(1, 2) for x in (q, k, v)),
-        scale=scale)
+        attn_mask=mask, scale=scale)
 
 
 def _tconv_library(x, s, t, w, b):
@@ -378,6 +409,9 @@ def _kernels():
                                  _frame_long_library),
         "ffn_geglu": ("cuda", "anyv2v_torch/csrc/ffn.cu", "anyv2v_tpu/ops/pallas_ffn.py:64",
                       ffn.ffn_geglu, ffn.ffn_geglu_plain, _ffn_cost, None),
+        # K3's GELU form: the same source and Pallas kernel, its other branch
+        "ffn_gelu": ("cuda", "anyv2v_torch/csrc/ffn.cu", "anyv2v_tpu/ops/pallas_ffn.py:64",
+                     ffn.ffn_gelu, ffn.ffn_gelu_plain, _ffn_cost, None),
         "gn_silu_temporal_conv": ("cuda", "anyv2v_torch/csrc/temporal_conv.cu",
                                   "anyv2v_tpu/ops/pallas_temporal_conv.py:38",
                                   tc.gn_silu_temporal_conv, tc.gn_silu_temporal_conv_plain,
@@ -385,6 +419,11 @@ def _kernels():
         "flash_attention": ("cuda", "anyv2v_torch/csrc/flash_attention.cu",
                             "anyv2v_tpu/ops/pallas_attention.py:131", fl.flash_attention,
                             fl.flash_attention_plain, _attn_cost, _attn_library),
+        # K5 with its score bias (the BIAS instances), replacing _flash_kernel
+        # with its bias_ref; its launches are the wrapper's bias_launches
+        "flash_attention_bias": ("cuda", "anyv2v_torch/csrc/flash_attention.cu",
+                                 "anyv2v_tpu/ops/pallas_attention.py:44", fl.flash_attention,
+                                 fl.flash_attention_plain, _attn_cost, _attn_library),
     }
 
 
@@ -439,13 +478,24 @@ def _kernel_cases():
             return args + (bias.contiguous(),)
         return tagged(make, b=b, s=s, sk=s, hw=hw, heads=heads, dh=dh)
 
-    def ffn_args(n, c):
+    def ffn_args(n, c, gelu=False):
         i = 4 * c
+        rows1 = i if gelu else 2 * i
 
         def make():
-            return (rn(n, c), rn(2 * i, c, std=c ** -0.5), rn(2 * i, std=0.1),
+            return (rn(n, c), rn(rows1, c, std=c ** -0.5), rn(rows1, std=0.1),
                     rn(c, i, std=i ** -0.5), rn(c, std=0.1))
         return tagged(make, n=n, c=c, inner=i)
+
+    def attn_bias(b, sq, sk, heads, dh, true_dh, form):
+        """K5 with a score bias, shared by the batch ([H, Sq, Sk]) or per row
+        ([B, H, Sq, Sk]), std 2 (a bias that moves the softmax)."""
+        def make():
+            q, k, v, h, scale = attn(b, sq, sk, heads, dh, true_dh)()
+            shape = (heads, sq, sk) if form == "shared" else (b, heads, sq, sk)
+            return (q, k, v, h, scale, None, None, 1,
+                    rn(*shape, std=2.0, dtype=torch.float32))
+        return tagged(make, b=b, sq=sq, sk=sk, heads=heads, dh=dh, bias=form)
 
     def tconv_args(b, f, p, c, prologue=True, c_out=None):
         co = c_out or c
@@ -462,7 +512,7 @@ def _kernel_cases():
 
     k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
                           "gn_silu_temporal_conv", "flash_attention")
-    k2l = "frame_attention_long"
+    k2l, k3g, k5b = "frame_attention_long", "ffn_gelu", "flash_attention_bias"
     return [
         (k1, "L0 self b2 S4096 h64 dh8", attn(2, 4096, 4096, 64, 8, 5)),
         (k1, "L0 cross b2 Sq4096 Sk157 dh8", attn(2, 4096, 157, 64, 8, 5)),
@@ -594,12 +644,50 @@ def _kernel_cases():
                             ("L1 C640 P1024 F16 b3", (3, 16, 1024, 640)),
                             ("L2 C1280 P256 F16 b3", (3, 16, 256, 1280)),
                             ("long L0 C320 P4096 F128 b3", (3, 128, 4096, 320)))],
+        # the op surfaces (no configuration reaches them; chip_smoke's "op
+        # surfaces" path drives the port's modules at these widths): K5 with
+        # a score bias at SEINE's L0 spatial self-attention (shared by the
+        # batch), ConsistI2V's L0 spatial cross-attention (per row) and
+        # i2vgen-xl's L2 widths (64 heads of 20 stored as 32); K3's GELU form;
+        # K2 on the [B, S, 1, C] view that a biased short [B, S, C] call takes
+        (k5b, "SEINE L0 spatial self b48 S4096 h8 dh40 shared bias",
+         attn_bias(48, 4096, 4096, 8, 40, 40, "shared")),
+        (k5b, "ConsistI2V spatial cross L0 b51 Sq4096 Sk77 h5 dh64 per-row bias",
+         attn_bias(51, 4096, 77, 5, 64, 64, "batch")),
+        (k5b, "i2vgen L2 self b48 S256 h64 dh32 shared bias",
+         attn_bias(48, 256, 256, 64, 32, 20, "shared")),
+        (k5, "off-path i2vgen L2 self b48 S256 h64 dh32", attn(48, 256, 256, 64, 32, 20)),
+        (k5b, "ragged per-row bias b2 Sq1000 Sk999 h3 dh80",
+         attn_bias(2, 1000, 999, 3, 80, 80, "batch")),
+        (k5b, "ragged shared bias b3 Sq130 Sk77 h2 dh8", attn_bias(3, 130, 77, 2, 8, 5, "shared")),
+        (k5b, "ragged shared bias b2 Sq200 Sk300 h4 dh16",
+         attn_bias(2, 200, 300, 4, 16, 16, "shared")),
+        (k5b, "ragged per-row bias b2 Sq70 Sk129 h2 dh160",
+         attn_bias(2, 70, 129, 2, 160, 160, "batch")),
+        (k3g, "L0 C320 rows 65536", ffn_args(65536, 320, gelu=True)),
+        (k3g, "L1 C640 rows 16384", ffn_args(16384, 640, gelu=True)),
+        (k3g, "ragged rows 1000 C320", ffn_args(1000, 320, gelu=True)),
+        (k3g, "ragged tiny C32 rows 300", ffn_args(300, 32, gelu=True)),
+        (k2, "[B,S,1,C] view b3*4096 S16 h8 dh40 bias", frames(3 * 4096, 16, 1, 8, 40, 40,
+                                                              bias=True)),
+        (k2, "ragged [B,S,1,C] view b5 S7 Sk13 h2 dh64 bias",
+         frames(5, 7, 1, 2, 64, 64, sk=13, bias=True)),
+        # K5 at the Pallas kernel's widths that no model has (every multiple of
+        # 8 up to 128), with and without a bias, ragged
+        *[case for dh in (24, 48, 56, 72, 88, 96, 104, 112, 120, 128) for case in (
+            (k5, f"ragged b2 Sq300 Sk200 h2 dh{dh}", attn(2, 300, 200, 2, dh, dh)),
+            (k5b, f"ragged shared bias b2 Sq200 Sk300 h2 dh{dh}",
+             attn_bias(2, 200, 300, 2, dh, dh, "shared")))],
     ]
 
 
 # case labels checked and timed, but not summed into the records' times
 _OFF_PATH = ("ragged", "seine-tiny", "off-path")
-_ATTENTION = ("folded_attention", "frame_attention", "frame_attention_long", "flash_attention")
+_ATTENTION = ("folded_attention", "frame_attention", "frame_attention_long", "flash_attention",
+              "flash_attention_bias")
+# the records of the two operand modes that no backbone reaches (the "op
+# surfaces" path launches them)
+_MODES = ("flash_attention_bias", "ffn_gelu")
 # an attention kernel's error against the fp32 truth may be at most FP32_RATIO
 # times its plain version's (the bf16 rounding of the output) plus FP32_ATOL
 FP32_RATIO, FP32_ATOL = 1.5, 1e-4
@@ -724,7 +812,8 @@ def main():
     phase_env()
     phase_build()
     records = phase_kernels()
-    by_path = {}
+    by_path = {"op surfaces": phase_op_surfaces()}
+    torch.cuda.empty_cache()
     by_path["i2vgen-xl"], pipe = phase_main_path()
     by_path["i2vgen-xl long video"], unsharded_ms = phase_long_video(pipe)
     by_path["i2vgen-xl per rank of 4"] = phase_sharded(pipe, unsharded_ms)
@@ -750,6 +839,8 @@ def main():
     by_path["instantstyle"] = phase_instantstyle()
     torch.cuda.empty_cache()
     by_path["product"] = phase_product()
+    torch.cuda.empty_cache()
+    by_path["bench"] = phase_bench()
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -775,6 +866,23 @@ def _synthetic_video(rng, frames, size):
     return video
 
 
+class _Count:
+    """A wrapper's launch count kept under another attribute (K5's biased
+    launches, ``flash_attention.bias_launches``), read and set as
+    ``launches``."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
 def _wrappers():
     from anyv2v_torch.ops import ffn, flash_attention, folded_attention, frame_attention
     from anyv2v_torch.ops import temporal_conv
@@ -784,7 +892,9 @@ def _wrappers():
             "frame_attention_long": frame_attention.frame_attention_long,
             "ffn_geglu": ffn.ffn_geglu,
             "gn_silu_temporal_conv": temporal_conv.gn_silu_temporal_conv,
-            "flash_attention": flash_attention.flash_attention}
+            "flash_attention": flash_attention.flash_attention,
+            "flash_attention_bias": _Count(flash_attention.flash_attention, "bias_launches"),
+            "ffn_gelu": ffn.ffn_gelu}
 
 
 def _flat(out):
@@ -938,7 +1048,7 @@ def phase_main_path():
         and float(edited.max()) <= 1.0,
         # the i2vgen-xl routes are K1-K4, as before K5 existed
         "K1-K4 launched": all(counts[n] > 0 for n in counts
-                              if n not in ("flash_attention", "frame_attention_long")),
+                              if n not in ("flash_attention", "frame_attention_long") + _MODES),
         "K5 and K2 long not launched": counts["flash_attention"] == 0
         and counts["frame_attention_long"] == 0,
     })
@@ -1408,16 +1518,22 @@ def _consisti2v_k5_role(q, k, heads, k_ctx):
 
 class _RouteLog:
     """Records which attention routes a UNet takes: the roles of K5's calls
-    (``k5_role(q, k, heads, k_ctx)``), the key axes and bias of K2's (K2
-    long's with a "long " prefix), and the
+    (``k5_role(q, k, heads, k_ctx)``; " bias" appended to a biased call's),
+    the key axes and bias of K2's (K2 long's with a "long " prefix), and the
     head widths of calls that reach the dispatcher's SDPA (CLIP calls SDPA
-    directly and is not seen). It wraps the dispatcher's references and calls
-    through, so the wrappers' own launch counts are untouched."""
+    directly and is not seen), those with a mask or bias apart
+    (``sdpa_masked``). It wraps the dispatcher's references and calls
+    through, so the wrappers' own launch counts are untouched. It also
+    counts the GELU-form ``FeedForward`` calls (``gelu``: "fits" where K3's
+    range takes them, else "unfused")."""
 
     def __init__(self, k5_role=_consisti2v_k5_role):
+        from anyv2v_torch.models import layers
         from anyv2v_torch.ops import attention
 
         self.mod, self.k5, self.k2, self.sdpa = attention, {}, {}, {}
+        self.sdpa_masked, self.gelu = {}, {"fits": 0, "unfused": 0}
+        self.layers, self.ff_forward = layers, layers.FeedForward.forward
         self.k5_role = k5_role
         self.saved = {n: getattr(attention, n) for n in (
             "flash_attention", "frame_attention", "frame_attention_long", "sdpa_attention")}
@@ -1426,11 +1542,20 @@ class _RouteLog:
         table[key] = table.get(key, 0) + 1
 
     def __enter__(self):
-        saved = self.saved
+        saved, ff_forward = self.saved, self.ff_forward
 
-        def flash(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1):
-            self._bump(self.k5, self.k5_role(q, k, heads, k_ctx))
-            return saved["flash_attention"](q, k, v, heads, scale, k_ctx, v_ctx, frames)
+        def flash(q, k, v, heads, scale, k_ctx=None, v_ctx=None, frames=1, bias=None):
+            self._bump(self.k5, self.k5_role(q, k, heads, k_ctx)
+                       + ("" if bias is None else " bias"))
+            return saved["flash_attention"](q, k, v, heads, scale, k_ctx, v_ctx, frames, bias)
+
+        def feed_forward(module, x):
+            if module.activation == "gelu":
+                from anyv2v_torch.ops.ffn import fits
+
+                fit = fits(x.shape[-1], module.net[2].in_features)
+                self.gelu["fits" if fit else "unfused"] += 1
+            return ff_forward(module, x)
 
         def frame(name):
             def call(q, k, v, heads, scale, bias=None):
@@ -1440,18 +1565,42 @@ class _RouteLog:
                 return saved[name](q, k, v, heads, scale, bias)
             return call
 
-        def sdpa(q, k, v, heads, scale, causal=False):
-            self._bump(self.sdpa, q.shape[-1] // heads)
-            return saved["sdpa_attention"](q, k, v, heads, scale, causal)
+        def sdpa(q, k, v, heads, scale, causal=False, attn_mask=None):
+            self._bump(self.sdpa if attn_mask is None else self.sdpa_masked,
+                       q.shape[-1] // heads)
+            return saved["sdpa_attention"](q, k, v, heads, scale, causal, attn_mask)
 
         self.mod.flash_attention, self.mod.sdpa_attention = flash, sdpa
         self.mod.frame_attention = frame("frame_attention")
         self.mod.frame_attention_long = frame("frame_attention_long")
+        self.layers.FeedForward.forward = feed_forward
         return self
 
     def __exit__(self, *exc):
         for n, f in self.saved.items():
             setattr(self.mod, n, f)
+        self.layers.FeedForward.forward = self.ff_forward
+
+    def mode_checks(self, counts):
+        """The checks of the two operand modes that no backbone reaches, for
+        a path's launch ``counts``: every biased attention call that K5 takes
+        launched its bias instances, none at one of K5's widths reached SDPA,
+        and every GELU-form feed-forward call in K3's range launched K3's
+        GELU form (all hold where a path has no such call)."""
+        from anyv2v_torch.ops.flash_attention import HEAD_DIMS
+
+        k5_biased = sum(n for role, n in self.k5.items() if role.endswith(" bias"))
+        log(f"operand modes: K5 biased calls {k5_biased} (launches "
+            f"{counts['flash_attention_bias']}); SDPA with a mask or bias by head width "
+            f"{self.sdpa_masked}; GELU-form feed-forwards {self.gelu} (K3 GELU launches "
+            f"{counts['ffn_gelu']})")
+        return {
+            "every biased attention call that K5 takes launched it":
+            k5_biased == counts["flash_attention_bias"]
+            and not set(self.sdpa_masked) & set(HEAD_DIMS),
+            "every GELU-form feed-forward call in K3's range launched it":
+            self.gelu["fits"] == counts["ffn_gelu"],
+        }
 
 
 def phase_consisti2v():
@@ -1532,7 +1681,8 @@ def phase_consisti2v():
         f"video [{frames},512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
         and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
         and float(edited.max()) <= 1.0,
-        "K1-K5 launched": all(c > 0 for n, c in counts.items() if n != "frame_attention_long"),
+        "K1-K5 launched": all(c > 0 for n, c in counts.items()
+                              if n not in ("frame_attention_long",) + _MODES),
         "K5 in its three roles": set(routes.k5) == {"split-KV", "spatial cross",
                                                    "temporal cross"},
         "K2 with Sk 25": any(key.startswith("S17 Sk25") for key in routes.k2),
@@ -1699,7 +1849,6 @@ def phase_checkpoint_folder():
     noise and FreeInit at guidance "both" and decode. Returns each kernel's
     launch count over the generation and decode."""
     from anyv2v_torch.cli import convert_checkpoint
-    from anyv2v_torch.models.layers import FeedForward
     from anyv2v_torch.utils.model_zoo import (ARCHS, build_consisti2v_pipeline, build_modules,
                                               random_state_dict)
     from anyv2v_torch.utils.profiling import PhaseTimers
@@ -1767,9 +1916,8 @@ def phase_checkpoint_folder():
     log(f"consisti2v checkpoint-folder routes: K5 by role {routes.k5}; K2 by shape "
         f"{routes.k2}; SDPA (UNet and VAE) by head width {routes.sdpa}")
     shape = (1, FOLDER_FRAMES, 64, 64, 4)
-    gelu_ffns = [m for m in pipe.unet.modules()
-                 if isinstance(m, FeedForward) and m.activation == "gelu"]
     _check_outputs({
+        **routes.mode_checks(counts),
         "every loaded tensor equals the one written": all(exact.values()),
         f"latents {list(shape)} finite, frame 0 the clean first-frame latent":
         tuple(out.shape) == shape and bool(torch.isfinite(out).all())
@@ -1779,14 +1927,11 @@ def phase_checkpoint_folder():
         and bool(torch.isfinite(frames01).all()) and float(frames01.min()) >= 0.0
         and float(frames01.max()) <= 1.0,
         "K1 (short class), K2, K3, K4, K5 launched; K2 long not":
-        all(c > 0 for n, c in counts.items() if n != "frame_attention_long")
+        all(c > 0 for n, c in counts.items() if n not in ("frame_attention_long",) + _MODES)
         and counts["frame_attention_long"] == 0,
         "K2 with the augmented key axis": any(
             int(key.split()[1][2:]) > int(key.split()[0][1:]) for key in routes.k2),
         "no dh 40/64/80/160 attention on SDPA": not set(routes.sdpa) & {40, 64, 80, 160},
-        "no attention with a score bias (K5's bias mode unreached)":
-        not any(key.endswith(" bias") for key in routes.k2),
-        "no GELU-form feed-forward (K3's GELU mode unreached)": not gelu_ffns,
     })
     return counts
 
@@ -2013,11 +2158,8 @@ def _editor_path(path, arch, size, batch, steps, run):
     log(f"{path} routes: K5 by role {routes.k5}; SDPA through the dispatcher by head width "
         f"{routes.sdpa} (CLIP calls SDPA directly)")
     image = res["image"]
-    from anyv2v_torch.models.layers import FeedForward
-
-    gelu_ffns = [m for mod in (pipe.unet, getattr(pipe, "controlnet", None)) if mod is not None
-                 for m in mod.modules() if isinstance(m, FeedForward) and m.activation == "gelu"]
     _check_outputs({
+        **routes.mode_checks(counts),
         f"image [{size},{size},3] in [0,1]": tuple(image.shape) == (size, size, 3)
         and bool(np.isfinite(image).all()) and float(image.min()) >= 0.0
         and float(image.max()) <= 1.0,
@@ -2026,7 +2168,6 @@ def _editor_path(path, arch, size, batch, steps, run):
             "folded_attention", "frame_attention", "frame_attention_long",
             "gn_silu_temporal_conv")),
         "no UNet attention on SDPA (only the VAE's 512-wide head)": set(routes.sdpa) <= {512},
-        "no GELU-form feed-forward (K3's GELU mode unreached)": not gelu_ffns,
     })
     return pipe, image, counts, routes
 
@@ -2208,7 +2349,6 @@ def phase_product():
     timed in its stages; nothing may be built again, nor device memory grow
     past request 1's level by more than 64 MiB. Returns each kernel's launch
     count over the three requests."""
-    from anyv2v_torch.models.layers import FeedForward
     from anyv2v_torch.product import DEFAULTS, Predictor
     from anyv2v_torch.utils.benchguard import check_scan_time, hard_sync
 
@@ -2275,12 +2415,8 @@ def phase_product():
     log(f"product peak device memory over the three requests: {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     log(f"kernel launches in the product path: {counts}; by stage: {stages.launches}")
-    gelu_ffns = [m for mod in (pipe.unet, image_editor.unet) for m in mod.modules()
-                 if isinstance(m, FeedForward) and m.activation == "gelu"]
     log(f"product routes: K5 by role {routes.k5}; K2 by shape {routes.k2}; SDPA through the "
         f"dispatcher by head width {routes.sdpa}")
-    log(f"product GELU-form feed-forwards: {len(gelu_ffns)}, inner widths "
-        f"{sorted({m.net[2].in_features for m in gelu_ffns})}")
     video_k = {n: sum(stages.launches[s].get(n, 0) for s in ("inversion", "edit+decode"))
                for n in wrappers}
     editor_k = stages.launches["editor"]
@@ -2293,12 +2429,9 @@ def phase_product():
             editor_k.get(n, 0) for n in ("folded_attention", "frame_attention",
                                          "gn_silu_temporal_conv")),
         "K2 long not launched": counts["frame_attention_long"] == 0,
-        "no attention with a score bias (K5's bias mode unreached)":
-        not any(key.endswith(" bias") for key in routes.k2),
-        # the image-latent encoder's GELU feed-forward (C 4) fails the Pallas
-        # kernel's gate, (4 C) % 128 == 0 (pallas_ffn.py:147), as in the JAX package
-        "no GELU-form feed-forward that the Pallas gate admits (K3's GELU mode "
-        "unreached)": all(m.net[2].in_features % 128 for m in gelu_ffns),
+        # the image-latent encoder's GELU feed-forward (C 4) is outside K3's
+        # range, as it fails the Pallas kernel's gate (pallas_ffn.py:147)
+        **routes.mode_checks(counts),
         "requests 2 and 3 built nothing (the same pipeline and editor)":
         predictor.runner._pipe is pipe and predictor.image_editor is image_editor,
         "memory allocated after requests 2 and 3 within 64 MiB of request 1's": all(
@@ -2309,13 +2442,194 @@ def phase_product():
     return counts
 
 
+def op_surfaces(device="cuda", dtype=torch.bfloat16, small=False, seed=0):
+    """The port's modules on the operand modes that no configuration of the
+    repo reaches, at full width (``small``: fewer rows and tokens, the same
+    widths): {label: (module, its inputs, its output)}.
+
+    - ``Attention`` with a score bias at SEINE's L0 spatial self-attention
+      (48 rows of 4096 tokens, 8 heads of 40, a bias shared by the batch),
+      at ConsistI2V's L0 spatial cross-attention (51 rows, 5 heads of 64 over
+      77 text tokens, a bias per row) and at i2vgen-xl's L2 widths (64 heads
+      of 20 stored as 32, 256 tokens, shared): K5 with its bias;
+    - ``TemporalTransformer`` at SEINE's L0 widths (3 rows of 16 frames at
+      64x64, 8 heads of 40) with a bias over the frames shared by every
+      pixel: K2 on the ``[B, S, 1, C]`` view (then K5, K3 GEGLU);
+    - ``FeedForward(activation="gelu")`` at C 320 (65536 rows) and 640 (16384):
+      K3's GELU form.
+
+    The modules get PyTorch's default init from ``torch.manual_seed(seed)``
+    on the CPU (padded head storage zeroed), rounded to bf16, then move to ``device`` and ``dtype``; the
+    inputs are drawn from a generator seeded with ``seed`` (on the CPU where
+    ``small``, so that a CPU reference gets the same numbers), rounded to
+    bf16. On the ``meta`` device nothing is drawn (shapes only)."""
+    from anyv2v_torch.models.layers import Attention, FeedForward, TemporalTransformer
+
+    meta = torch.device(device).type == "meta"
+    torch.manual_seed(seed)
+    with torch.device("meta" if meta else "cpu"):
+        mods = {"seine self": Attention(320, 8, 40),
+                "consisti2v cross": Attention(320, 5, 64, cross_attention_dim=1024),
+                "i2vgen L2 self": Attention(1280, 64, 20),
+                "temporal": TemporalTransformer(320, 8, 40, dtype=dtype),
+                "gelu 320": FeedForward(320, activation="gelu"),
+                "gelu 640": FeedForward(640, activation="gelu")}
+    for m in mods.values():
+        if not meta:
+            m.load_state_dict(m.state_dict())   # zero the padded heads' storage
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.copy_(p.to(torch.bfloat16).float())
+        m.to(device=device, dtype=dtype).eval()
+    gen = None if meta else torch.Generator(device="cpu" if small else device).manual_seed(seed)
+
+    def rn(*shape, std=1.0, fp32=False):
+        if meta:
+            return torch.empty(*shape, device="meta", dtype=torch.float32 if fp32 else dtype)
+        x = (torch.randn(*shape, generator=gen, device=gen.device) * std).to(torch.bfloat16)
+        return x.to(device=device, dtype=torch.float32 if fp32 else dtype)
+
+    rows, s0, s2, px, n0, n1 = (2, 1024, 256, 16, 4096, 1024) if small else \
+        (48, 4096, 256, 64, 65536, 16384)
+    inputs = {
+        "seine self": ((rn(rows, s0, 320),), {"bias": rn(8, s0, s0, std=2.0, fp32=True)}),
+        "consisti2v cross": ((rn(rows + 3, s0, 320), rn(rows + 3, 77, 1024, std=0.1)),
+                             {"bias": rn(rows + 3, 5, s0, 77, std=2.0, fp32=True)}),
+        "i2vgen L2 self": ((rn(rows, s2, 1280),), {"bias": rn(64, s2, s2, std=2.0, fp32=True)}),
+        "temporal": ((rn(3, 16, px, px, 320),), {"bias": rn(8, 16, 16, std=2.0, fp32=True)}),
+        "gelu 320": ((rn(n0, 320),), {}),
+        "gelu 640": ((rn(n1, 640),), {}),
+    }
+    out = {}
+    with torch.inference_mode():
+        for label, m in mods.items():
+            args, kw = inputs[label]
+            out[label] = (m, (args, kw), m(*args, **kw))
+    return out
+
+
+def _surface_reference():
+    """The op surfaces at small sizes: the card (bf16, the kernels) against
+    the port's plain fp32 path on the CPU, on the same bf16-rounded weights
+    and inputs; each output within 0.02 + 0.05 * max|ref|."""
+    want = op_surfaces("cpu", torch.float32, small=True)
+    got = op_surfaces("cuda", torch.bfloat16, small=True)
+    for label, (_, _, ref) in want.items():
+        diff = (got[label][2].float().cpu() - ref).abs()
+        err, bound = diff.max().item(), 0.02 + 0.05 * ref.abs().max().item()
+        log(f"reference check (op surface {label}, bf16 card vs fp32 CPU plain): max_abs_err "
+            f"{err:.3e}, bound {bound:.3e} (0.02 + 0.05*max|ref|); mean_abs_err "
+            f"{diff.mean().item():.3e}")
+        if not (np.isfinite(err) and err <= bound):
+            raise RuntimeError(f"the op surface {label} on the card disagrees with its CPU "
+                               "reference")
+
+
+def _sdpa_bias_check():
+    """The dispatcher's two SDPA routes for a bias (a width K5 lacks; a bias
+    with a mask) on bf16 tokens on the card, with a T5-sized fp32 bias
+    (|bias| ~ 10, where a bf16 step is 0.0625): the bias is added to fp32
+    scores, so each output is within a bf16 rounding of a float64 reference
+    on the CPU (2^-8 * |ref| + 1e-4)."""
+    from anyv2v_torch.ops.attention import multi_head_attention
+
+    gen = torch.Generator().manual_seed(5)
+    b, s, heads = 2, 256, 2
+    for dh, with_mask in ((192, False), (64, True)):
+        q, k, v = (torch.randn(b, s, heads * dh, generator=gen).bfloat16() for _ in range(3))
+        bias = 8.0 + 3.0 * torch.randn(heads, s, s, generator=gen)
+        mask = torch.rand(b, heads, s, s, generator=gen) > 0.4
+        mask[..., 0] = True
+        if not with_mask:
+            mask[:] = True
+        scale = dh ** -0.5
+
+        def split(x):
+            return x.double().reshape(b, s, heads, dh).transpose(1, 2)
+
+        scores = (split(q) @ split(k).transpose(-1, -2) * scale + bias.double())
+        want = (scores.masked_fill(~mask, float("-inf")).softmax(-1) @ split(v)).transpose(
+            1, 2).reshape(b, s, -1)
+        got = multi_head_attention(q.cuda(), k.cuda(), v.cuda(), heads, scale,
+                                   bias=bias.cuda(), mask=mask.cuda() if with_mask else None)
+        diff = (got.double().cpu() - want).abs()
+        excess = (diff - (2.0 ** -8 * want.abs() + 1e-4)).max().item()
+        log(f"SDPA bias route (dh {dh}{', with a mask' if with_mask else ''}, bf16 tokens, "
+            f"fp32 bias): max_abs_err {diff.max().item():.3e} against the float64 reference")
+        if got.dtype != torch.bfloat16 or not excess <= 0.0:
+            raise RuntimeError(f"the SDPA bias route at dh {dh} is not within a bf16 rounding "
+                               "of its float64 reference")
+
+
+def phase_op_surfaces():
+    """The two operand modes that no configuration reaches, through the
+    port's modules (:func:`op_surfaces`) at full width after a small-size
+    reference check and the SDPA bias routes' check
+    (:func:`_sdpa_bias_check`): K5 with a bias on all three biased ``Attention`` calls,
+    K2 on the view once (the temporal transformer's biased attention), K3's
+    GELU form on both feed-forwards; the outputs finite and of their
+    shapes. Returns each kernel's launch count over the run."""
+    _surface_reference()
+    _sdpa_bias_check()
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with _RouteLog(_editor_k5_role) as routes:
+        out = op_surfaces("cuda")
+        torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    log(f"kernel launches in the op-surfaces path: {counts}")
+    log(f"op-surfaces routes: K5 by role {routes.k5}; K2 by shape {routes.k2}; SDPA through "
+        f"the dispatcher by head width {routes.sdpa}, with a mask or bias {routes.sdpa_masked}")
+    checks = {f"{label}: {list(y.shape)} finite": tuple(y.shape) == tuple(args[0].shape)
+              and bool(torch.isfinite(y).all()) for label, (_, (args, _), y) in out.items()}
+    checks.update({
+        **routes.mode_checks(counts),
+        "K5 with a bias on the three biased Attention calls": counts["flash_attention_bias"] == 3,
+        "K2 on the [B, S, 1, C] view, with the bias": counts["frame_attention"] == 1
+        and set(routes.k2) == {"S16 Sk16 dh40 bias"},
+        "K3's GELU form on both feed-forwards": counts["ffn_gelu"] == 2,
+        "nothing on SDPA": not routes.sdpa and not routes.sdpa_masked,
+    })
+    _check_outputs(checks)
+    return counts
+
+
+def phase_bench():
+    """The port's bench entries (``anyv2v_torch/bench.py`` and
+    ``bench_backbones.py``), projected, at 16 frames for the three
+    backbones: each builds its pipeline (UNet and VAE, seeded random bf16
+    weights), times VAE encode and decode, warm 20-step inversion and
+    10-step edit scans (each after a 2-step warm-up, each through
+    ``check_scan_time``) and prints its JSON line. Every value must be
+    finite. Returns each kernel's launch count over the three."""
+    from anyv2v_torch.bench import bench_i2vgen
+    from anyv2v_torch.bench_backbones import bench_consisti2v, bench_seine
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    recs = []
+    for fn in (bench_i2vgen, bench_consisti2v, bench_seine):
+        recs.append(fn())
+        log(json.dumps(recs[-1]))
+        torch.cuda.empty_cache()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    log(f"kernel launches in the bench path: {counts}")
+    _check_outputs({
+        f"{r['metric']}: finite": all(np.isfinite(v) for v in [r["value"]] + [
+            r["detail"][k] for k in ("invert_s", "edit_s", "vae_encode_s", "vae_decode_s")])
+        for r in recs})
+    return counts
+
+
 # (profile group, kernel symbol that the group's device events contain,
-# wrapper); K3's two launches are both ffn_geglu_kernel instances, so the
-# group holds both
+# wrapper); K3's two launches (and both forms) are ffn_kernel instances, so
+# the group holds them all
 _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel", "folded_attention"),
                   ("K2 long", "frame_attention_long_kernel", "frame_attention_long"),
                   ("K2 frame_attention", "frame_attention_kernel", "frame_attention"),
-                  ("K3 ffn_geglu", "ffn_geglu_kernel", "ffn_geglu"),
+                  ("K3 ffn", "ffn_kernel", "ffn_geglu"),
                   ("K4 temporal_conv", "temporal_conv_kernel", "gn_silu_temporal_conv"),
                   ("K5 flash_attention", "flash_attention_kernel", "flash_attention"))
 

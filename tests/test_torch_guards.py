@@ -42,7 +42,7 @@ PORT_MODULES = [
     "anyv2v_torch.product.web_demo", "anyv2v_torch.product.walkthrough",
     "anyv2v_torch.cli.gradio_demo", "anyv2v_torch.cli.gradio_demo_cosxl",
     "anyv2v_torch.cli.gradio_demo_style", "anyv2v_torch.parallel",
-    "anyv2v_torch.parallel.mesh",
+    "anyv2v_torch.parallel.mesh", "anyv2v_torch.bench", "anyv2v_torch.bench_backbones",
 ]
 FORBIDDEN = ("jax", "anyv2v_tpu")
 # host packages the card's machine lacks: only functions that need them

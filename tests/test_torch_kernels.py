@@ -7,8 +7,12 @@ same numpy-seeded fp32 inputs; off-TPU the Pallas entries run in interpret
 mode. Shapes are small but cover each routed class: self and cross, padded
 head widths 8/16/32/64, 16 frames with a pixel count that tiles; for K5 the
 split-head flash (head widths 40/80/160, ragged Sq and Sk), split-KV and
-short-K/V cross classes; for K2 the augmented key axis Sk = S + 8 and the
-per-head score bias (SEINE's relative-position bias) in both Pallas forms.
+short-K/V cross classes, and its score bias (shared by the batch or per
+row, head widths 8/16/32/40/64, ragged Sq and Sk); for K2 the augmented key
+axis Sk = S + 8 and the per-head score bias (SEINE's relative-position bias)
+in both Pallas forms, and on the ``[B, S, 1, C]`` view through which the
+dispatcher sends a shared bias on ``[B, S, C]`` tokens; for K3 both forms,
+GEGLU and GELU.
 
 Tolerance: rtol 1e-4, atol 2e-5 (the block goldens' in
 tests/test_convert_golden.py). The kernels themselves are checked against the
@@ -28,8 +32,9 @@ from anyv2v_tpu.ops.pallas_packed_flash import packed_flash_attention
 from anyv2v_tpu.ops.pallas_short_attention import short_attention_bsc, short_attention_frames
 from anyv2v_tpu.ops.pallas_temporal_conv import temporal_conv3
 from anyv2v_tpu.ops.pallas_temporal_ew import temporal_ew_attention
-from anyv2v_torch.ops.ffn import ffn_geglu
-from anyv2v_torch.ops.flash_attention import flash_attention
+from anyv2v_torch.ops.attention import multi_head_attention
+from anyv2v_torch.ops.ffn import ffn_geglu, ffn_gelu
+from anyv2v_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from anyv2v_torch.ops.folded_attention import folded_attention
 from anyv2v_torch.ops.frame_attention import frame_attention
 from anyv2v_torch.ops.temporal_conv import gn_silu_temporal_conv, groupnorm_scale_shift
@@ -210,6 +215,8 @@ def test_frame_attention_bias_vs_temporal_ew(b, s, sk, hw, heads, dh):
         (1, 17 * 16, 77, 8, 40),    # temporal cross over [B, F*HW, C], dh 40
         (2, 130, 77, 8, 80),        # dh 80, ragged Sq
         (1, 100, 70, 2, 160),       # dh 160, ragged Sk
+        (2, 150, 90, 3, 24),        # the Pallas kernel's other widths: dh 24 (pad chunk)
+        (1, 130, 140, 2, 128),      # and dh 128
     ],
 )
 def test_flash_attention_vs_flash_bshd(b, sq, sk, heads, dh):
@@ -221,6 +228,57 @@ def test_flash_attention_vs_flash_bshd(b, sq, sk, heads, dh):
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                           heads, dh ** -0.5)
     _close(got, np.asarray(want).reshape(b, sq, c))
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,heads,dh,form",
+    [
+        (2, 130, 77, 2, 8, "shared"),     # ragged Sq past one query tile, keys of one tile
+        (1, 64, 200, 3, 16, "batch"),     # ragged Sk past one key tile
+        (2, 100, 150, 2, 32, "shared4"),  # [1, H, Sq, Sk]
+        (3, 40, 40, 2, 40, "batch"),
+        (1, 129, 131, 1, 64, "shared"),
+    ],
+)
+def test_flash_attention_bias_vs_flash_bshd(b, sq, sk, heads, dh, form):
+    """K5's bias operand: an fp32 score bias added after the scale, shared by
+    the batch ([H, Sq, Sk] or [1, H, Sq, Sk]) or per row ([B, H, Sq, Sk])."""
+    rng = np.random.RandomState(14)
+    c = heads * dh
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    bias = _rand(rng, *{"shared": (heads, sq, sk), "shared4": (1, heads, sq, sk),
+                        "batch": (b, heads, sq, sk)}[form])
+    want = flash_attention_bshd(*(jnp.asarray(x.reshape(b, x.shape[1], heads, dh))
+                                  for x in (q, k, v)), bias=jnp.asarray(bias), scale=dh ** -0.5)
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), heads, dh ** -0.5)
+    got = flash_attention_plain(*args, bias=torch.from_numpy(bias))
+    _close(got, np.asarray(want).reshape(b, sq, c))
+    # the wrapper takes the same operand (its plain version, on the CPU)
+    _close(flash_attention(*args, bias=torch.from_numpy(bias)), np.asarray(want).reshape(b, sq, c))
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,heads,dh",
+    [
+        (4, 16, 16, 8, 40),     # SEINE's temporal widths, F 16
+        (3, 17, 25, 2, 64),     # the augmented key axis
+        (2, 40, 48, 2, 16),     # past 32 frames: K2 long's class
+        (5, 7, 7, 4, 8),
+    ],
+)
+def test_biased_bsc_attention_vs_short_attention_bsc(b, sq, sk, heads, dh):
+    """A bias shared by the batch at short lengths: ``multi_head_attention``
+    sends it to the frame kernels on the ``[B, S, 1, C]`` view, the function
+    of the Pallas ``_short_kernel`` with its ``[H, Sq, Sk]`` bias."""
+    rng = np.random.RandomState(15)
+    c = heads * dh
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    bias = _bias(rng, heads, sq, sk)
+    want = short_attention_bsc(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=heads,
+                               scale=dh ** -0.5, bias=jnp.asarray(bias))
+    got = multi_head_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               heads, dh ** -0.5, bias=torch.from_numpy(bias))
+    _close(got, want)
 
 
 @pytest.mark.parametrize("b,frames,s,heads,dh", [(2, 3, 64, 2, 64), (1, 4, 40, 1, 40)])
@@ -265,6 +323,21 @@ def test_ffn_geglu_vs_fused_ffn(lead, c):
     # the port keeps torch Linear layouts: [out, in]
     got = ffn_geglu(torch.from_numpy(x), torch.from_numpy(w1.T.copy()), torch.from_numpy(b1),
                     torch.from_numpy(w2.T.copy()), torch.from_numpy(b2))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("lead,c", [((1024,), 128), ((2, 300), 320), ((4, 40), 64)])
+def test_ffn_gelu_vs_fused_ffn(lead, c):
+    """K3's GELU form: ``gelu(x W1 + b1)`` rounded where the Pallas body
+    rounds, then ``W2``; the Pallas GELU is a degree-9 fit, 6.5e-6 from erf."""
+    rng = np.random.RandomState(16)
+    inner = 4 * c
+    x = _rand(rng, *lead, c)
+    w1, b1 = _rand(rng, c, inner, scale=0.02), _rand(rng, inner, scale=0.1)
+    w2, b2 = _rand(rng, inner, c, scale=0.02), _rand(rng, c, scale=0.1)
+    want = fused_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)), activation="gelu")
+    got = ffn_gelu(torch.from_numpy(x), torch.from_numpy(w1.T.copy()), torch.from_numpy(b1),
+                   torch.from_numpy(w2.T.copy()), torch.from_numpy(b2))
     _close(got, want)
 
 

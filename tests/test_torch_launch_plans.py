@@ -12,7 +12,9 @@ of ``chip_smoke.py`` (the shapes the card is held to), where the grid must
 cover each (batch row, head group, query tile) or (batch row, pixel, head
 group) exactly once; K3's and K4's persistent grids must take each (row
 tile, column tile) of every chip_smoke case and of the tiny archs' shapes
-exactly once.
+exactly once. The operand modes take the same plans: K5 with a score bias
+(at every biased chip_smoke case: no shared memory added, the bias read
+once per block) and K3's GELU form (launch 1 over 128-column tiles of h).
 """
 
 import itertools
@@ -128,14 +130,34 @@ def test_flash_plan_covers_each_chip_smoke_case(shape):
     assert dh in fl.HEAD_DIMS and plan["grid"][0] * fl.BLOCK_ROWS >= sq
 
 
+@pytest.mark.parametrize("shape", _chip_smoke_cases("flash_attention_bias"))
+def test_flash_bias_plan_covers_each_chip_smoke_case(shape):
+    """K5 with a bias: the unbiased plan's grid and shared bytes (each
+    consumer thread reads its scores' bias from global memory), and every
+    block's [128, Sk] bias rows read once: the whole bias once per batch
+    row, shared or not."""
+    b, sq, sk, heads, dh, form = (shape[x] for x in ("b", "sq", "sk", "heads", "dh", "bias"))
+    assert dh in fl.HEAD_DIMS and form in ("shared", "batch")
+    plan = fl.flash_plan(b, sq, heads, dh, form, sk)
+    _build.check_plan("flash_attention", plan)
+    plain = fl.flash_plan(b, sq, heads, dh)
+    assert plan["smem_bytes"] == plain["smem_bytes"] and plan["grid"] == plain["grid"]
+    assert plan["bias"] == form and plan["bias_bytes_read"] == b * heads * sq * sk * 4
+
+
+def test_flash_plan_refuses_an_unknown_bias_form():
+    with pytest.raises(ValueError, match="bias"):
+        fl.flash_plan(2, 128, 2, 64, "rows", 128)
+
+
 def test_flash_plan_holds_its_tiles():
     """Q (the score depth padded to 16) and each stage of K and V, all as
     [128 rows, channels] bf16, plus the barriers: the depth pad appears at
-    head widths 8 and 40 only."""
+    the odd multiples of 8 only (8, 24, 40, ...)."""
     for dh in fl.HEAD_DIMS:
         plan = fl.flash_plan(1, 128, 1, dh)
         dp = -(-dh // 16) * 16
-        assert (dp == dh) == (dh not in (8, 40))
+        assert (dp == dh) == (dh % 16 == 0)
         tiles = 128 * dp * 2 + plan["stages"] * 128 * (dp + dh) * 2
         assert tiles < plan["smem_bytes"] <= tiles + (2 * plan["stages"] + 1) * 8 + 128
 
@@ -261,6 +283,25 @@ def test_ffn_plan_covers_each_case(shape):
         _check_gemm_plan(plan["geglu"], rows, 2 * inner)
         assert plan["out"]["ksteps"] == inner // 64
         _check_gemm_plan(plan["out"], rows, c)
+
+
+@pytest.mark.parametrize("shape", _chip_smoke_cases("ffn_gelu") + [
+    pytest.param({"n": n, "c": c, "inner": 4 * c}, id=f"tiny rows {n} C{c}") for n, c in _TINY_FFN])
+def test_ffn_gelu_plan_covers_each_case(shape):
+    """K3's GELU form: launch 1 over the inner width in tiles of 128 h
+    columns from one box of W1 rows, 128 wide, with the same staging as
+    GEGLU's; launch 2 as GEGLU's."""
+    n, c, inner = shape["n"], shape["c"], shape["inner"]
+    assert ffn.fits(c, inner)
+    for i in range(0, n, ffn.CHUNK_ROWS):
+        rows = min(ffn.CHUNK_ROWS, n - i)
+        plan = ffn.ffn_plan(rows, c, inner, activation="gelu")
+        assert set(plan) == {"gelu", "out"}
+        assert plan["gelu"]["width"] == 128 and plan["gelu"]["ksteps"] == -(-c // 64)
+        _check_gemm_plan(plan["gelu"], rows, inner, ffn.GEGLU_STAGING)
+        assert plan["out"] == ffn.ffn_plan(rows, c, inner)["out"]
+    with pytest.raises(ValueError, match="activation"):
+        ffn.ffn_plan(n, c, inner, activation="relu")
 
 
 @pytest.mark.parametrize("shape", _chip_smoke_cases("gn_silu_temporal_conv") + [

@@ -10,6 +10,10 @@ stored head widths are at least 8 (``models/layers.py`` pads every head), so
 the widths 2 and 4 that K2's old channel-pair body took are never asked for.
 Every K1 and K2 shape must also get a launch plan that one block can hold,
 and so must every K3 (GEGLU feed-forward) and K4 (temporal conv) shape.
+The modes that no backbone reaches, K5's score bias, K3's GELU form and K2
+on the ``[B, S, 1, C]`` view of a biased ``[B, S, C]`` call, are driven
+through the port's modules at the widths ``chip_smoke.py``'s "op surfaces"
+path gives them, and must get a kernel and a plan too.
 """
 
 import pytest
@@ -44,17 +48,20 @@ def _stub_kernels(monkeypatch):
     for name in ("frame_attention", "frame_attention_long", "folded_attention",
                  "flash_attention", "sdpa_attention"):
         monkeypatch.setattr(attention, name, record(name))
-    def ffn(x, w1, b1, w2, b2):
-        seen.setdefault("ffn_geglu", set()).add((x.numel() // x.shape[-1], x.shape[-1],
-                                                 w2.shape[1]))
-        return torch.empty(*x.shape[:-1], w2.shape[0], device=x.device, dtype=x.dtype)
+    def ffn(name):
+        def call(x, w1, b1, w2, b2):
+            seen.setdefault(name, set()).add((x.numel() // x.shape[-1], x.shape[-1],
+                                              w2.shape[1]))
+            return torch.empty(*x.shape[:-1], w2.shape[0], device=x.device, dtype=x.dtype)
+        return call
 
     def tconv(x, s, t, w, b):
         seen.setdefault("gn_silu_temporal_conv", set()).add(
             (tuple(x.shape), w.shape[2], s is not None))
         return torch.empty(*x.shape[:-1], w.shape[2], device=x.device, dtype=x.dtype)
 
-    monkeypatch.setattr(layers, "ffn_geglu", ffn)
+    monkeypatch.setattr(layers, "ffn_geglu", ffn("ffn_geglu"))
+    monkeypatch.setattr(layers, "ffn_gelu", ffn("ffn_gelu"))
     # the temporal convs of both UNets launch K4 through
     # temporal_conv.groupnorm_silu_temporal_conv
     monkeypatch.setattr(tc, "gn_silu_temporal_conv", tconv)
@@ -213,8 +220,7 @@ def test_editor_attentions_route_to_k5_with_a_plan(monkeypatch, arch, size, batc
 def test_editor_ffns_take_k3_below_c768_only(monkeypatch, arch, size, batch):
     """K3 takes the GEGLU feed-forwards at C 320 / 640 (with plans for their
     rows) and refuses C 1280, which stays on cuBLAS as the JAX gate leaves
-    it; no feed-forward has the GELU form and no attention a score bias
-    (the two operand modes still to port)."""
+    it; no editor feed-forward has the GELU form."""
     from anyv2v_torch.models.layers import FeedForward
 
     seen, modules = _editor_routes(monkeypatch, arch, size, batch)
@@ -228,3 +234,56 @@ def test_editor_ffns_take_k3_below_c768_only(monkeypatch, arch, size, batch):
     assert all(m.activation == "geglu" for m in ffns)
     wide = {m.net[2].out_features for m in ffns} - {320, 640}
     assert wide == {1280} and not ffn.fits(1280, 5120)
+
+
+def test_op_surfaces_route_to_the_bias_and_gelu_kernels_with_a_plan(monkeypatch):
+    """chip_smoke's "op surfaces" path on the ``meta`` device: the biased
+    ``Attention`` calls reach K5 with the bias (shared, per row, dh 32), the
+    biased ``TemporalTransformer`` reaches K2 on the ``[B, S, 1, C]`` view
+    (its second attention, unbiased, K5 at dh 40; its feed-forward K3's
+    GEGLU form), and ``FeedForward(gelu)`` K3's GELU form; each with a plan
+    one block can hold."""
+    import chip_smoke
+
+    seen = {}
+
+    def record(name):
+        def call(q, k, v, heads, scale, *args, bias=None, **kw):
+            if name == "frame_attention" and args:
+                bias = args[0]
+            seen.setdefault(name, []).append((tuple(q.shape), tuple(k.shape), heads,
+                                              None if bias is None else tuple(bias.shape)))
+            return torch.empty_like(q)
+        return call
+
+    for name in ("frame_attention", "frame_attention_long", "folded_attention",
+                 "flash_attention", "sdpa_attention"):
+        monkeypatch.setattr(attention, name, record(name))
+    for name in ("ffn_geglu", "ffn_gelu"):
+        monkeypatch.setattr(layers, name, lambda x, w1, b1, w2, b2, name=name: seen.setdefault(
+            name, []).append((x.numel() // x.shape[-1], x.shape[-1], w2.shape[1]))
+            or torch.empty_like(x))
+    with torch.inference_mode():
+        chip_smoke.op_surfaces(device="meta")
+    assert set(seen) == {"flash_attention", "frame_attention", "ffn_gelu", "ffn_geglu"}, \
+        sorted(seen)
+    forms = set()
+    for (b, sq, c), k, heads, bias in seen["flash_attention"]:
+        dh = c // heads
+        assert dh in fl.HEAD_DIMS
+        form = None if bias is None else fl.bias_form(torch.empty(bias, device="meta"), b,
+                                                      heads, sq, k[1])
+        assert bias is None or form is not None
+        forms.add((form, dh))
+        _build.check_plan("flash_attention", fl.flash_plan(b, sq, heads, dh, form, k[1]))
+    assert {("shared", 40), ("batch", 64), ("shared", 32)} <= forms
+    for q, k, heads, bias in seen["frame_attention"]:
+        b, s, hw, c = q
+        assert hw == 1 and bias == (heads, s, k[1]) and fr.takes(s, k[1], c // heads)
+        _build.check_plan("frame_attention", fr.frame_plan(b, s, k[1], hw, heads, c // heads))
+    assert {c for _, c, _ in seen["ffn_gelu"]} == {320, 640}
+    for n, c, inner in seen["ffn_gelu"]:
+        assert ffn.fits(c, inner)
+        plan = ffn.ffn_plan(min(ffn.CHUNK_ROWS, n), c, inner, activation="gelu")
+        for part in ("gelu", "out"):
+            _build.check_plan("ffn_gelu", plan[part])
