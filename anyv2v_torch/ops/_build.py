@@ -202,12 +202,19 @@ def gemm_plan(rows: int, col_tiles: int, width: int, ksteps: int, extra_bytes: i
             "grid": (max(1, min(tiles, sms)),)}
 
 
+# name -> a kernel's own check of a plan's fields (registered by its module)
+PLAN_CHECKS = {}
+
+
 def check_plan(name: str, plan: dict) -> None:
     """Raise unless a launch plan's block fits one H100 SM's shared memory
-    and its grid the launch limits."""
+    and its grid the launch limits, and the kernel's own check in
+    :data:`PLAN_CHECKS`, if it has one, takes it."""
     if plan["smem_bytes"] > SMEM_LIMIT or any(
             g > lim for g, lim in zip(plan["grid"], GRID_LIMITS)):
         raise ValueError(f"{name}: no launch for this shape: {plan}")
+    if name in PLAN_CHECKS:
+        PLAN_CHECKS[name](plan)
 
 
 def require_aligned(name: str, *tensors: torch.Tensor) -> None:

@@ -4,9 +4,12 @@ or an optional split-KV context.
 
 Replaces ``anyv2v_tpu/ops/pallas_attention.py`` (``_flash_kernel``,
 ``_flash_splitkv_kernel``) and ``anyv2v_tpu/ops/pallas_cross_attention.py``
-(``_cross_kernel``); ``csrc/flash_attention.cu`` is one body for the three,
-``wgmma`` on tiles that TMA loads into an mbarrier-guarded ring
-(:func:`flash_plan` sizes it):
+(``_cross_kernel``); ``csrc/flash_attention.cu`` is one body for the three:
+persistent blocks walking (query tile, head, batch row) items, ``wgmma`` on
+tiles that a TMA producer loads into mbarrier-guarded rings, the softmax of
+one key tile overlapped with the previous tile's products, and K/V kept
+resident where the key axis is one tile (:func:`flash_plan` decides the
+walk, the tile and the rings):
 
 - long self or cross attention at head widths 40/64/80/160 (ConsistI2V's
   spatial cross-attention, 5/10/20 heads of 64, and its temporal
@@ -37,33 +40,96 @@ from . import _build
 from .folded_attention import folded_attention_plain
 
 HEAD_DIMS = tuple(range(8, 129, 8)) + (160,)
-BLOCK_ROWS = 128   # query rows per block: two consumer warpgroups of 64
-BLOCK_KEYS = 128   # keys per K/V tile
-THREADS = 384      # two consumer warpgroups and one producer warpgroup
+TILE_ROWS = (64, 128)   # query rows of a work item: one consumer warpgroup per 64
+BLOCK_KEYS = 128        # keys per K/V tile
+MAX_STAGES = 4          # of the Q ring and of the K/V ring
+BARRIER_BYTES, ALIGN_SLACK = 256, 1024   # the slack aligns the tiles to the swizzle atom
+L2_BYTES = 50 * 2 ** 20
+
+
+def flash_layout_bytes(head_dim: int, tile_rows: int, q_stages: int, kv_stages: int) -> int:
+    """Shared bytes of one block (``csrc/flash_attention.cu`` ``make_layout``):
+    a ring of Q tiles ``[tile_rows, dh]`` and one of K and V tiles ``[128,
+    dh]`` (Q and K with the score depth padded to 16), the output's staging
+    ``[tile_rows, dh]``, the barriers and 1024 bytes of alignment slack."""
+    dp = -(-head_dim // 16) * 16
+    return (q_stages * tile_rows * dp * 2 + kv_stages * BLOCK_KEYS * (dp + head_dim) * 2
+            + tile_rows * head_dim * 2 + BARRIER_BYTES + ALIGN_SLACK)
+
+
+def _fits(head_dim, tile_rows, q_stages, kv_stages):
+    return flash_layout_bytes(head_dim, tile_rows, q_stages, kv_stages) <= _build.SMEM_LIMIT
 
 
 def flash_plan(b: int, sq: int, heads: int, head_dim: int, bias: Optional[str] = None,
-               sk: int = 0) -> dict:
-    """The launch of K5's kernel: one block per (128 query rows, head, batch
-    row); shared memory holds Q (the score depth padded to 16) and a ring of
-    K/V tiles of 128 keys, 3 stages (2 at head widths past 80), plus one
-    mbarrier per stage and direction, one for Q, and 128 bytes of alignment
-    slack. ``csrc/flash_attention.cu`` refuses a plan whose bytes differ
-    from its own layout. ``bias`` ("shared" or "batch", over ``sk`` keys)
-    adds no shared memory: each consumer thread reads its scores' bias from
-    global memory, every block its own ``[128, Sk]`` rows, so that
-    ``bias_bytes_read`` is the whole bias once per batch row whichever its
-    form (the grid's batch index is the slowest)."""
+               sk: int = 0, *, sk2: int = 0, sms: int = _build.H100_SMS) -> dict:
+    """The launch of K5's persistent kernel over ``b * heads * ceil(sq /
+    tile_rows)`` work items (a query tile, a head, a batch row); ``sk`` and
+    ``sk2`` are the own and context key lengths (0: not known, and then K/V
+    is never taken as resident).
+
+    - ``tile_rows``: 128 (two consumer warpgroups), or 64 (one) where
+      128-row items would leave the ``sms`` SMs under one wave, or where
+      128 rows do not fit with two K/V stages (head width 160).
+    - ``resident``: the whole key axis is one tile (``0 < sk <= 128``, no
+      context); a block then walks a contiguous run of items and loads each
+      (batch row, head)'s K/V once for the run (1 or 2 K/V stages), Q
+      through a ring of up to 4. Otherwise the walk is strided (block x
+      takes items x, x + grid, ...), 2 Q stages and as many K/V stages as
+      fit, up to 4.
+    - ``threads``: 128 a consumer warpgroup and a producer warp of 32.
+    - ``order``: which index of an item runs fastest, "query" (its K/V is
+      shared with the items in flight) or "batch" (with a bias shared by the
+      batch and a strided walk: the blocks in flight read the same bias
+      rows).
+    - ``grid``: one block per SM, or one per item where there are fewer.
+    - ``bias_bytes_read``: the bias bytes from HBM in this order: a shared
+      bias once where the batch runs fastest or it fits half the 50 MB L2,
+      else once per batch row; a per-row bias once.
+
+    ``csrc/flash_attention.cu`` refuses a plan whose bytes are not its layout
+    of these fields; :func:`check_flash_plan` (through ``_build.check_plan``)
+    refuses one that is not this function's plan for its ``shape``."""
     if bias not in (None, "shared", "batch"):
         raise ValueError(f"flash_plan: bias {bias!r}, expected None, 'shared' or 'batch'")
-    dp = -(-head_dim // 16) * 16
-    stages = 2 if head_dim > 80 else 3
-    q_bytes = BLOCK_ROWS * dp * 2
-    kv_bytes = BLOCK_KEYS * (dp + head_dim) * 2
-    return {"stages": stages, "threads": THREADS, "bias": bias,
-            "bias_bytes_read": 0 if bias is None else b * heads * sq * sk * 4,
-            "smem_bytes": q_bytes + stages * kv_bytes + (2 * stages + 1) * 8 + 128,
-            "grid": (-(-sq // BLOCK_ROWS), heads, b)}
+    resident = 0 < sk <= BLOCK_KEYS and sk2 == 0
+    kv_min = 1 if resident else 2
+    tile_rows = 128
+    if -(-sq // 128) * heads * b < sms or not _fits(head_dim, 128, 2, kv_min):
+        tile_rows = 64
+    if resident:
+        kv_stages = 2 if _fits(head_dim, tile_rows, 2, 2) else 1
+        q_stages = next(n for n in range(MAX_STAGES, 1, -1)
+                        if _fits(head_dim, tile_rows, n, kv_stages))
+    else:
+        q_stages = 2
+        kv_stages = next(n for n in range(MAX_STAGES, 1, -1) if _fits(head_dim, tile_rows, 2, n))
+    items = -(-sq // tile_rows) * heads * b
+    order = "batch" if bias == "shared" and not resident else "query"
+    one_read = heads * sq * sk * 4
+    if bias is None:
+        bias_bytes = 0
+    elif bias == "shared" and (order == "batch" or one_read <= L2_BYTES // 2):
+        bias_bytes = one_read
+    else:
+        bias_bytes = b * one_read
+    return {"shape": {"b": b, "sq": sq, "heads": heads, "head_dim": head_dim, "bias": bias,
+                      "sk": sk, "sk2": sk2, "sms": sms},
+            "tile_rows": tile_rows, "threads": 128 * (tile_rows // 64) + 32,
+            "resident": resident, "order": order, "q_stages": q_stages, "kv_stages": kv_stages, "items": items,
+            "bias": bias, "bias_bytes_read": bias_bytes,
+            "smem_bytes": flash_layout_bytes(head_dim, tile_rows, q_stages, kv_stages),
+            "grid": (max(1, min(items, sms)),)}
+
+
+def check_flash_plan(plan: dict) -> None:
+    """Raise unless ``plan`` is :func:`flash_plan`'s plan for its own
+    ``shape``: a plan with any field changed is refused before a launch."""
+    if plan != flash_plan(**plan["shape"]):
+        raise ValueError(f"flash_attention: no launch for this plan: {plan}")
+
+
+_build.PLAN_CHECKS["flash_attention"] = check_flash_plan
 
 
 def bias_form(bias: torch.Tensor, b: int, heads: int, sq: int, sk: int) -> Optional[str]:
@@ -165,7 +231,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
     if sq == 0 or sk == 0:
         raise ValueError("flash_attention: empty query or key axis")
     form = None if bias is None else bias_form(bias, b, heads, sq, sk)
-    plan = flash_plan(b, sq, heads, dh, form, sk)
+    plan = flash_plan(b, sq, heads, dh, form, sk, sk2=sk2, sms=_build.sm_count(q.device))
     _build.check_plan("flash_attention", plan)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(0)
@@ -176,7 +242,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
         null if bias is None else _build.ptr(bias), ctypes.c_int(form == "batch"),
         ctypes.c_int(b), ctypes.c_int(sq), ctypes.c_int(sk), ctypes.c_int(sk2),
         ctypes.c_int(frames), ctypes.c_int(heads), ctypes.c_int(dh),
-        ctypes.c_float(scale), ctypes.c_int(plan["smem_bytes"]), _build.stream())
+        ctypes.c_float(scale), ctypes.c_int(plan["tile_rows"]), ctypes.c_int(plan["q_stages"]),
+        ctypes.c_int(plan["kv_stages"]), ctypes.c_int(plan["resident"]),
+        ctypes.c_int(plan["order"] == "batch"), ctypes.c_int(plan["grid"][0]),
+        ctypes.c_int(plan["smem_bytes"]), _build.stream())
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     if bias is not None:

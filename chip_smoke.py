@@ -451,12 +451,14 @@ def _kernel_cases():
                     rn(b, sk, heads * dh), heads, true_dh ** -0.5)
         return tagged(make, b=b, sq=sq, sk=sk, heads=heads, dh=dh)
 
-    def splitkv(rows, frames, s, heads, dh):
+    def splitkv(rows, frames, s, heads, dh, sk=None, sk2=None):
+        sk, sk2 = sk or s, sk2 or s
+
         def make():
             c = heads * dh
-            return (rn(rows, s, c), rn(rows, s, c), rn(rows, s, c), heads, dh ** -0.5,
-                    rn(rows // frames, s, c), rn(rows // frames, s, c), frames)
-        return make
+            return (rn(rows, s, c), rn(rows, sk, c), rn(rows, sk, c), heads, dh ** -0.5,
+                    rn(rows // frames, sk2, c), rn(rows // frames, sk2, c), frames)
+        return tagged(make, b=rows, sq=s, sk=sk, sk2=sk2, frames=frames, heads=heads, dh=dh)
 
     def frames(b, s, hw, heads, dh, true_dh, sk=None, bias=False):
         def make():
@@ -567,8 +569,7 @@ def _kernel_cases():
         (k3, "ragged tiny C32 rows 300", ffn_args(300, 32)),
         (k4, "ragged tiny C16 P1 F8 b3", tconv_args(3, 8, 1, 16)),
         (k5, "ragged split-KV 6 rows Sq1000 Sk999+77 h3 dh80",
-         lambda: (rn(6, 1000, 240), rn(6, 999, 240), rn(6, 999, 240), 3, 80 ** -0.5,
-                  rn(2, 77, 240), rn(2, 77, 240), 3)),
+         splitkv(6, 3, 1000, 3, 80, sk=999, sk2=77)),
         (k2, "ragged b2 S7 Sk13 HW37 h2 dh40", frames(2, 7, 37, 2, 40, 40, sk=13)),
         (k2, "ragged bias b2 S7 Sk13 HW37 h2 dh80", frames(2, 7, 37, 2, 80, 80, sk=13, bias=True)),
         # seine-tiny's reference check (3 rows x 8 frames, 2 heads of 8): its K1 calls

@@ -1,7 +1,8 @@
-"""Profiles one SEINE UNet forward at full width on one NVIDIA GPU, at
-batch 1 (inversion) and batch 3 (edit, every PnP flag on), twice.
+"""Profiles one SEINE (or ConsistI2V) UNet forward at full width on one
+NVIDIA GPU, at batch 1 (inversion) and batch 3 (edit, every PnP flag on),
+twice.
 
-    python3 scripts/torch_seine_profile.py [TREE]
+    python3 scripts/torch_seine_profile.py [TREE] [consisti2v]
 
 ``anyv2v_torch`` is imported from TREE (default: this checkout) and the
 profiler from this checkout's ``chip_smoke.py``, so two trees can be
@@ -24,6 +25,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+    backbone = sys.argv[2] if len(sys.argv) > 2 else "seine"
     if not torch.cuda.is_available():
         print("no CUDA GPU: torch.cuda.is_available() is False")
         return 1
@@ -33,17 +35,24 @@ def main():
     spec.loader.exec_module(smoke)
     import anyv2v_torch
     from anyv2v_torch.ops import _build
-    from anyv2v_torch.utils.model_zoo import build_seine_pipeline
+    from anyv2v_torch.utils.model_zoo import build_consisti2v_pipeline, build_seine_pipeline
 
     if not anyv2v_torch.__file__.startswith(tree):
         raise RuntimeError(f"anyv2v_torch came from {anyv2v_torch.__file__}, not {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
-    pipe = build_seine_pipeline("seine", device="cuda", seed=0, dtype=torch.bfloat16)
+    if backbone == "consisti2v":
+        pipe = build_consisti2v_pipeline("consisti2v", device="cuda", seed=0,
+                                         dtype=torch.bfloat16)
+        def make_args(batch, g):
+            return smoke.consisti2v_rank_args(batch, g, 16)
+    else:
+        pipe = build_seine_pipeline("seine", device="cuda", seed=0, dtype=torch.bfloat16)
+        make_args = smoke.seine_forward_args
 
     print(f"anyv2v_torch from {tree}")
     for _ in range(2):
-        smoke.phase_profile(pipe, "seine", smoke.seine_forward_args)
+        smoke.phase_profile(pipe, backbone, make_args)
     return 0
 
 

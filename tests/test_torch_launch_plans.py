@@ -12,9 +12,11 @@ of ``chip_smoke.py`` (the shapes the card is held to), where the grid must
 cover each (batch row, head group, query tile) or (batch row, pixel, head
 group) exactly once; K3's and K4's persistent grids must take each (row
 tile, column tile) of every chip_smoke case and of the tiny archs' shapes
-exactly once. The operand modes take the same plans: K5 with a score bias
-(at every biased chip_smoke case: no shared memory added, the bias read
-once per block) and K3's GELU form (launch 1 over 128-column tiles of h).
+exactly once, and so must K5's persistent walk over (query tile, head, batch
+row) items at every K5 case and every shape the archs route to K5. The
+operand modes take the same plans: K5 with a score bias (at every biased
+chip_smoke case: no shared memory added, a bias shared by the batch read
+from HBM once) and K3's GELU form (launch 1 over 128-column tiles of h).
 """
 
 import itertools
@@ -27,6 +29,7 @@ from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops import folded_attention as fa
 from anyv2v_torch.ops import frame_attention as fr
 from anyv2v_torch.ops import temporal_conv as tc
+from test_torch_routes import _ARCH_FRAMES, _EDITORS, _editor_routes, _routes
 
 SMEM = 232448
 GRID_X, GRID_YZ = 2 ** 31 - 1, 65535
@@ -101,14 +104,78 @@ def test_short_plan_of_the_16_frame_path():
     assert plan["grid"] == (2048, 4) and plan["threads"] == 256
 
 
+def _flash_items(plan, b, sq, heads):
+    """The (batch row, head, query tile) of every item that each block of a
+    K5 plan walks, in ``csrc/flash_attention.cu``'s order (``walk_of``,
+    ``item_of``): {item: times taken}."""
+    tr, grid, items = plan["tile_rows"], plan["grid"][0], plan["items"]
+    qtiles = -(-sq // tr)
+    taken = {}
+    for x in range(grid):
+        walk = (range(x * items // grid, (x + 1) * items // grid)
+                if plan["resident"] else range(x, items, grid))
+        for it in walk:
+            if plan["order"] == "batch":
+                key = (it % b, (it // b) // qtiles, (it // b) % qtiles)
+            else:
+                key = ((it // qtiles) // heads, (it // qtiles) % heads, it % qtiles)
+            taken[key] = taken.get(key, 0) + 1
+    return taken
+
+
+# one field of a K5 plan changed: each must be refused
+_FLASH_PLAN_EDITS = [
+    ("tile_rows", lambda v: 192 - v), ("threads", lambda v: v + 128),
+    ("q_stages", lambda v: v + 1), ("kv_stages", lambda v: v - 1),
+    ("resident", lambda v: not v), ("order", lambda v: "batch" if v == "query" else "query"),
+    ("items", lambda v: v + 1), ("grid", lambda v: (v[0] - 1 or 2,)),
+    ("smem_bytes", lambda v: v + 16), ("bias_bytes_read", lambda v: v + 4),
+]
+
+
+def check_flash_walk(b, sq, heads, dh, sk, sk2=0, bias=None, sms=_build.H100_SMS):
+    """K5's plan of one call, as the wrapper makes it: the persistent walk
+    takes each (batch row, head, query tile) exactly once on at most one
+    block per SM; K/V is resident only where the whole key axis is one tile;
+    64-row items only where 128-row items would leave the card under one
+    wave (or do not fit beside two K/V stages); the shared bytes are this
+    layout's and one block can hold them; a bias shared by the batch comes
+    from HBM once; a plan with any field changed is refused."""
+    assert dh in fl.HEAD_DIMS
+    plan = fl.flash_plan(b, sq, heads, dh, bias, sk, sk2=sk2, sms=sms)
+    _build.check_plan("flash_attention", plan)
+    tr, items = plan["tile_rows"], plan["items"]
+    assert tr in fl.TILE_ROWS and plan["threads"] == 128 * (tr // 64) + 32
+    assert items == -(-sq // tr) * heads * b and plan["grid"] == (min(items, sms),)
+    taken = _flash_items(plan, b, sq, heads)
+    assert len(taken) == items and set(taken.values()) == {1}
+    one_tile = 0 < sk <= fl.BLOCK_KEYS and sk2 == 0
+    assert plan["resident"] == one_tile
+    fits_128 = fl.flash_layout_bytes(dh, 128, 2, 1 if one_tile else 2) <= SMEM
+    assert (tr == 64) == (-(-sq // 128) * heads * b < sms or not fits_128)
+    qs, kvs = plan["q_stages"], plan["kv_stages"]
+    assert 2 <= qs <= fl.MAX_STAGES and 1 <= kvs <= fl.MAX_STAGES and (kvs >= 2 or one_tile)
+    assert plan["smem_bytes"] == fl.flash_layout_bytes(dh, tr, qs, kvs) <= SMEM
+    assert plan["order"] == ("batch" if bias == "shared" and not one_tile else "query")
+    if bias == "shared":
+        assert plan["bias_bytes_read"] == heads * sq * sk * 4
+    elif bias == "batch":
+        assert plan["bias_bytes_read"] == b * heads * sq * sk * 4
+    for key, edit in _FLASH_PLAN_EDITS:
+        with pytest.raises(ValueError, match="no launch"):
+            _build.check_plan("flash_attention", {**plan, key: edit(plan[key])})
+    return plan
+
+
 @pytest.mark.parametrize("dh", fl.HEAD_DIMS)
 def test_flash_plan_fits_one_block(dh):
-    for b, sq, heads in ((51, 4096, 5), (3, 17 * 4096, 8), (48, 64, 8), (6, 1000, 3)):
-        plan = fl.flash_plan(b, sq, heads, dh)
-        assert plan["smem_bytes"] <= SMEM
-        assert plan["threads"] == 384 and plan["stages"] in (2, 3)
-        assert plan["grid"] == (-(-sq // 128), heads, b)
-        assert plan["grid"][0] <= GRID_X and max(plan["grid"][1:]) <= GRID_YZ
+    """Every width at long and short key axes, self and split-KV, each with
+    the walk and the layout checked."""
+    for b, sq, heads, sk, sk2 in ((51, 4096, 5, 4096, 4096), (3, 17 * 4096, 8, 77, 0),
+                                  (48, 64, 8, 64, 0), (6, 1000, 3, 999, 77), (2, 300, 2, 4, 0),
+                                  (1, 16, 12, 273, 0)):
+        plan = check_flash_walk(b, sq, heads, dh, sk, sk2)
+        assert plan["grid"][0] <= GRID_X
 
 
 def _chip_smoke_cases(*names):
@@ -119,30 +186,55 @@ def _chip_smoke_cases(*names):
 @pytest.mark.parametrize("shape", [
     p for p in _chip_smoke_cases("flash_attention") if p.values[0] is not None])
 def test_flash_plan_covers_each_chip_smoke_case(shape):
-    """Each (128-query tile, head, batch row) of every K5 case with a tagged
-    shape (the first-frame editors' among them: 3 rows of 64 queries at dh
-    160, 4 keys, 16 queries) falls in exactly one block, which one H100
-    block can hold."""
-    b, sq, heads, dh = (shape[x] for x in ("b", "sq", "heads", "dh"))
-    plan = fl.flash_plan(b, sq, heads, dh)
-    _build.check_plan("flash_attention", plan)
-    assert plan["smem_bytes"] <= SMEM and plan["grid"] == (-(-sq // fl.BLOCK_ROWS), heads, b)
-    assert dh in fl.HEAD_DIMS and plan["grid"][0] * fl.BLOCK_ROWS >= sq
+    """Each (query tile, head, batch row) of every K5 case (the split-KV
+    ones with their context, the first-frame editors': 3 rows of 64 queries
+    at dh 160, 4 keys, 16 queries) is walked exactly once, by a plan one
+    H100 block can hold."""
+    b, sq, sk, heads, dh = (shape[x] for x in ("b", "sq", "sk", "heads", "dh"))
+    plan = check_flash_walk(b, sq, heads, dh, sk, shape.get("sk2", 0))
+    assert plan["bias"] is None and plan["bias_bytes_read"] == 0
 
 
 @pytest.mark.parametrize("shape", _chip_smoke_cases("flash_attention_bias"))
 def test_flash_bias_plan_covers_each_chip_smoke_case(shape):
-    """K5 with a bias: the unbiased plan's grid and shared bytes (each
-    consumer thread reads its scores' bias from global memory), and every
-    block's [128, Sk] bias rows read once: the whole bias once per batch
-    row, shared or not."""
+    """K5 with a bias: the unbiased plan's tile, rings and shared bytes (each
+    consumer thread reads its scores' bias from global memory), with the
+    batch row fastest where a bias is shared and K/V not resident, so that
+    the shared bias comes from HBM once; a per-row bias is read once."""
     b, sq, sk, heads, dh, form = (shape[x] for x in ("b", "sq", "sk", "heads", "dh", "bias"))
-    assert dh in fl.HEAD_DIMS and form in ("shared", "batch")
-    plan = fl.flash_plan(b, sq, heads, dh, form, sk)
-    _build.check_plan("flash_attention", plan)
-    plain = fl.flash_plan(b, sq, heads, dh)
-    assert plan["smem_bytes"] == plain["smem_bytes"] and plan["grid"] == plain["grid"]
-    assert plan["bias"] == form and plan["bias_bytes_read"] == b * heads * sq * sk * 4
+    assert form in ("shared", "batch")
+    plan = check_flash_walk(b, sq, heads, dh, sk, bias=form)
+    plain = fl.flash_plan(b, sq, heads, dh, None, sk)
+    for key in ("tile_rows", "q_stages", "kv_stages", "resident", "smem_bytes", "grid"):
+        assert plan[key] == plain[key]
+    assert plan["bias"] == form
+
+
+@pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
+def test_flash_plan_walks_each_routed_shape(monkeypatch, arch, frames):
+    """Every K5 call of a video forward (batch 3, every PnP flag on, shapes
+    only on the ``meta`` device): ConsistI2V's split-KV self-attention with
+    its context, its spatial and temporal cross-attention, SEINE's spatial
+    self- and cross-attention; i2vgen-tiny's narrow heads."""
+    seen = _routes(monkeypatch, arch, frames)
+    calls = seen.get("flash_attention", set())
+    ctx = {(q, k, h): (sk2, f) for q, k, h, sk2, f in seen.get("flash_attention_context", ())}
+    assert (calls or arch.startswith("i2vgen")) and bool(ctx) == arch.startswith("consisti2v")
+    for q, k, heads in calls:
+        (b, sq, c), sk = q, k[1]
+        sk2, f = ctx.get((q, k, heads), (0, 1))
+        assert b % f == 0
+        check_flash_walk(b, sq, heads, c // heads, sk, sk2)
+
+
+@pytest.mark.parametrize("arch,size,batch", _EDITORS)
+def test_flash_plan_walks_each_routed_editor_shape(monkeypatch, arch, size, batch):
+    """Every K5 call of the first-frame editors at full and tiny width (the
+    UNets, InstantStyle's ControlNet, IP attention and resampler)."""
+    seen, _ = _editor_routes(monkeypatch, arch, size, batch)
+    assert "flash_attention_context" not in seen
+    for (b, sq, c), k, heads in seen.get("flash_attention", ()):
+        check_flash_walk(b, sq, heads, c // heads, k[1])
 
 
 def test_flash_plan_refuses_an_unknown_bias_form():
@@ -151,15 +243,19 @@ def test_flash_plan_refuses_an_unknown_bias_form():
 
 
 def test_flash_plan_holds_its_tiles():
-    """Q (the score depth padded to 16) and each stage of K and V, all as
-    [128 rows, channels] bf16, plus the barriers: the depth pad appears at
-    the odd multiples of 8 only (8, 24, 40, ...)."""
+    """The Q ring (the score depth padded to 16), the K and V ring of
+    128-key tiles, the output's staging and the barriers: the depth pad
+    appears at the odd multiples of 8 only (8, 24, 40, ...); a plan with
+    unknown key lengths is never resident."""
     for dh in fl.HEAD_DIMS:
-        plan = fl.flash_plan(1, 128, 1, dh)
-        dp = -(-dh // 16) * 16
-        assert (dp == dh) == (dh % 16 == 0)
-        tiles = 128 * dp * 2 + plan["stages"] * 128 * (dp + dh) * 2
-        assert tiles < plan["smem_bytes"] <= tiles + (2 * plan["stages"] + 1) * 8 + 128
+        for b, sq in ((1, 128), (64, 4096)):
+            plan = fl.flash_plan(b, sq, 1, dh)
+            tr, qs, kvs = plan["tile_rows"], plan["q_stages"], plan["kv_stages"]
+            dp = -(-dh // 16) * 16
+            assert (dp == dh) == (dh % 16 == 0) and not plan["resident"]
+            tiles = qs * tr * dp * 2 + kvs * 128 * (dp + dh) * 2 + tr * dh * 2
+            assert tiles < plan["smem_bytes"] <= tiles + fl.BARRIER_BYTES + fl.ALIGN_SLACK
+            assert (tr == 64) == (b == 1 or dh == 160)
 
 
 def test_plan_check_refuses_what_one_block_cannot_hold():

@@ -36,12 +36,17 @@ def _stub_kernels(monkeypatch):
     """Replace every kernel wrapper (and the dispatcher's SDPA) by a stand-in
     that records its operands' shapes: returns {wrapper name: set of (q
     shape, k shape, heads)}, K3's entries (rows, C, inner) and K4's (x
-    shape, C', prologue)."""
+    shape, C', prologue); K5's split-KV calls also under
+    "flash_attention_context", with the context's length and frames."""
     seen = {}
 
     def record(name):
         def call(q, k, v, heads, scale, *args, **kw):
             seen.setdefault(name, set()).add((tuple(q.shape), tuple(k.shape), heads))
+            if name == "flash_attention" and args and args[0] is not None:
+                # K5's split-KV context: its key length and frames per row
+                seen.setdefault("flash_attention_context", set()).add(
+                    (tuple(q.shape), tuple(k.shape), heads, args[0].shape[1], args[2]))
             return torch.empty_like(q)
         return call
 
