@@ -216,42 +216,6 @@ __device__ __forceinline__ Walk walk_of(const Params& p) {
   return {(int)blockIdx.x, p.items, (int)gridDim.x};
 }
 
-// O[64 x DH] += P[64 x 16] . V[16 x DH] for one 16-key step of a V tile at
-// `vaddr` (MN-major: 8-key groups 128 bytes apart, channel chunks BK*16):
-// one instruction at the models' widths (8, 16, 32, 40, 64, 80, 128, 160),
-// the others split greedily into widths 128/64/32/16/8 from column C0 on
-// (24 = 16 + 8, 96 = 64 + 32); each piece's accumulators follow the
-// previous piece's, 4 registers per 8 columns.
-template <int DH, int C0 = 0>
-__device__ __forceinline__ void pv_step(float* o, const uint32_t (&a)[4], uint32_t vaddr) {
-  using namespace hopper;
-  static_assert(DH % 8 == 0 && DH <= 160, "head widths: multiples of 8 up to 160");
-  constexpr int R = DH - C0;
-  if constexpr (R > 0) {
-    constexpr int N = R == 160 || R == 80 || R == 40 ? R
-                      : R >= 128 ? 128 : R >= 64 ? 64 : R >= 32 ? 32 : R >= 16 ? 16 : 8;
-    const uint64_t d = wgmma_desc(vaddr + (C0 / 8) * BK * 16, 128, BK * 16);
-    if constexpr (N == 160) {
-      wgmma_rs_n160(o + C0 / 2, a, d);
-    } else if constexpr (N == 80) {
-      wgmma_rs_n80(o + C0 / 2, a, d);
-    } else if constexpr (N == 40) {
-      wgmma_rs_n40(o + C0 / 2, a, d);
-    } else if constexpr (N == 128) {
-      wgmma_rs_n128(o + C0 / 2, a, d);
-    } else if constexpr (N == 64) {
-      wgmma_rs_n64(o + C0 / 2, a, d);
-    } else if constexpr (N == 32) {
-      wgmma_rs_n32(o + C0 / 2, a, d);
-    } else if constexpr (N == 16) {
-      wgmma_rs_n16(o + C0 / 2, a, d);
-    } else {
-      wgmma_rs_n8(o + C0 / 2, a, d);
-    }
-    pv_step<DH, C0 + N>(o, a, vaddr);
-  }
-}
-
 // S = Q K^T: 64 rows x 128 keys of a warpgroup, K-major, channel chunks
 // `q_chunk` (Q) or a K tile's chunk apart; no swizzle: 8-channel chunks,
 // 8-row groups 128 bytes apart; swizzled: 64-channel chunks, 8-row atoms
@@ -294,7 +258,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DH / 2], const uint32_t (&
         wgmma_rs_n64(acc, pa[kk], d);
       }
     } else {
-      pv_step<DH>(acc, pa[kk], v_addr + kk * 16 * 16);
+      pv_step<DH>(acc, pa[kk], v_addr + kk * 16 * 16, BK * 16);
     }
   }
   wgmma_commit();
@@ -311,12 +275,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int n, float sc
                                              float& m0, float& m1, float& l0, float& l1,
                                              float& c0, float& c1) {
   using hopper::ex2;
-  const int t = threadIdx.x % 4;
-  if (n < BK) {
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      if ((i / 4) * 8 + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
-  }
+  if (n < BK) hopper::mask_keys(s, n);
   float mx0 = fmaxf(m0, hopper::tile_max(s, 0)), mx1 = fmaxf(m1, hopper::tile_max(s, 2));
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
@@ -416,15 +375,6 @@ __device__ __forceinline__ void fence_pv_operands(float (&acc)[DH / 2],
   for (int i = 0; i < BK / 16; ++i)
 #pragma unroll
     for (int r = 0; r < 4; ++r) hopper::fence_operand(pa[i][r]);
-}
-
-// The numerators as bf16 A fragments: a 16-key step pairs two 8-key tiles.
-__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    pa[nt / 2][(nt % 2) * 2 + 0] = hopper::pack_bf16(s[nt * 4 + 0], s[nt * 4 + 1]);
-    pa[nt / 2][(nt % 2) * 2 + 1] = hopper::pack_bf16(s[nt * 4 + 2], s[nt * 4 + 3]);
-  }
 }
 
 template <int DH, bool BIAS>
@@ -606,7 +556,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     if (lead && release) mbar_arrive(&kempty[kv % KS]);
     if (lead && T == 1) mbar_arrive(&qempty[slot]);
     scores_done(0);
-    pack_p(s, pa);
+    pack_frag(s, pa);
     // tile j's scores and tile j-1's P.V together; tile j's softmax while
     // P.V runs
     for (int j = 1; j < T; ++j) {
@@ -639,7 +589,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         acc[i + 2] *= c1;
         acc[i + 3] *= c1;
       }
-      pack_p(s, pa);
+      pack_frag(s, pa);
     }
     // the last tile's P.V
     mbar_spin(&vfull[(kv + T - 1) % KS], phase(T - 1));

@@ -10,56 +10,445 @@
 //                           image-latent temporal encoder, S = 16 or 128;
 //                           ConsistI2V mid cross, 20 heads of 64)
 // The TPU needed five bodies to fit 64 narrow heads (dh 5/10/20 padded to
-// 8/16/32) into 128-lane MXU tiles. Here one body covers every case, with the
-// head width DH a template parameter. It replaces a CUDA-core body in which
-// one thread owned one query row and did every q.k and p.v product in fp32
-// (2.2x SDPA at i2vgen-xl's L0 self, 3.0x at L1 self on an H100).
+// 8/16/32) into 128-lane MXU tiles. Here the head width DH (stored: 8, 16,
+// 32, 64; the scale comes from the true width) is a template parameter, and
+// two bodies, each a kernel symbol of its own so that a profile tells them
+// apart, take the classes by query length:
+//  - folded_attention_kernel, Sq > 32: the Hopper body below;
+//  - folded_attention_short_kernel, Sq <= 32 (the image-latent encoder at 16
+//    frames, seine-tiny's short calls): the earlier body, mma.sync on K/V tiles
+//    from a cp.async ring, kept because a 64-row wgmma would waste three
+//    quarters of itself there (the encoder runs at 0.08x SDPA's time on it).
 //
-// What bounds it on the H100: at DH = 8 the softmax's exponentials, not bytes
-// or products. L0 self of one edit step is 48 rows x 64 heads x 4096 x 4096 =
-// 5.2e10 scores, one exp2 each, at the special-function units' 16 per clock
-// per SM; the products of both matmuls on the tensor cores take a tenth of
-// that, and q, k, v and the output are read or written once per query tile.
-// So the design keeps the instructions around each exp2 few: the row maximum
-// as a tree, the scale folded into one fma before ex2.approx, and the bf16
-// pack that feeds the P.V product; the row sums cost no adds (below). A share
-// of the exponentials as a polynomial on the FMA pipe was measured slower.
+// What bounds it on the H100 (80GB HBM3, 700 W): at DH = 8 the softmax's
+// exponentials, not bytes or products. L0 self of one edit step is 48 rows x
+// 64 heads x 4096 x 4096 = 5.2e10 scores, one ex2 each, and the
+// special-function unit retires 16 a clock per SM; the products take a tenth
+// of that. scripts/torch_sfu_probe.py measured the instructions around each
+// exponential: ex2.approx.f16x2 and .bf16x2 compile to two MUFU.EX2 each (16
+// results a clock per SM, no gain over f32); the bf16 pack (F2FP) runs on
+// another pipe at 62 a clock, fmax at 60, fma at 116-147, and the fp32
+// inner loop (fma, ex2, pack) keeps 15.6-15.7 exponentials a clock: the
+// unit itself is the floor, reached only if every sub-partition always has
+// an exponential to issue. The mma.sync body did not: scripts/torch_attention_stamps.py
+// put its warps' cycles at L0 self in the exponentials 26 %, P.V 23 %
+// (mma.sync and ldmatrix chains), the max tree 15 %, Q.K^T 12 %, the copies
+// 4 %: latency-bound at 2.24x its exp2 floor. The Hopper body below takes
+// the same time at L0 self (PERF.md section 6): its warps spend a third of
+// their cycles on the exponentials and the rest waiting on each step's
+// chain (the scores' wgmma, the turn, the max tree's shuffles), two warps a
+// sub-partition. Three or four consumer warpgroups (ptxas then allows 128
+// or 96 registers a thread), two units a step (spills), 128-key stages,
+// the row sums by fp32 adds and a skipped correction were all measured
+// slower.
 //
-// Design:
-//  - A block owns a tile of 16*QT queries of one batch row and a group of HB
-//    whole heads spanning at most 128 channels (16 heads at dh 8, 8 at 16, 4
-//    at 32, 2 at 64), so each K/V row of a tile is one contiguous read of up
-//    to 256 bytes. Where the whole row is narrower than 128 channels (the
-//    image-latent encoder, the tiny archs) the block packs R batch rows side
-//    by side as R*HB "virtual" heads of one 128-channel tile.
-//  - K and V come in tiles of 64 keys (Sk rounded to 16 where it is
-//    shorter) through a ring of two stages in shared memory by cp.async, 16
-//    bytes a thread, the next tile in flight while one is computed; Q once.
-//    Two blocks share an SM (at most 128 registers a thread: one block per
-//    SM without that cap was measured slower). Rows are strided by
-//    an odd number of 16-byte units (ldmatrix is free of bank conflicts), and
-//    rows past Sq or Sk, or of batch rows past B, are zero-filled.
-//  - A warp owns up to 64/DH items, an item being (head, 16 queries), and
-//    keeps each item's running max, row sum and fp32 output in registers
-//    across the key loop. Scores by mma.sync: m16n8k8 at dh 8 (no padding),
-//    m16n8k16 steps at 16/32/64; keys >= Sk are -inf and wholly empty
-//    16-key chunks are skipped. Online softmax in the exp2 domain, one
-//    rescale per 64 keys. Each 16-key chunk of P is packed to a bf16 A
-//    fragment and fed at once to P.V on the tensor cores (V by
-//    ldmatrix.trans) and to a product with a column of ones, which gives
-//    the row sums of the same bf16 P.
-//  - The normalised bf16 output overwrites the item's own Q tile, and the
-//    block stores whole 16-byte pieces of its rows at the end.
-//  - ops/folded_attention.py's folded_plan sizes the block (HB, R, QT,
-//    warps, shared bytes); the C entry refuses a plan that does not
-//    match the shape.
+// Design of the Hopper body (ops/folded_attention.py folded_plan sizes it;
+// the entry refuses a plan that does not match this file's layout):
+//  - Persistent blocks (one per SM) walk items of (batch row, head group,
+//    128 or 64 query rows), query tile fastest, so the blocks in flight
+//    share K/V in L2. A producer warp (one thread issuing TMA) fills a ring
+//    of 2 Q tiles and a ring of 4 stages of 64 keys with separate full and
+//    empty mbarriers for K and V; the consumers poll the full barriers.
+//  - Two consumer warpgroups share each stage. An item is U units a
+//    warpgroup, a unit being (64 query rows, one head): with 128 rows each
+//    warpgroup takes its 64 rows of every head of the group, with 64 rows
+//    the warpgroups split the heads. Each unit keeps its output, row sums
+//    and row maxima in registers across the key loop (DH/2 + 6 a thread),
+//    so U is 4 at DH 8 and 16, 2 at 32, 1 at 64, under ptxas's 168
+//    registers a thread.
+//  - A stage's units run as steps. A step issues its unit's Q.K^T and the
+//    previous step's P.V as two commit groups of wgmma, waits for the
+//    scores only, and runs the softmax while that P.V runs; no product is
+//    in flight from one step to the next (the next unit's scores issued
+//    ahead were slower: at four units a warpgroup ptxas ran out of
+//    registers and serialised the wgmmas, at two they took 1.6x the time).
+//    The two warpgroups take turns to issue (named barriers), so that one's
+//    softmax runs while the other waits for its scores, instead of both
+//    waiting at once. A unit's offsets are recomputed with selects and
+//    shifts: runtime divisions there cost a third of the kernel's time.
+//  - Tiles land by one 4-D TMA box each ([B, S, C] seen as [B, C/8, S, 8]:
+//    8-channel column chunks of 16-byte rows, [chunk][row][8]), which is
+//    wgmma's unswizzled layout. Q.K^T is an SS wgmma per 16 channels; at DH
+//    8 its second 8 channels are a zero chunk (the descriptor's leading
+//    offset points there), written once per block. P.V is an RS wgmma with
+//    P from registers, and the row sums come from the same bf16 P against
+//    a chunk of ones (the n16 product's second 8 columns at DH 8, an n8
+//    product elsewhere). Keys past Sk are TMA's zero fill, masked to -inf.
+//  - Online softmax in the exp2 domain: the row maxima on raw scores, the
+//    scale folded into one fma before ex2.approx, one correction of the
+//    output and sums per unit and stage.
+//  - Output: normalised, staged as bf16 per unit ([chunk][64 rows][8]) and
+//    written by a TMA store (rows past Sq are clipped) while the next item
+//    computes.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "hopper.cuh"
 
 namespace {
+
+// ================= the Hopper body (Sq > 32) =================
+
+constexpr int BK = 64;              // keys per K/V stage (128 measured slower)
+constexpr int NWG = 2;              // consumer warpgroups (3 and 4 measured slower)
+constexpr int THREADS = 128 * NWG + 32;   // and a producer warp
+constexpr int MAX_STAGES = 4;       // of the Q ring and of the K/V ring
+constexpr int BARRIER_BYTES = 256, ALIGN = 128;
+constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 1.0
+
+// The units a consumer warpgroup holds at most, by head width: each keeps
+// DH/2 + 4 accumulators and 2 maxima a thread across the key loop, under
+// ptxas's 168 registers a thread.
+__host__ __device__ constexpr int max_units(int dh) {
+  return dh <= 16 ? 4 : dh == 32 ? 2 : 1;
+}
+
+// The shared memory of one launch, in bytes from the 128-aligned base: the
+// Q ring, the K ring, the V ring, the output staging (units of [chunk][64
+// rows][8] for every consumer warpgroup), the zero chunk and the ones chunk
+// (64 rows of 16 bytes each), the barriers. ops/folded_attention.py
+// folded_layout_bytes is the same formula.
+struct Layout {
+  int q_bytes, kv_bytes, o_unit, q_off, k_off, v_off, o_off, zero_off, ones_off, bar_off, total;
+};
+
+inline Layout make_layout(int dh, int hb, int tile_rows, int units, int q_stages, int kv_stages) {
+  const int g = hb * dh;
+  Layout l;
+  l.q_bytes = tile_rows * g * 2;
+  l.kv_bytes = BK * g * 2;
+  l.o_unit = 64 * dh * 2;
+  l.q_off = 0;
+  l.k_off = q_stages * l.q_bytes;
+  l.v_off = l.k_off + kv_stages * l.kv_bytes;
+  l.o_off = l.v_off + kv_stages * l.kv_bytes;
+  l.zero_off = l.o_off + NWG * units * l.o_unit;
+  l.ones_off = l.zero_off + BK * 16;
+  l.bar_off = l.ones_off + BK * 16;
+  l.total = l.bar_off + BARRIER_BYTES + ALIGN;
+  return l;
+}
+
+// The TMA maps of q, k, v (loads) and o (stores), the shapes, and the
+// launch plan's fields.
+struct Params {
+  CUtensorMap q, k, v, o;
+  int B, Sq, Sk, H;
+  int hb;          // heads of a group
+  int ng;          // head groups
+  int qt;          // 64-row query tiles of an item (1 or 2)
+  int units;       // (query tile, head) units of an item: qt * hb
+  int nqp;         // items of a (batch row, head group)
+  int items, ntiles, q_stages, kv_stages;
+  float scale_log2;
+  Layout lay;
+};
+
+struct Item {
+  int b, hg, q0;
+};
+
+__device__ __forceinline__ Item item_of(const Params& p, int it) {
+  const int r = it / p.nqp;
+  return {r / p.ng, r % p.ng, (it % p.nqp) * p.qt * 64};
+}
+
+template <int DH, int U>
+__global__ void __launch_bounds__(THREADS, 1)
+    folded_attention_kernel(const __grid_constant__ Params p) {
+  using namespace hopper;
+  constexpr int DC = DH / 8;          // 8-channel chunks of a head
+  constexpr int NACC = DH / 2 + 4;    // a unit's output and row-sum registers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + (ALIGN - 1)) & ~uintptr_t(ALIGN - 1));
+  const Layout& L = p.lay;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  uint64_t *qfull = bars, *qempty = bars + MAX_STAGES;
+  uint64_t *kfull = bars + 2 * MAX_STAGES, *kempty = bars + 3 * MAX_STAGES;
+  uint64_t *vfull = bars + 4 * MAX_STAGES, *vempty = bars + 5 * MAX_STAGES;
+  const int QS = p.q_stages, KS = p.kv_stages, TR = p.qt * 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QS; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], 4 * NWG);   // one arrival per consumer warp
+    }
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], 4 * NWG);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], 4 * NWG);
+    }
+    mbar_fence_init();
+  }
+  // the zero chunk (the score depth's second 8 channels at DH 8) and the
+  // ones chunk (the row sums' column)
+  for (int e = threadIdx.x; e < 2 * BK; e += blockDim.x)
+    *reinterpret_cast<uint4*>(smem + L.zero_off + e * 16) =
+        e < BK ? make_uint4(0u, 0u, 0u, 0u) : make_uint4(ONES2, ONES2, ONES2, ONES2);
+  fence_proxy_async();
+  __syncthreads();
+
+  // the warpgroup index (the producer warp's is NWG), warp-uniform
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == NWG) {
+    // ---- producer ----
+    if (threadIdx.x != 128 * NWG) return;
+    const int c0 = p.hb * DC;   // chunks of a head group
+    int qi = 0, kv = 0;
+    for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++qi) {
+      const Item x = item_of(p, it);
+      const int slot = qi % QS;
+      if (qi >= QS) mbar_wait(&qempty[slot], ((qi / QS) - 1) & 1);
+      mbar_arrive_expect_tx(&qfull[slot], L.q_bytes);
+      tma_load_4d(smem + L.q_off + slot * L.q_bytes, &p.q, &qfull[slot], 0, x.q0, x.hg * c0, x.b);
+      for (int t = 0; t < p.ntiles; ++t, ++kv) {
+        const int stage = kv % KS, round = kv / KS;
+        if (round > 0) mbar_wait(&kempty[stage], (round - 1) & 1);
+        mbar_arrive_expect_tx(&kfull[stage], L.kv_bytes);
+        tma_load_4d(smem + L.k_off + stage * L.kv_bytes, &p.k, &kfull[stage], 0, t * BK,
+                    x.hg * c0, x.b);
+        if (round > 0) mbar_wait(&vempty[stage], (round - 1) & 1);
+        mbar_arrive_expect_tx(&vfull[stage], L.kv_bytes);
+        tma_load_4d(smem + L.v_off + stage * L.kv_bytes, &p.v, &vfull[stage], 0, t * BK,
+                    x.hg * c0, x.b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int wg = role, tw = threadIdx.x % 128, lane = tw % 32, g = lane / 4, t4 = lane % 4;
+  const bool lead = lane == 0;
+  const uint32_t sbase = smem_addr(smem);
+  const uint32_t zero = sbase + L.zero_off, ones = sbase + L.ones_off;
+  const float sl = p.scale_log2;
+  // this warpgroup's unit i is u = wg + NWG i: with NWG query tiles an
+  // item, its own tile of head i; with one, head wg + NWG i. A unit past the
+  // item's (a head past the group) computes the group's last head and is
+  // not stored. Its offsets are recomputed where used (no division), not
+  // held in registers.
+  const int qtile = p.qt == NWG ? wg : 0;
+  auto head_at = [&](int i) { return p.qt == NWG ? i : wg + NWG * i; };
+  auto head_of = [&](int i) { return min(head_at(i), p.hb - 1); };
+  auto qoff = [&](int i) { return (head_of(i) * DC * TR + qtile * 64) * 16; };   // [chunk][row][8]
+  auto hoff = [&](int i) { return head_of(i) * DC * BK * 16; };   // in a K or V stage
+  unsigned char* ostage = smem + L.o_off + wg * U * L.o_unit;
+  const int T = p.ntiles;
+  // the consumer warpgroups take turns to issue their products, in a ring
+  // of named barriers (NWG + 1 ...), so that one's softmax runs while the
+  // next waits for its scores instead of all waiting at once; warpgroup 0
+  // goes first, and the last skips the very last arrival (all take the
+  // same turns)
+  auto turn_begin = [&] { named_barrier(NWG + 1 + wg, 256); };
+  auto turn_end = [&](bool final_turn) {
+    if (!(wg == NWG - 1 && final_turn)) named_barrier_arrive(NWG + 1 + (wg + 1) % NWG, 256);
+  };
+  if (wg == NWG - 1) named_barrier_arrive(NWG + 1, 256);
+
+  int qi = 0, kv = 0;
+  for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++qi) {
+    const Item x = item_of(p, it);
+    const int slot = qi % QS;
+    const uint32_t qs = sbase + L.q_off + slot * L.q_bytes;
+    auto kst = [&](int t) { return sbase + L.k_off + ((kv + t) % KS) * L.kv_bytes; };
+    auto vst = [&](int t) { return sbase + L.v_off + ((kv + t) % KS) * L.kv_bytes; };
+    auto ph = [&](int t) { return (uint32_t)(((kv + t) / KS) & 1); };
+
+    float acc[U][NACC], m0[U], m1[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      m0[i] = m1[i] = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < NACC; ++r) acc[i][r] = 0.f;
+    }
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) pa[j][0] = pa[j][1] = pa[j][2] = pa[j][3] = 0u;
+
+    // S = Q K^T of one unit against 64 keys at `ka` (a K stage's chunk)
+    auto issue_qk = [&](uint32_t qa, uint32_t ka) {
+      if constexpr (DH == 8) {
+        wgmma_ss_n64(s, wgmma_desc(qa, zero - qa, 128), wgmma_desc(ka, zero - ka, 128), 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss_n64(s, wgmma_desc(qa + kk * 2 * TR * 16, TR * 16, 128),
+                       wgmma_desc(ka + kk * 2 * BK * 16, BK * 16, 128), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V and the row sums of one unit over 64 keys at `va` (a V stage's
+    // chunk, or the Q slot for the dummy step before the first, with P 0)
+    auto issue_pv = [&](float (&o)[NACC], uint32_t va) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        pv_sums_step<DH>(o, pa[kk], va + kk * 16 * 16, BK * 16, ones + kk * 16 * 16);
+      wgmma_commit();
+    };
+    auto fence_pa = [&] {
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) fence_operand(pa[j][r]);
+    };
+
+    // Step k = t * U + i (stage t, unit i): issue its Q.K^T and step k-1's P.V
+    // (two commit groups, the scores first; before the first step the P.V is
+    // a dummy on the Q slot with P 0, so that every step issues the same
+    // groups), wait for the scores only, run the softmax while that P.V runs,
+    // then wait for it before P is repacked. No product is in flight from one
+    // step to the next.
+    auto step = [&](int t, int i) {
+      const int ip = i > 0 ? i - 1 : U - 1, tp = i > 0 ? t : t - 1;   // step k-1
+      const bool first = tp < 0;
+      if (i == 0) mbar_spin(&kfull[(kv + t) % KS], ph(t));
+      if (!first && ip == 0) mbar_spin(&vfull[(kv + tp) % KS], ph(tp));
+      fence_frag(acc[ip]);
+      fence_frag(s);
+      fence_pa();
+      turn_begin();
+      wgmma_fence();
+      issue_qk(qs + qoff(i), kst(t) + hoff(i));
+      issue_pv(acc[ip], first ? qs : vst(tp) + hoff(ip));
+      turn_end(false);
+      wgmma_wait<1>();
+      fence_frag(s);
+      if (lead && i == U - 1) mbar_arrive(&kempty[(kv + t) % KS]);   // stage t's Q.K^T done
+      // the online softmax: keys past Sk masked, the maxima on raw scores
+      const int n = min(BK, p.Sk - t * BK);
+      if (n < BK) mask_keys(s, n);
+      float mx0, mx1;
+      quad_row_max(s, mx0, mx1);
+      mx0 = fmaxf(mx0, m0[i]);
+      mx1 = fmaxf(mx1, m1[i]);
+      const float c0 = ex2((m0[i] - mx0) * sl), c1 = ex2((m1[i] - mx1) * sl);
+      m0[i] = mx0;
+      m1[i] = mx1;
+      exp2_frag(s, sl, -mx0 * sl, -mx1 * sl, (n + 7) / 8);
+      // step k-1's P.V has read P and written its unit's output
+      wgmma_wait<0>();
+      fence_frag(acc[ip]);
+      fence_pa();
+      if (lead && i == 0 && !first) mbar_arrive(&vempty[(kv + tp) % KS]);   // stage t-1's P.V done
+      pack_frag(s, pa);
+#pragma unroll
+      for (int r = 0; r < NACC; r += 4) {
+        acc[i][r + 0] *= c0;
+        acc[i][r + 1] *= c0;
+        acc[i][r + 2] *= c1;
+        acc[i][r + 3] *= c1;
+      }
+    };
+
+    mbar_spin(&qfull[slot], (qi / QS) & 1);
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int i = 0; i < U; ++i) step(t, i);
+    }
+    // the last step's P.V (at U 1 its stage's V is awaited here first)
+    mbar_spin(&vfull[(kv + T - 1) % KS], ph(T - 1));
+    fence_frag(acc[U - 1]);
+    fence_pa();
+    turn_begin();
+    wgmma_fence();
+    issue_pv(acc[U - 1], vst(T - 1) + hoff(U - 1));
+    turn_end(it + (int)gridDim.x >= p.items);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < U; ++i) fence_frag(acc[i]);
+    if (lead) {
+      mbar_arrive(&vempty[(kv + T - 1) % KS]);
+      mbar_arrive(&qempty[slot]);
+    }
+    kv += T;
+
+    // normalise, stage each unit as bf16 ([chunk][64 rows][8]) once the
+    // previous item's stores have read the staging buffer, store by TMA
+    if (tw == 0) bulk_wait_read();
+    named_barrier(1 + wg, 128);
+    const int r = (tw / 32) * 16 + g;
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const float i0 = 1.f / acc[i][DH / 2], i1 = 1.f / acc[i][DH / 2 + 2];
+      unsigned char* st = ostage + i * L.o_unit;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        unsigned char* dst = st + (c * 64 + r) * 16 + 4 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(acc[i][c * 4 + 0] * i0, acc[i][c * 4 + 1] * i0);
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * 16) =
+            __floats2bfloat162_rn(acc[i][c * 4 + 2] * i1, acc[i][c * 4 + 3] * i1);
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tw == 0) {
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int r0 = x.q0 + qtile * 64, h = head_at(i);
+        if (h < p.hb && r0 < p.Sq)
+          tma_store_4d(&p.o, ostage + i * L.o_unit, 0, r0, (x.hg * p.hb + h) * DC, x.b);
+      }
+      bulk_commit();
+    }
+  }
+  if (tw == 0) bulk_wait();
+}
+
+// A 4-D map over a bf16 [B, S, C] tensor seen as [B, C / 8, S, 8]: one box
+// of [chunks, rows, 8] lands in shared memory as the [chunk][row][8] tile;
+// rows past S read as zeros (and are not written by a store).
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int C, int rows, int chunks) {
+  const cuuint64_t dims[4] = {8, (cuuint64_t)S, (cuuint64_t)C / 8, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, 16, (cuuint64_t)S * C * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)chunks, 1};
+  return hopper::make_bf16_map(map, ptr, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <int DH, int U>
+cudaError_t launch(Params& p, const void* q, const void* k, const void* v, void* o, int grid,
+                   cudaStream_t stream) {
+  const int C = p.H * DH, chunks = p.hb * DH / 8;
+  if (!make_map(&p.q, q, p.B, p.Sq, C, p.qt * 64, chunks) ||
+      !make_map(&p.k, k, p.B, p.Sk, C, BK, chunks) || !make_map(&p.v, v, p.B, p.Sk, C, BK, chunks) ||
+      !make_map(&p.o, o, p.B, p.Sq, C, 64, DH / 8))
+    return cudaErrorInvalidValue;
+  auto kernel = folded_attention_kernel<DH, U>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.lay.total);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, p.lay.total, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_units(Params& p, int units, const void* q, const void* k, const void* v,
+                         void* o, int grid, cudaStream_t stream) {
+  switch (units) {
+    case 1:
+      return launch<DH, 1>(p, q, k, v, o, grid, stream);
+    case 2:
+      if constexpr (max_units(DH) >= 2) return launch<DH, 2>(p, q, k, v, o, grid, stream);
+      break;
+    case 3:
+      if constexpr (max_units(DH) >= 3) return launch<DH, 3>(p, q, k, v, o, grid, stream);
+      break;
+    case 4:
+      if constexpr (max_units(DH) >= 4) return launch<DH, 4>(p, q, k, v, o, grid, stream);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ========= the short-query body (Sq <= 32): mma.sync on a cp.async ring =========
+
+namespace short_body {
 
 constexpr int KB = 64;          // keys per stage of the ring
 constexpr int STAGES = 2;       // ring stages: two blocks share an SM
@@ -73,7 +462,7 @@ __host__ __device__ constexpr int row_stride(int w) { return w + 8 + 8 * ((w / 8
 __host__ __device__ constexpr int items_per_warp(int dh) { return 64 / dh; }
 
 template <int DH>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 2) folded_attention_kernel(
+__global__ void __launch_bounds__(MAX_WARPS * 32, 2) folded_attention_short_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int B, int Sq, int Sk,
     int H, int HB, int R, int QT, int KS, int n_qblocks, float scale_log2) {
@@ -291,7 +680,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const int n_qblocks = (Sq + 16 * QT - 1) / (16 * QT);
   const long long gx = (long long)n_qblocks * ((B + R - 1) / R);
   if (gx > 0x7fffffffLL || H / HB > 65535) return cudaErrorInvalidValue;
-  auto kernel = folded_attention_kernel<DH>;
+  auto kernel = folded_attention_short_kernel<DH>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -301,26 +690,82 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
+}  // namespace short_body
+
 }  // namespace
 
-// DH 8/16/32/64, scale > 0; pointers 16-byte aligned. The launch plan (heads
-// per block, packed batch rows, query tiles of 16, warps, dynamic shared
-// bytes) comes from ops/folded_attention.py::folded_plan; a
-// plan that does not match the shape is refused.
+// The Hopper body, Sq > 32: DH 8/16/32/64, scale > 0, pointers 16-byte
+// aligned. The launch plan (ops/folded_attention.py folded_plan): heads a
+// group, 64-row query tiles an item (1 or 2), units a warpgroup, the Q and
+// K/V ring depths, the persistent grid and smem_bytes, refused unless the
+// units are the item's split over two warpgroups, the bytes are this file's
+// layout of those fields and one block can hold them.
 extern "C" int anyv2v_folded_attention(const void* q, const void* k, const void* v, void* o,
                                        int B, int Sq, int Sk, int H, int DH, float scale,
-                                       int heads_per_block, int rows_per_block, int q_tiles,
-                                       int warps, int smem_bytes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || heads_per_block <= 0 || rows_per_block <= 0 ||
+                                       int heads_per_block, int q_tiles, int units,
+                                       int q_stages, int kv_stages, int grid, int smem_bytes,
+                                       void* stream) {
+  if (B <= 0 || Sq <= 32 || Sk <= 0 || H <= 0 || heads_per_block <= 0 ||
+      H % heads_per_block != 0 || heads_per_block * DH > 128 || (q_tiles != 1 && q_tiles != NWG) ||
+      units < 1 || units > max_units(DH) ||
+      units != (q_tiles * heads_per_block + NWG - 1) / NWG ||
+      q_stages < 1 || q_stages > MAX_STAGES || kv_stages < 1 || kv_stages > MAX_STAGES ||
       !(scale > 0.f))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.B = B;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.hb = heads_per_block;
+  p.ng = H / heads_per_block;
+  p.qt = q_tiles;
+  p.units = q_tiles * heads_per_block;
+  p.nqp = (Sq + 64 * q_tiles - 1) / (64 * q_tiles);
+  const long long items = (long long)B * p.ng * p.nqp;
+  if (items > 0x7fffffffLL || grid < 1 || grid > items) return (int)cudaErrorInvalidValue;
+  p.items = (int)items;
+  p.ntiles = (Sk + BK - 1) / BK;
+  p.q_stages = q_stages;
+  p.kv_stages = kv_stages;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.lay = make_layout(DH, heads_per_block, 64 * q_tiles, units, q_stages, kv_stages);
+  if (smem_bytes != p.lay.total || p.lay.total > 232448) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (DH) {
+    case 8:
+      return (int)launch_units<8>(p, units, q, k, v, o, grid, s);
+    case 16:
+      return (int)launch_units<16>(p, units, q, k, v, o, grid, s);
+    case 32:
+      return (int)launch_units<32>(p, units, q, k, v, o, grid, s);
+    case 64:
+      return (int)launch_units<64>(p, units, q, k, v, o, grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The short-query body, Sq <= 32: DH 8/16/32/64, scale > 0; pointers
+// 16-byte aligned. The launch plan (heads per block, packed batch rows,
+// query tiles of 16, warps, dynamic shared bytes) comes from
+// ops/folded_attention.py::folded_plan; a plan that does not match the
+// shape is refused.
+extern "C" int anyv2v_folded_attention_short(const void* q, const void* k, const void* v,
+                                             void* o, int B, int Sq, int Sk, int H, int DH,
+                                             float scale, int heads_per_block,
+                                             int rows_per_block, int q_tiles, int warps,
+                                             int smem_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 0 || Sq <= 0 || Sq > 32 || Sk <= 0 || H <= 0 || heads_per_block <= 0 ||
+      rows_per_block <= 0 || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   const float sl = scale * 1.4426950408889634f;
   switch (DH) {
-#define ANYV2V_CASE(D)                                                                       \
-  case D:                                                                                    \
-    return (int)launch<D>(q, k, v, o, B, Sq, Sk, H, heads_per_block, rows_per_block, q_tiles, \
-                          warps, smem_bytes, sl, s);
+#define ANYV2V_CASE(D)                                                                    \
+  case D:                                                                                 \
+    return (int)short_body::launch<D>(q, k, v, o, B, Sq, Sk, H, heads_per_block,         \
+                                      rows_per_block, q_tiles, warps, smem_bytes, sl, s);
     ANYV2V_CASE(8)
     ANYV2V_CASE(16)
     ANYV2V_CASE(32)

@@ -3,14 +3,18 @@
 // cp.async with zero-fill, mbarrier, TMA tensor loads and stores, wgmma with
 // its fences, setmaxnreg and named barriers. Each is one PTX instruction (or a short
 // fixed sequence) with no policy of its own; the kernels decide tiles and
-// layouts. Then the one piece with a policy: the warp-specialised GEMM main
-// loop of K3 and K4 (gemm_main_loop, at the end), and the host's tensor-map
-// encoder. Included by every kernel source; never compiled alone.
+// layouts. Then the pieces of the attention kernels' softmax that K1, K2
+// long and K5 share (P.V at any head width with the ones-column row sums,
+// the row maxima, the exponentials, the pack of P), the one piece with a
+// policy: the warp-specialised GEMM main loop of K3 and K4
+// (gemm_main_loop), and the host's tensor-map encoder. Included by every
+// kernel source; never compiled alone.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -321,6 +325,12 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_frag(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(x[i]);
+}
+
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory, both
 // K-major; scale_d 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -451,6 +461,163 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4], 
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 144] (+)= A[64 x 16] * B[16 x 144], A and B in shared memory, both
+// K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n144(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, %72, %73, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B in shared memory K-major; scale_d 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_rs_k_n128(float* d, const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 144] (+)= A[64 x 16] * B[16 x 144], A in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B in shared memory K-major; scale_d 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_rs_k_n144(float* d, const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- P.V at any head width, and the softmax of a score fragment (K1, K2
+// long and K5 share them) ----
+
+// O[64 x DH] += P[64 x 16] . V[16 x DH] for one 16-key step of a V tile at
+// `vaddr` stored as 8-channel column chunks of 16-byte rows ([chunk][key][8],
+// unswizzled: 8-key groups 128 bytes apart, chunks `chunk` bytes apart): one
+// instruction at the models' widths (8, 16, 32, 40, 64, 80, 128, 160), the
+// others split greedily into widths 128/64/32/16/8 from column C0 on (24 =
+// 16 + 8, 96 = 64 + 32); each piece's accumulators follow the previous
+// piece's, 4 registers per 8 columns.
+template <int DH, int C0 = 0>
+__device__ __forceinline__ void pv_step(float* o, const uint32_t (&a)[4], uint32_t vaddr,
+                                        uint32_t chunk) {
+  static_assert(DH % 8 == 0 && DH <= 160, "head widths: multiples of 8 up to 160");
+  constexpr int R = DH - C0;
+  if constexpr (R > 0) {
+    constexpr int N = R == 160 || R == 80 || R == 40 ? R
+                      : R >= 128 ? 128 : R >= 64 ? 64 : R >= 32 ? 32 : R >= 16 ? 16 : 8;
+    const uint64_t d = wgmma_desc(vaddr + (C0 / 8) * chunk, 128, chunk);
+    if constexpr (N == 160) {
+      wgmma_rs_n160(o + C0 / 2, a, d);
+    } else if constexpr (N == 80) {
+      wgmma_rs_n80(o + C0 / 2, a, d);
+    } else if constexpr (N == 40) {
+      wgmma_rs_n40(o + C0 / 2, a, d);
+    } else if constexpr (N == 128) {
+      wgmma_rs_n128(o + C0 / 2, a, d);
+    } else if constexpr (N == 64) {
+      wgmma_rs_n64(o + C0 / 2, a, d);
+    } else if constexpr (N == 32) {
+      wgmma_rs_n32(o + C0 / 2, a, d);
+    } else if constexpr (N == 16) {
+      wgmma_rs_n16(o + C0 / 2, a, d);
+    } else {
+      wgmma_rs_n8(o + C0 / 2, a, d);
+    }
+    pv_step<DH, C0 + N>(o, a, vaddr, chunk);
+  }
+}
+
+// P.V with the row sums of the same bf16 P for one 16-key step: o[0, DH/2)
+// takes P . V, o[DH/2, DH/2 + 4) P . 1 (a chunk of bf16 ones at `ones`, as
+// many keys long as the V tile: each of the 4 registers holds its row's sum).
+// At DH 8 both are one n16 product whose second 8 columns are the ones chunk.
+template <int DH>
+__device__ __forceinline__ void pv_sums_step(float* o, const uint32_t (&a)[4], uint32_t vaddr,
+                                             uint32_t chunk, uint32_t ones) {
+  if constexpr (DH == 8) {
+    wgmma_rs_n16(o, a, wgmma_desc(vaddr, 128, ones - vaddr));
+  } else {
+    pv_step<DH>(o, a, vaddr, chunk);
+    wgmma_rs_n8(o + DH / 2, a, wgmma_desc(ones, 128, 128));
+  }
+}
+
+// The row maxima of a wgmma score fragment (rows g and g+8 of the thread's
+// warp: columns 0-1 and 2-3 of each 8-key group) over the quad of threads
+// that holds each row.
+template <int N4>
+__device__ __forceinline__ void quad_row_max(const float (&s)[N4], float& m0, float& m1) {
+  m0 = tile_max(s, 0);
+  m1 = tile_max(s, 2);
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+}
+
+// P = 2^(s * k + o) of a score fragment in place (o0 for row g, o1 for row
+// g+8): one fma and one ex2.approx a score. 8-key groups from `live` on hold
+// no key: their P is 0 and takes no exponential (a warp-uniform branch, only
+// where live is short of the fragment).
+template <int N4>
+__device__ __forceinline__ void exp2_frag(float (&s)[N4], float k, float o0, float o1,
+                                          int live) {
+  constexpr int G = N4 / 4;
+  if (live >= G) {
+#pragma unroll
+    for (int nt = 0; nt < G; ++nt) {
+      s[nt * 4 + 0] = ex2(fmaf(s[nt * 4 + 0], k, o0));
+      s[nt * 4 + 1] = ex2(fmaf(s[nt * 4 + 1], k, o0));
+      s[nt * 4 + 2] = ex2(fmaf(s[nt * 4 + 2], k, o1));
+      s[nt * 4 + 3] = ex2(fmaf(s[nt * 4 + 3], k, o1));
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < G; ++nt) {
+      if (nt < live) {
+        s[nt * 4 + 0] = ex2(fmaf(s[nt * 4 + 0], k, o0));
+        s[nt * 4 + 1] = ex2(fmaf(s[nt * 4 + 1], k, o0));
+        s[nt * 4 + 2] = ex2(fmaf(s[nt * 4 + 2], k, o1));
+        s[nt * 4 + 3] = ex2(fmaf(s[nt * 4 + 3], k, o1));
+      } else {
+        s[nt * 4 + 0] = s[nt * 4 + 1] = s[nt * 4 + 2] = s[nt * 4 + 3] = 0.f;
+      }
+    }
+  }
+}
+
+// A fragment of P packed to the bf16 A fragments of the P.V product:
+// 16-key step j pairs the 8-key groups 2j and 2j+1.
+template <int N4>
+__device__ __forceinline__ void pack_frag(const float (&s)[N4], uint32_t (&pa)[N4 / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < N4 / 4; ++nt) {
+    pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(s[nt * 4 + 0], s[nt * 4 + 1]);
+    pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(s[nt * 4 + 2], s[nt * 4 + 3]);
+  }
+}
+
+// Keys of a score fragment at or past n (8-key group nt: keys nt*8 + 2t and
+// nt*8 + 2t + 1 of this thread) set to -inf.
+template <int N4>
+__device__ __forceinline__ void mask_keys(float (&s)[N4], int n) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < N4; ++i)
+    if ((i / 4) * 8 + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
 }
 
 

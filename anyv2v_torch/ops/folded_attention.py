@@ -4,21 +4,28 @@ Replaces the head-packed Pallas family of ``anyv2v_tpu/ops/``:
 ``pallas_packed_flash.py`` (``_packed_whole_pipe_kernel``, ``_wide_kv_kernel``,
 ``_wide_t_kernel``, ``_packed_whole_kernel``, ``_packed_kernel``) and
 ``pallas_short_attention.py::_short_kernel``. Those bodies differ only in how
-they fit the TPU's 128-lane tiles; on the GPU one tensor-core kernel
-(``csrc/folded_attention.cu``: ``mma.sync`` on K/V tiles brought in by a
-``cp.async`` ring) covers self and cross attention at every Sq and Sk and
-padded head widths 8/16/32/64. It replaces a CUDA-core body with one thread
-per query row, which took 2.2-3.0x SDPA's time at i2vgen-xl's L0 and L1 self.
-At dh 8 the softmax's exp2 count bounds it, not bytes (the source says how
-the design keeps the instructions around each exp2 few).
+they fit the TPU's 128-lane tiles. On the GPU (``csrc/folded_attention.cu``)
+two bodies cover self and cross attention at every Sq and Sk and padded head
+widths 8/16/32/64, each a kernel symbol of its own:
 
-:func:`folded_plan` sizes a launch: a block owns a tile of queries of one
-batch row and a group of whole heads spanning at most 128 channels, or, where
-a row is narrower, several batch rows packed side by side. The C entry
-refuses a plan that does not match the shape.
+- Sq > 32, ``folded_attention_kernel``: persistent blocks of a TMA producer
+  warp and two ``wgmma`` consumer warpgroups on mbarrier rings, each
+  warpgroup pipelining (64 query rows, head) units so that the next unit's
+  scores run under this unit's softmax;
+- Sq <= 32, ``folded_attention_short_kernel``: ``mma.sync`` on K/V tiles from
+  a ``cp.async`` ring (the image-latent encoder at 16 frames, seine-tiny's
+  short calls), where a 64-row ``wgmma`` would be three quarters empty.
+
+At dh 8 the softmax's exponentials bound it, not bytes (the source says how
+the design keeps the special-function unit fed).
+
+:func:`folded_plan` sizes a launch and :func:`check_folded_plan` (registered
+in ``_build.PLAN_CHECKS``) refuses a plan with any field changed; the C
+entries refuse a plan that does not match the shape.
 
 :func:`folded_attention` is the entry: CPU tensors take the plain version
-below, CUDA tensors launch the kernel (and nothing else).
+below, CUDA tensors launch a kernel (and nothing else). Its ``launches``
+counts every launch, ``short_launches`` those of the short-query body.
 """
 
 from __future__ import annotations
@@ -30,30 +37,46 @@ import torch
 from . import _build
 
 HEAD_DIMS = (8, 16, 32, 64)
-GROUP_CHANNELS = 128   # channels of one block's tile, at most
-KEY_TILE = 64          # keys per stage of the K/V ring
+SHORT_MAX_QUERIES = 32   # Sq up to this takes the short-query body
+GROUP_CHANNELS = 128     # channels of one block's head group, at most
+
+# the Hopper body (Sq > 32)
+BLOCK_KEYS = 64          # keys per K/V stage
+WARPGROUPS = 2           # consumer warpgroups (csrc NWG)
+UNITS = {8: 4, 16: 4, 32: 2, 64: 1}   # (64 rows, head) units a consumer warpgroup holds, at most
+Q_STAGES, KV_STAGES = 2, 4
+THREADS = 128 * WARPGROUPS + 32   # and a producer warp
+BARRIER_BYTES, ALIGN = 256, 128
+
+# the short-query body (Sq <= 32)
+KEY_TILE = 64            # keys per stage of the K/V ring
 MAX_WARPS = 8
-STAGES = 2             # K/V ring stages (fixed in the kernel): two blocks share an SM
+STAGES = 2               # K/V ring stages (fixed in the kernel): two blocks share an SM
 
 
-def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
-    """The launch of K1's kernel for one shape.
+def folded_layout_bytes(head_dim: int, heads_per_block: int, q_tiles: int, units: int,
+                        q_stages: int, kv_stages: int) -> int:
+    """Shared bytes of one Hopper-body block (``csrc/folded_attention.cu``
+    ``make_layout``): a ring of Q tiles ``[64 * q_tiles, G]`` and one of K
+    and V tiles ``[64, G]`` (G = the head group's channels), the output's
+    staging (``units`` of ``[64, dh]`` a warpgroup), a zero and a ones chunk
+    of 64 rows of 16 bytes, the barriers and the alignment slack."""
+    g = heads_per_block * head_dim
+    return (q_stages * 64 * q_tiles * g * 2 + 2 * kv_stages * BLOCK_KEYS * g * 2
+            + WARPGROUPS * units * 64 * head_dim * 2 + 2 * BLOCK_KEYS * 16 + BARRIER_BYTES
+            + ALIGN)
 
-    The head group is the most whole heads that fit in ``GROUP_CHANNELS``
-    channels; where it spans the whole row (``C < 128``), ``rows_per_block``
-    batch rows are packed side by side into one tile. A warp owns up to
-    ``64 / head_dim`` items of (head, 16 queries), so a block of
-    ``MAX_WARPS`` warps holds ``q_tiles`` tiles of 16 queries (64 queries
-    at 128 channels), fewer when Sq is short; there the block still takes
-    one warp per item, up to ``MAX_WARPS``, so that a short block (the
-    16-frame image-latent encoder: 8 rows of 2 heads, one query tile) does
-    not run on two warps. Shared memory holds Q
-    ``[16 * q_tiles, W]`` and ``STAGES`` stages of K and V ``[key_rows, W]``
-    (W = the packed tile's channels; ``key_rows`` 64, or Sk rounded to 16
-    where it is shorter), rows strided by an odd number of
-    16-byte units. The grid is (query blocks x row groups, head groups).
-    ``csrc/folded_attention.cu`` recomputes the shared bytes and refuses a
-    plan that differs."""
+
+def _short_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
+    """The short-query body's launch: a block owns a tile of queries of one
+    batch row and a group of whole heads spanning at most 128 channels, or,
+    where the row is narrower, ``rows_per_block`` batch rows packed side by
+    side. A warp owns up to ``64 / head_dim`` items of (head, 16 queries);
+    the block takes one warp per item, up to ``MAX_WARPS``. Shared memory
+    holds Q ``[16 * q_tiles, W]`` and ``STAGES`` stages of K and V
+    ``[key_rows, W]`` (W = the packed tile's channels; ``key_rows`` 64, or
+    Sk rounded to 16 where it is shorter), rows strided by an odd number of
+    16-byte units. The grid is (query blocks x row groups, head groups)."""
     hb = max(d for d in range(1, heads + 1)
              if heads % d == 0 and d * head_dim <= GROUP_CHANNELS)
     g = hb * head_dim
@@ -69,6 +92,51 @@ def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
             "warps": warps, "row_stride": row_stride, "key_rows": key_rows,
             "smem_bytes": (16 * q_tiles + STAGES * 2 * key_rows) * row_stride * 2,
             "grid": (-(-sq // (16 * q_tiles)) * -(-b // rows), heads // hb)}
+
+
+def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int,
+                sms: int = _build.H100_SMS) -> dict:
+    """The launch of K1 for one shape; ``body`` names the kernel.
+
+    Sq <= ``SHORT_MAX_QUERIES``: the short-query body (:func:`_short_plan`).
+    Otherwise the Hopper body: items of (batch row, head group, query tile
+    of ``64 * q_tiles`` rows), ``q_tiles`` ``WARPGROUPS`` where Sq > 64, else
+    1. An item is ``q_tiles * heads_per_block`` units of (64 rows, head),
+    split over the consumer warpgroups, ``units`` each: each warpgroup takes
+    its 64 rows of every head (``WARPGROUPS`` tiles) or every
+    ``WARPGROUPS``-th head (1 tile). The head group is the most whole heads
+    that keep ``units`` within ``UNITS[head_dim]`` and the group within 128
+    channels. ``ntiles`` stages of ``BLOCK_KEYS`` keys an
+    item, in a ring of ``KV_STAGES`` stages or as many as fit (at least 2);
+    a persistent grid of one block per SM (``sms``), or one per item where
+    there are fewer."""
+    shape = {"b": b, "sq": sq, "sk": sk, "heads": heads, "head_dim": head_dim, "sms": sms}
+    if sq <= SHORT_MAX_QUERIES:
+        return {"shape": shape, "body": "short", **_short_plan(b, sq, sk, heads, head_dim)}
+    q_tiles = WARPGROUPS if sq > 64 else 1
+    cap = UNITS[head_dim] * (WARPGROUPS // q_tiles)
+    hb = max(d for d in range(1, heads + 1)
+             if heads % d == 0 and d <= cap and d * head_dim <= GROUP_CHANNELS)
+    units = -(-q_tiles * hb // WARPGROUPS)
+    items = b * (heads // hb) * -(-sq // (64 * q_tiles))
+    kv_stages = next((n for n in range(KV_STAGES, 2, -1) if folded_layout_bytes(
+        head_dim, hb, q_tiles, units, Q_STAGES, n) <= _build.SMEM_LIMIT), 2)
+    return {"shape": shape, "body": "hopper", "heads_per_block": hb, "q_tiles": q_tiles,
+            "units": units, "q_stages": Q_STAGES, "kv_stages": kv_stages,
+            "ntiles": -(-sk // BLOCK_KEYS), "items": items, "threads": THREADS,
+            "smem_bytes": folded_layout_bytes(head_dim, hb, q_tiles, units, Q_STAGES,
+                                              kv_stages),
+            "grid": (max(1, min(items, sms)),)}
+
+
+def check_folded_plan(plan: dict) -> None:
+    """Raise unless ``plan`` is :func:`folded_plan`'s plan for its own
+    ``shape``: a plan with any field changed is refused before a launch."""
+    if plan != folded_plan(**plan["shape"]):
+        raise ValueError(f"folded_attention: no launch for this plan: {plan}")
+
+
+_build.PLAN_CHECKS["folded_attention"] = check_folded_plan
 
 
 def folded_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,19 +180,29 @@ def folded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"folded_attention: head width {dh} not in {HEAD_DIMS}")
     _build.require_aligned("folded_attention", q, k, v)
-    plan = folded_plan(b, sq, k.shape[1], heads, dh)
+    plan = folded_plan(b, sq, k.shape[1], heads, dh, sms=_build.sm_count(q.device))
     _build.check_plan("folded_attention", plan)
     out = torch.empty_like(q)
-    rc = _build.library().anyv2v_folded_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        ctypes.c_int(b), ctypes.c_int(sq), ctypes.c_int(k.shape[1]),
-        ctypes.c_int(heads), ctypes.c_int(dh), ctypes.c_float(scale),
-        *(ctypes.c_int(plan[key]) for key in ("heads_per_block", "rows_per_block", "q_tiles",
-                                              "warps", "smem_bytes")),
-        _build.stream())
+    lib = _build.library()
+    shape = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+             ctypes.c_int(b), ctypes.c_int(sq), ctypes.c_int(k.shape[1]),
+             ctypes.c_int(heads), ctypes.c_int(dh), ctypes.c_float(scale))
+    if plan["body"] == "short":
+        rc = lib.anyv2v_folded_attention_short(
+            *shape, *(ctypes.c_int(plan[key]) for key in (
+                "heads_per_block", "rows_per_block", "q_tiles", "warps", "smem_bytes")),
+            _build.stream())
+    else:
+        rc = lib.anyv2v_folded_attention(
+            *shape, *(ctypes.c_int(plan[key]) for key in (
+                "heads_per_block", "q_tiles", "units", "q_stages", "kv_stages")),
+            ctypes.c_int(plan["grid"][0]), ctypes.c_int(plan["smem_bytes"]), _build.stream())
     _build.check(rc, "folded_attention")
     folded_attention.launches += 1
+    if plan["body"] == "short":
+        folded_attention.short_launches += 1
     return out
 
 
 folded_attention.launches = 0
+folded_attention.short_launches = 0

@@ -17,7 +17,9 @@ Phases:
     against the fp32 truth, and each attention case's exp2 count beside the
     special-function units' time for it; K1 also at the shapes of the seine-tiny reference
     check (untimed) and at the class of the Pallas ``_packed_kernel``, keys
-    past 4096 (2 rows, Sq = Sk = 8192); K2 long at the 128-frame i2vgen-xl shapes
+    past 4096 (2 rows, Sq = Sk = 8192), its short-query body (Sq <= 32: the
+    record ``folded_attention_short``) at its own cases, and both K1 bodies
+    and K2 long on each side of their class and tile boundaries (ragged); K2 long at the 128-frame i2vgen-xl shapes
     (L0-L3 temporal and transformer_in, batch 1 and 3), at SEINE's widths
     with a relative-position bias (S 64) and at Sk = S + 8; K1, K3 and K4 at
     128-frame shapes; K3 and K4 also at i2vgen-xl's edit batch and at the
@@ -315,7 +317,8 @@ def _exp2_count(name, args):
         q, k, heads = args[0], args[1], args[3]
         b, s, hw, _ = q.shape
         return b * hw * heads * s * k.shape[1]
-    if name in ("folded_attention", "flash_attention", "flash_attention_bias"):
+    if name in ("folded_attention", "folded_attention_short", "flash_attention",
+                "flash_attention_bias"):
         q, k, heads = args[0], args[1], args[3]
         k_ctx = args[5] if len(args) > 5 else None
         return q.shape[0] * heads * q.shape[1] * (
@@ -399,6 +402,13 @@ def _kernels():
         "folded_attention": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
                              "anyv2v_tpu/ops/pallas_packed_flash.py:357", fa.folded_attention,
                              fa.folded_attention_plain, _attn_cost, _attn_library),
+        # K1's short-query body (Sq <= 32, its own kernel symbol), replacing
+        # _short_kernel's K1 classes; its launches are the wrapper's
+        # short_launches (also counted in the wrapper's launches)
+        "folded_attention_short": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
+                                   "anyv2v_tpu/ops/pallas_short_attention.py:125",
+                                   fa.folded_attention, fa.folded_attention_plain, _attn_cost,
+                                   _attn_library),
         "frame_attention": ("cuda", "anyv2v_torch/csrc/frame_attention.cu",
                             "anyv2v_tpu/ops/pallas_short_attention.py:223", fr.frame_attention,
                             fr.frame_attention_plain, _frame_cost, _frame_library),
@@ -515,13 +525,14 @@ def _kernel_cases():
     k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
                           "gn_silu_temporal_conv", "flash_attention")
     k2l, k3g, k5b = "frame_attention_long", "ffn_gelu", "flash_attention_bias"
+    k1s = "folded_attention_short"
     return [
         (k1, "L0 self b2 S4096 h64 dh8", attn(2, 4096, 4096, 64, 8, 5)),
         (k1, "L0 cross b2 Sq4096 Sk157 dh8", attn(2, 4096, 157, 64, 8, 5)),
         (k1, "L1 self b2 S1024 dh16", attn(2, 1024, 1024, 64, 16, 10)),
         (k1, "L2 cross b2 Sq256 Sk157 dh32", attn(2, 256, 157, 64, 32, 20)),
         (k1, "mid self b16 S64 dh32", attn(16, 64, 64, 64, 32, 20)),
-        (k1, "image-latent encoder b4096 S16 h2 dh8", attn(4096, 16, 16, 2, 8, 4)),
+        (k1s, "image-latent encoder b4096 S16 h2 dh8", attn(4096, 16, 16, 2, 8, 4)),
         (k1, "ConsistI2V mid cross b51 Sq64 Sk77 h20 dh64", attn(51, 64, 77, 20, 64, 64)),
         (k2, "L0 temporal b1 S16 HW4096 h64 dh8", frames(1, 16, 4096, 64, 8, 5)),
         (k2, "L1 temporal b3 S16 HW1024 dh16", frames(3, 16, 1024, 64, 16, 10)),
@@ -575,10 +586,21 @@ def _kernel_cases():
         # seine-tiny's reference check (3 rows x 8 frames, 2 heads of 8): its K1 calls
         (k1, "seine-tiny self b24 S64 h2 dh8", attn(24, 64, 64, 2, 8, 8)),
         (k1, "seine-tiny cross b24 Sq64 Sk77 h2 dh8", attn(24, 64, 77, 2, 8, 8)),
-        (k1, "seine-tiny self b24 S16 h2 dh8", attn(24, 16, 16, 2, 8, 8)),
-        (k1, "seine-tiny cross b24 Sq16 Sk77 h2 dh8", attn(24, 16, 77, 2, 8, 8)),
-        (k1, "seine-tiny self b24 S4 h2 dh8", attn(24, 4, 4, 2, 8, 8)),
-        (k1, "seine-tiny cross b24 Sq4 Sk77 h2 dh8", attn(24, 4, 77, 2, 8, 8)),
+        (k1s, "seine-tiny self b24 S16 h2 dh8", attn(24, 16, 16, 2, 8, 8)),
+        (k1s, "seine-tiny cross b24 Sq16 Sk77 h2 dh8", attn(24, 16, 77, 2, 8, 8)),
+        (k1s, "seine-tiny self b24 S4 h2 dh8", attn(24, 4, 4, 2, 8, 8)),
+        (k1s, "seine-tiny cross b24 Sq4 Sk77 h2 dh8", attn(24, 4, 77, 2, 8, 8)),
+        # K1 on each side of its class and tile boundaries: the short-query
+        # body up to 32 queries, one 64-row query tile an item up to 64, two
+        # past it; query and key axes not multiples of 64; odd units a
+        # warpgroup (3 heads of 16, 1 head of 8 at 5 heads)
+        (k1s, "ragged short class b2 Sq32 Sk77 h64 dh8", attn(2, 32, 77, 64, 8, 5)),
+        (k1, "ragged b2 Sq33 Sk77 h64 dh8", attn(2, 33, 77, 64, 8, 5)),
+        (k1, "ragged b3 Sq64 Sk130 h8 dh16", attn(3, 64, 130, 8, 16, 10)),
+        (k1, "ragged b3 Sq65 Sk64 h4 dh32", attn(3, 65, 64, 4, 32, 20)),
+        (k1, "ragged b2 Sq200 Sk300 h3 dh64", attn(2, 200, 300, 3, 64, 64)),
+        (k1, "ragged b2 Sq300 Sk65 h5 dh8", attn(2, 300, 65, 5, 8, 8)),
+        (k1, "ragged b2 Sq100 Sk100 h3 dh16", attn(2, 100, 100, 3, 16, 16)),
         # the 128-frame long-video path (i2vgen-xl, 512^2): K2 long on every
         # temporal attention (64 heads of 5/10/20 stored as 8/16/32; L3 is the
         # mid block at 8x8), K1 on the image-latent encoder, K3 and K4 at L0
@@ -616,6 +638,15 @@ def _kernel_cases():
          frames(1, 128, 1024, 8, 40, 40, sk=136)),
         (k2l, "ragged bias b2 S40 Sk47 HW37 h2 dh80",
          frames(2, 40, 37, 2, 80, 80, sk=47, bias=True)),
+        # K2 long on each side of its boundaries: 33 and 127 frames, one
+        # 64-frame query tile an item up to 64 frames, two past it, the key
+        # tile of 144 past 128 keys
+        (k2l, "ragged b2 S33 HW37 h64 dh8", frames(2, 33, 37, 64, 8, 5)),
+        (k2l, "ragged b1 S127 Sk143 HW30 h8 dh40", frames(1, 127, 30, 8, 40, 40, sk=143)),
+        (k2l, "ragged bias b1 S64 HW20 h2 dh160", frames(1, 64, 20, 2, 160, 160, bias=True)),
+        (k2l, "ragged bias b1 S65 Sk70 HW20 h8 dh64", frames(1, 65, 20, 8, 64, 64, sk=70,
+                                                             bias=True)),
+        (k2l, "ragged b3 S100 HW50 h64 dh16", frames(3, 100, 50, 64, 16, 10)),
         # K1 at the class of the Pallas _packed_kernel, which took Sk past
         # 4096: 2 rows, 64 heads of dh 8, Sq = Sk = 8192
         (k1, "off-path row 5 class b2 S8192 h64 dh8", attn(2, 8192, 8192, 64, 8, 5)),
@@ -684,11 +715,15 @@ def _kernel_cases():
 
 # case labels checked and timed, but not summed into the records' times
 _OFF_PATH = ("ragged", "seine-tiny", "off-path")
-_ATTENTION = ("folded_attention", "frame_attention", "frame_attention_long", "flash_attention",
-              "flash_attention_bias")
+_ATTENTION = ("folded_attention", "folded_attention_short", "frame_attention",
+              "frame_attention_long", "flash_attention", "flash_attention_bias")
 # the records of the two operand modes that no backbone reaches (the "op
 # surfaces" path launches them)
 _MODES = ("flash_attention_bias", "ffn_gelu")
+# the records whose launches are a share of another wrapper's: K1's
+# short-query body (only i2vgen-xl's 16-frame image-latent encoder and the
+# seine-tiny check reach it)
+_SUBS = ("folded_attention_short",)
 # an attention kernel's error against the fp32 truth may be at most FP32_RATIO
 # times its plain version's (the bf16 rounding of the output) plus FP32_ATOL
 FP32_RATIO, FP32_ATOL = 1.5, 1e-4
@@ -876,8 +911,8 @@ class _Count:
         self.fn, self.attr = fn, attr
 
     @property
-    def launches(self):
-        return getattr(self.fn, self.attr)
+    def launches(self):   # 0 on a wrapper without the count (an older tree under A/B)
+        return getattr(self.fn, self.attr, 0)
 
     @launches.setter
     def launches(self, value):
@@ -891,6 +926,8 @@ def _wrappers():
     return {"folded_attention": folded_attention.folded_attention,
             "frame_attention": frame_attention.frame_attention,
             "frame_attention_long": frame_attention.frame_attention_long,
+            "folded_attention_short": _Count(folded_attention.folded_attention,
+                                             "short_launches"),
             "ffn_geglu": ffn.ffn_geglu,
             "gn_silu_temporal_conv": temporal_conv.gn_silu_temporal_conv,
             "flash_attention": flash_attention.flash_attention,
@@ -1050,6 +1087,8 @@ def phase_main_path():
         # the i2vgen-xl routes are K1-K4, as before K5 existed
         "K1-K4 launched": all(counts[n] > 0 for n in counts
                               if n not in ("flash_attention", "frame_attention_long") + _MODES),
+        "K1's short-query body launched (the image-latent encoder)":
+        counts["folded_attention_short"] > 0,
         "K5 and K2 long not launched": counts["flash_attention"] == 0
         and counts["frame_attention_long"] == 0,
     })
@@ -1683,7 +1722,7 @@ def phase_consisti2v():
         and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
         and float(edited.max()) <= 1.0,
         "K1-K5 launched": all(c > 0 for n, c in counts.items()
-                              if n not in ("frame_attention_long",) + _MODES),
+                              if n not in ("frame_attention_long",) + _MODES + _SUBS),
         "K5 in its three roles": set(routes.k5) == {"split-KV", "spatial cross",
                                                    "temporal cross"},
         "K2 with Sk 25": any(key.startswith("S17 Sk25") for key in routes.k2),
@@ -1928,7 +1967,8 @@ def phase_checkpoint_folder():
         and bool(torch.isfinite(frames01).all()) and float(frames01.min()) >= 0.0
         and float(frames01.max()) <= 1.0,
         "K1 (short class), K2, K3, K4, K5 launched; K2 long not":
-        all(c > 0 for n, c in counts.items() if n not in ("frame_attention_long",) + _MODES)
+        all(c > 0 for n, c in counts.items()
+            if n not in ("frame_attention_long",) + _MODES + _SUBS)
         and counts["frame_attention_long"] == 0,
         "K2 with the augmented key axis": any(
             int(key.split()[1][2:]) > int(key.split()[0][1:]) for key in routes.k2),
@@ -2628,6 +2668,7 @@ def phase_bench():
 # wrapper); K3's two launches (and both forms) are ffn_kernel instances, so
 # the group holds them all
 _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel", "folded_attention"),
+                  ("K1 short", "folded_attention_short_kernel", "folded_attention_short"),
                   ("K2 long", "frame_attention_long_kernel", "frame_attention_long"),
                   ("K2 frame_attention", "frame_attention_kernel", "frame_attention"),
                   ("K3 ffn", "ffn_kernel", "ffn_geglu"),

@@ -88,7 +88,7 @@ PATCHES = [
      f"      T0;\n      scores_done(j);\n      T1({SOFTMAX});\n      T0;\n      wgmma_wait<0>();\n"),
     ("      if (lead) mbar_arrive(&vempty[(kv + j - 1) % KS]);\n",
      f"      T1({PV});\n      T0;\n      if (lead) mbar_arrive(&vempty[(kv + j - 1) % KS]);\n"),
-    ("      pack_p(s, pa);\n    }\n", f"      pack_p(s, pa);\n      T1({PACK});\n    }}\n"),
+    ("      pack_frag(s, pa);\n    }\n", f"      pack_frag(s, pa);\n      T1({PACK});\n    }}\n"),
     ("    turn_end(it + w.step >= w.end);\n    wgmma_wait<0>();\n",
      f"    turn_end(it + w.step >= w.end);\n    T0;\n    wgmma_wait<0>();\n    T1({PV});\n"),
     ("    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);\n",

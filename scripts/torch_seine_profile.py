@@ -1,8 +1,8 @@
-"""Profiles one SEINE (or ConsistI2V) UNet forward at full width on one
-NVIDIA GPU, at batch 1 (inversion) and batch 3 (edit, every PnP flag on),
-twice.
+"""Profiles one SEINE (or ConsistI2V, or i2vgen-xl at 16 or 128 frames) UNet
+forward at full width on one NVIDIA GPU, at batch 1 (inversion) and batch 3
+(edit, every PnP flag on), twice.
 
-    python3 scripts/torch_seine_profile.py [TREE] [consisti2v]
+    python3 scripts/torch_seine_profile.py [TREE] [consisti2v | i2vgen | i2vgen128]
 
 ``anyv2v_torch`` is imported from TREE (default: this checkout) and the
 profiler from this checkout's ``chip_smoke.py``, so two trees can be
@@ -35,13 +35,24 @@ def main():
     spec.loader.exec_module(smoke)
     import anyv2v_torch
     from anyv2v_torch.ops import _build
-    from anyv2v_torch.utils.model_zoo import build_consisti2v_pipeline, build_seine_pipeline
+    from anyv2v_torch.utils.model_zoo import (build_consisti2v_pipeline, build_i2vgen_pipeline,
+                                              build_seine_pipeline)
 
     if not anyv2v_torch.__file__.startswith(tree):
         raise RuntimeError(f"anyv2v_torch came from {anyv2v_torch.__file__}, not {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
-    if backbone == "consisti2v":
+    if backbone.startswith("i2vgen"):
+        frames = 128 if backbone == "i2vgen128" else 16
+        pipe = build_i2vgen_pipeline("i2vgen-xl", device="cuda", seed=0, dtype=torch.bfloat16)
+
+        def make_args(batch, g):   # chip_smoke.py's i2vgen-xl forward at `frames` frames
+            def rn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=g, device="cuda") * scale
+            kw = {"pnp": (True, True, True)} if batch == 3 else {}
+            return (rn(batch, frames, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
+                    rn(batch, frames, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), kw
+    elif backbone == "consisti2v":
         pipe = build_consisti2v_pipeline("consisti2v", device="cuda", seed=0,
                                          dtype=torch.bfloat16)
         def make_args(batch, g):

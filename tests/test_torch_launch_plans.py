@@ -42,6 +42,8 @@ def _heads(dh):
 
 
 def _check_frame_plan(plan, b, s, sk, hw, heads, dh):
+    """K2's plan (S <= 32): pixels per block, two blocks per SM."""
+    assert s <= fr.MAX_FRAMES
     hb = plan["heads_per_block"]
     assert heads % hb == 0 and hb * dh <= max(fr.GROUP_CHANNELS, dh)
     # whole 16-row tiles of Q, K and V per pixel, rows strided by an odd
@@ -55,31 +57,96 @@ def _check_frame_plan(plan, b, s, sk, hw, heads, dh):
     assert plan["smem_bytes"] == pixels * plan["pixel_bytes"] <= SMEM
     if pixels > 1:   # pixels are added only while two blocks share one SM
         assert 2 * plan["smem_bytes"] <= SMEM
-    # up to 32 frames a block moves at least MIN_BLOCK_BYTES unless the
-    # pixels or the SM run out; past 32 frames (K2 long) it holds one pixel
-    if s > fr.MAX_FRAMES:
-        assert pixels == 1
-    else:
-        assert (plan["smem_bytes"] >= fr.MIN_BLOCK_BYTES or pixels == b * hw
-                or 2 * (pixels + 1) * plan["pixel_bytes"] > SMEM)
+    # a block moves at least MIN_BLOCK_BYTES unless the pixels or the SM run out
+    assert (plan["smem_bytes"] >= fr.MIN_BLOCK_BYTES or pixels == b * hw
+            or 2 * (pixels + 1) * plan["pixel_bytes"] > SMEM)
     assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 32 * fr.MAX_WARPS
     assert plan["grid"] == (-(-b * hw // pixels), heads // hb)
     assert plan["grid"][0] <= GRID_X and plan["grid"][1] <= GRID_YZ
 
 
+def _check_tma(dims, strides, boxes, inner=8):
+    """A TMA map as the C entry encodes it: its innermost dimension
+    ``inner`` bf16 (16 bytes, or a 128-byte-swizzled row of 64), global
+    strides multiples of 16 bytes under 2^40, every box dimension 1..256."""
+    assert dims[0] % inner == 0 and inner * 2 in (16, 128)
+    assert all(x % 16 == 0 and 0 < x < 2 ** 40 for x in strides), strides
+    for box in boxes:
+        assert box[0] == inner and len(box) == len(dims)
+        assert all(1 <= x <= 256 for x in box), box
+
+
+# one field of a K2 long plan changed: each must be refused
+_FRAME_LONG_EDITS = [
+    ("heads_per_block", lambda v: v * 2), ("q_tiles", lambda v: 3 - v),
+    ("key_rows", lambda v: 272 - v), ("stages", lambda v: 3 - v), ("items", lambda v: v + 1),
+    ("threads", lambda v: v - 32), ("smem_bytes", lambda v: v + 16),
+    ("grid", lambda v: (v[0] - 1 or 2,)), ("swizzle", lambda v: not v),
+]
+
+
+def check_frame_long_launch(b, s, sk, hw, heads, dh, sms=_build.H100_SMS):
+    """K2 long's plan of one call, as the wrapper makes it: the shared bytes
+    are the layout's and fit one block, the TMA boxes of the native layout
+    are within the limits, the persistent walk takes each (batch row, pixel,
+    head group) exactly once and its units every head and query frame, and
+    a plan with any field changed is refused."""
+    assert fr.takes_long(s, sk, dh)
+    plan = fr.frame_plan(b, s, sk, hw, heads, dh, sms=sms)
+    assert plan == fr.frame_long_plan(b, s, sk, hw, heads, dh, sms=sms)
+    _build.check_plan("frame_attention_long", plan)
+    hb, qt, kr, st = (plan[x] for x in ("heads_per_block", "q_tiles", "key_rows", "stages"))
+    assert heads % hb == 0 and hb * dh <= max(fr.GROUP_CHANNELS, dh)
+    assert hb == max(d for d in range(1, heads + 1)
+                     if heads % d == 0 and d * dh <= max(fr.GROUP_CHANNELS, dh))
+    assert qt == (2 if s > 64 else 1) and 64 * qt >= s and kr == (128 if sk <= 128 else 144)
+    nwg = 2   # consumer warpgroups
+    assert kr >= sk and plan["threads"] == fr.LONG_THREADS == 128 * nwg + 32
+    g = hb * dh
+    assert plan["smem_bytes"] == fr.frame_long_layout_bytes(g, qt, kr, st) <= SMEM
+    assert st == 2 or fr.frame_long_layout_bytes(g, qt, kr, 2) > SMEM
+    c = heads * dh
+    assert plan["swizzle"] == (64 % dh == 0 and g % 64 == 0)
+    if plan["swizzle"]:   # 64-channel slabs of 128-byte rows
+        _check_tma([64, s, hw, b], [hw * c * 2, c * 2, s * hw * c * 2], [[64, 64 * qt, 1, 1]],
+                   inner=64)
+        _check_tma([64, sk, hw, b], [hw * c * 2, c * 2, sk * hw * c * 2], [[64, kr, 1, 1]],
+                   inner=64)
+    else:
+        _check_tma([8, s, c // 8, hw, b], [hw * c * 2, 16, c * 2, s * hw * c * 2],
+                   [[8, 64 * qt, g // 8, 1, 1]])
+        _check_tma([8, sk, c // 8, hw, b], [hw * c * 2, 16, c * 2, sk * hw * c * 2],
+                   [[8, kr, g // 8, 1, 1]])
+    # the walk: block x takes items x, x + grid, ...; item it is head group
+    # it % ng of pixel it // ng; its units (u = wg + nwg i < q_tiles * hb)
+    # take query tile u % q_tiles of head u // q_tiles
+    ng, items, grid = heads // hb, plan["items"], plan["grid"][0]
+    assert items == b * hw * ng and grid == max(1, min(items, sms)) <= GRID_X
+    taken = {}
+    for x in range(grid):
+        for it in range(x, items, grid):
+            taken[(it // ng, it % ng)] = taken.get((it // ng, it % ng), 0) + 1
+    assert len(taken) == items and set(taken.values()) == {1}
+    units = sorted((u % qt, u // qt) for wg in range(nwg) for u in range(wg, qt * hb, nwg))
+    assert units == sorted(itertools.product(range(qt), range(hb)))
+    for key, edit in _FRAME_LONG_EDITS:
+        with pytest.raises(ValueError, match="no launch"):
+            _build.check_plan("frame_attention_long", {**plan, key: edit(plan[key])})
+    return plan
+
+
 @pytest.mark.parametrize("dh", fr.HEAD_DIMS)
 @pytest.mark.parametrize("s,sk", [(128, 144), (128, 128), (33, 33), (40, 47), (64, 80)])
 def test_long_plan_fits_one_block(dh, s, sk):
-    assert fr.takes_long(s, sk, dh)
     for heads in _heads(dh):
         for b, hw in ((3, 4096), (1, 37)):
-            _check_frame_plan(fr.frame_plan(b, s, sk, hw, heads, dh), b, s, sk, hw, heads, dh)
+            check_frame_long_launch(b, s, sk, hw, heads, dh)
 
 
 @pytest.mark.parametrize("dh", fr.HEAD_DIMS)
 @pytest.mark.parametrize("s,sk", [(16, 16), (17, 25), (32, 48), (1, 1), (7, 13), (8, 8)])
 def test_short_plan_fits_one_block(dh, s, sk):
-    """S <= 32 on the same body: several pixels per block, two blocks per SM."""
+    """S <= 32 on the mma.sync body: several pixels per block, two blocks per SM."""
     assert fr.takes(s, sk, dh)
     for heads in _heads(dh):
         for b, hw in ((3, 4096), (2, 37), (1, 1)):
@@ -88,12 +155,13 @@ def test_short_plan_fits_one_block(dh, s, sk):
 
 def test_long_plan_of_the_128_frame_path():
     """i2vgen-xl at 128 frames: 64 heads of 8/16/32 and transformer_in's 8 of
-    64 take 128 channels and one pixel per block, two blocks' shared memory
-    on one SM."""
+    64 take 128 channels an item, two 64-frame query tiles, keys in one tile
+    of 128, two item stages (the next pixel in flight), one block per SM."""
     for heads, dh in ((64, 8), (64, 16), (64, 32), (8, 64)):
         plan = fr.frame_plan(3, 128, 128, 4096, heads, dh)
-        assert plan["heads_per_block"] * dh == 128 and plan["threads"] == 256
-        assert plan["pixels_per_block"] == 1 and 2 * plan["smem_bytes"] <= SMEM
+        assert plan["heads_per_block"] * dh == 128 and plan["threads"] == 288
+        assert plan["q_tiles"] == 2 and plan["key_rows"] == 128 and plan["stages"] == 2
+        assert plan["grid"] == (_build.H100_SMS,) and plan["items"] == 3 * 4096 * heads * dh // 128
 
 
 def test_short_plan_of_the_16_frame_path():
@@ -269,7 +337,8 @@ def test_plan_check_refuses_what_one_block_cannot_hold():
             _build.check_plan("k", bad)
 
 
-def _check_folded_plan(plan, b, sq, sk, heads, dh):
+def _check_short_folded_plan(plan, b, sq, sk, heads, dh):
+    """K1's short-query plan (the mma.sync body, Sq <= 32)."""
     hb, rows, qt = plan["heads_per_block"], plan["rows_per_block"], plan["q_tiles"]
     assert heads % hb == 0 and hb * dh <= fa.GROUP_CHANNELS
     assert rows == 1 or (hb == heads and rows * hb * dh <= fa.GROUP_CHANNELS and rows <= b)
@@ -288,16 +357,6 @@ def _check_folded_plan(plan, b, sq, sk, heads, dh):
     n_q = -(-sq // (16 * qt))
     assert plan["grid"] == (n_q * -(-b // rows), heads // hb)
     assert plan["grid"][0] <= GRID_X and plan["grid"][1] <= GRID_YZ
-    return n_q
-
-
-@pytest.mark.parametrize("shape", _chip_smoke_cases("folded_attention"))
-def test_folded_plan_covers_each_chip_smoke_case(shape):
-    """Each (batch row, head, 16-query tile) falls in exactly one block."""
-    b, sq, sk, heads, dh = (shape[x] for x in ("b", "sq", "sk", "heads", "dh"))
-    plan = fa.folded_plan(b, sq, sk, heads, dh)
-    n_q = _check_folded_plan(plan, b, sq, sk, heads, dh)
-    hb, rows, qt = plan["heads_per_block"], plan["rows_per_block"], plan["q_tiles"]
     seen = {}
     for x, y in itertools.product(range(plan["grid"][0]), range(plan["grid"][1])):
         b0, q0 = (x // n_q) * rows, (x % n_q) * qt
@@ -308,11 +367,91 @@ def test_folded_plan_covers_each_chip_smoke_case(shape):
     assert len(seen) == b * heads * -(-sq // 16) and set(seen.values()) == {1}
 
 
+# one field of a K1 plan changed: each must be refused
+_FOLDED_EDITS = {
+    "hopper": [("body", lambda v: "short"), ("heads_per_block", lambda v: v * 2),
+               ("q_tiles", lambda v: 1 if v > 1 else fa.WARPGROUPS), ("units", lambda v: v + 1),
+               ("q_stages", lambda v: v + 1), ("kv_stages", lambda v: v - 1),
+               ("ntiles", lambda v: v + 1), ("items", lambda v: v + 1),
+               ("threads", lambda v: v - 32), ("smem_bytes", lambda v: v + 16),
+               ("grid", lambda v: (v[0] - 1 or 2,))],
+    "short": [("body", lambda v: "hopper"), ("heads_per_block", lambda v: v * 2),
+              ("rows_per_block", lambda v: v + 1), ("q_tiles", lambda v: v + 1),
+              ("warps", lambda v: v - 1), ("key_rows", lambda v: v + 16),
+              ("smem_bytes", lambda v: v + 16), ("grid", lambda v: (v[0] + 1, v[1]))],
+}
+
+
+def check_folded_launch(b, sq, sk, heads, dh, sms=_build.H100_SMS):
+    """K1's plan of one call, as the wrapper makes it: the body its class
+    takes (the short-query body up to 32 queries, else the Hopper body); the
+    shared bytes are the layout's and fit one block; the TMA boxes are
+    within the limits; the persistent walk and the warpgroups' units take
+    each (batch row, head, 64-row query tile) exactly once, within the
+    registers' units; a plan with any field changed is refused."""
+    assert dh in fa.HEAD_DIMS
+    plan = fa.folded_plan(b, sq, sk, heads, dh, sms=sms)
+    _build.check_plan("folded_attention", plan)
+    assert plan["body"] == ("short" if sq <= fa.SHORT_MAX_QUERIES else "hopper")
+    for key, edit in _FOLDED_EDITS[plan["body"]]:
+        with pytest.raises(ValueError, match="no launch"):
+            _build.check_plan("folded_attention", {**plan, key: edit(plan[key])})
+    if plan["body"] == "short":
+        _check_short_folded_plan(plan, b, sq, sk, heads, dh)
+        return plan
+    hb, qt, units = plan["heads_per_block"], plan["q_tiles"], plan["units"]
+    nwg = fa.WARPGROUPS
+    assert qt == (nwg if sq > 64 else 1) and heads % hb == 0 and hb * dh <= fa.GROUP_CHANNELS
+    assert units == -(-qt * hb // nwg) <= fa.UNITS[dh] and plan["threads"] == 128 * nwg + 32
+    assert hb == max(d for d in range(1, heads + 1) if heads % d == 0
+                     and d <= fa.UNITS[dh] * (nwg // qt) and d * dh <= fa.GROUP_CHANNELS)
+    assert plan["ntiles"] == -(-sk // fa.BLOCK_KEYS)
+    kvs = plan["kv_stages"]
+    assert 2 <= kvs <= fa.KV_STAGES and (kvs == fa.KV_STAGES or fa.folded_layout_bytes(
+        dh, hb, qt, units, plan["q_stages"], kvs + 1) > SMEM)
+    assert plan["smem_bytes"] == fa.folded_layout_bytes(
+        dh, hb, qt, units, plan["q_stages"], plan["kv_stages"]) <= SMEM
+    c, g = heads * dh, hb * dh
+    _check_tma([8, sq, c // 8, b], [c * 2, 16, sq * c * 2], [[8, 64 * qt, g // 8, 1],
+                                                             [8, 64, dh // 8, 1]])
+    _check_tma([8, sk, c // 8, b], [c * 2, 16, sk * c * 2], [[8, fa.BLOCK_KEYS, g // 8, 1]])
+    # the walk (csrc item_of): block x takes items x, x + grid, ...; item it
+    # is query pair it % nqp of head group (it // nqp) % ng of batch row
+    # (it // nqp) // ng; warpgroup wg's units u = wg + nwg i (i < units) are
+    # kept where u < q_tiles * hb: query tile u % q_tiles of head u // q_tiles
+    ng, nqp = heads // hb, -(-sq // (64 * qt))
+    items, grid = plan["items"], plan["grid"][0]
+    assert items == b * ng * nqp and grid == max(1, min(items, sms)) <= GRID_X
+    taken = {}
+    for x in range(grid):
+        for it in range(x, items, grid):
+            r = it // nqp
+            bb, hg, tile0 = r // ng, r % ng, (it % nqp) * qt
+            for wg, i in itertools.product(range(nwg), range(units)):
+                u = wg + nwg * i
+                if u < qt * hb and (tile0 + u % qt) * 64 < sq:
+                    key = (bb, hg * hb + u // qt, tile0 + u % qt)
+                    taken[key] = taken.get(key, 0) + 1
+    assert len(taken) == b * heads * -(-sq // 64) and set(taken.values()) == {1}
+    return plan
+
+
+@pytest.mark.parametrize("shape", _chip_smoke_cases("folded_attention"))
+def test_folded_plan_covers_each_chip_smoke_case(shape):
+    """Each (batch row, head, query tile) falls in exactly one block, on the
+    body its class takes."""
+    check_folded_launch(*(shape[x] for x in ("b", "sq", "sk", "heads", "dh")))
+
+
 @pytest.mark.parametrize("shape", _chip_smoke_cases("frame_attention", "frame_attention_long"))
 def test_frame_plan_covers_each_chip_smoke_case(shape):
-    """Each (batch row, pixel, head group) falls in exactly one block."""
+    """Each (batch row, pixel, head group) falls in exactly one block (K2)
+    or one item of the persistent walk (K2 long)."""
     b, s, sk, hw, heads, dh = (shape[x] for x in ("b", "s", "sk", "hw", "heads", "dh"))
     assert fr.takes(s, sk, dh) or fr.takes_long(s, sk, dh)
+    if s > fr.MAX_FRAMES:
+        check_frame_long_launch(b, s, sk, hw, heads, dh)
+        return
     plan = fr.frame_plan(b, s, sk, hw, heads, dh)
     _check_frame_plan(plan, b, s, sk, hw, heads, dh)
     pixels, groups = plan["pixels_per_block"], plan["grid"][1]
@@ -321,12 +460,37 @@ def test_frame_plan_covers_each_chip_smoke_case(shape):
     assert covered == list(range(b * hw)) and groups * plan["heads_per_block"] == heads
 
 
+@pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
+def test_k1_and_k2_long_plans_at_each_routed_shape(monkeypatch, arch, frames):
+    """Every K1 and K2 long call of the six archs' forwards (found on the meta
+    device) gets a plan that passes the same checks as chip_smoke's cases."""
+    seen = _routes(monkeypatch, arch, frames)
+    for (b, sq, c), k, heads in seen.get("folded_attention", set()):
+        check_folded_launch(b, sq, k[1], heads, c // heads)
+    for q, k, heads in seen.get("frame_attention_long", set()):
+        b, s, hw, c = q
+        check_frame_long_launch(b, s, k[1], hw, heads, c // heads)
+
+
+@pytest.mark.parametrize("sq,body", [(31, "short"), (32, "short"), (33, "hopper"),
+                                     (64, "hopper"), (65, "hopper"), (100, "hopper")])
+def test_folded_body_at_the_class_boundaries(sq, body):
+    """The short-query body takes Sq <= 32, the Hopper body the rest; one
+    64-row query tile an item up to 64 queries, one a warpgroup past it."""
+    for dh in fa.HEAD_DIMS:
+        plan = check_folded_launch(2, sq, 77, 128 // dh, dh)
+        assert plan["body"] == body
+        if body == "hopper":
+            assert plan["q_tiles"] == (fa.WARPGROUPS if sq > 64 else 1)
+
+
 def test_check_plan_refuses_k1_and_k2_plans_one_block_cannot_hold(monkeypatch):
-    """A K1 key tile too long for one SM, or a frame-axis block past 128
-    frames (which neither K2 route takes), raises before any launch."""
-    monkeypatch.setattr(fa, "KEY_TILE", 512)
+    """A K1 key stage too long for one SM even in a ring of two, or a
+    frame-axis block past 128 frames (which neither K2 route takes), raises
+    before any launch."""
+    monkeypatch.setattr(fa, "BLOCK_KEYS", 2048)
     with pytest.raises(ValueError, match="no launch"):
-        _build.check_plan("folded_attention", fa.folded_plan(2, 4096, 4096, 64, 8))
+        _build.check_plan("folded_attention", fa.folded_plan(2, 4096, 4096, 64, 16))
     with pytest.raises(ValueError, match="no launch"):
         _build.check_plan("frame_attention", fr.frame_plan(1, 256, 256, 64, 8, 160))
 
