@@ -623,6 +623,35 @@ __device__ __forceinline__ void mask_keys(float (&s)[N4], int n) {
 
 // ---- products of one 16-deep K step at the GEMM widths (64..320 by 64) ----
 
+// D[64 x N] (+)= A . B for N = 64, 128, 256, A K-major and B MN-major
+// (transposed), both in 128-byte-swizzled tiles in shared memory.
+__device__ __forceinline__ void wgmma_ss_t_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_t_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_t_n256(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x BN] (+)= A . B, A and B K-major in 128-byte-swizzled tiles: `da` is
 // A's descriptor, `b` the address of B's first row (rows of 128 bytes, so a
 // piece starting at row r starts r * 128 bytes on). D holds the pieces in
@@ -642,81 +671,108 @@ __device__ __forceinline__ void wgmma_ss_width(float* d, uint64_t da, uint32_t b
   }
 }
 
-// D[64 x BN] += A . B, A in registers, B MN-major in 128-byte-swizzled column
-// atoms of 64 columns, `atom` bytes apart, starting at `b`.
+// The same with B MN-major in 128-byte-swizzled column atoms of 64 columns,
+// `atom` bytes apart, starting at `b` (an MN-major wgmma cannot start inside
+// an atom, so 320 columns are n256 + n64).
 template <int BN>
-__device__ __forceinline__ void wgmma_rs_width(float* d, const uint32_t (&a)[4], uint32_t b,
-                                               uint32_t atom) {
+__device__ __forceinline__ void wgmma_ss_t_width(float* d, uint64_t da, uint32_t b, uint32_t atom,
+                                                 int scale_d) {
   static_assert(BN % 64 == 0 && BN >= 64 && BN <= 320, "widths 64..320 by 64");
   auto db = [&](int col) { return wgmma_desc_sw128(b + (col / 64) * atom, atom, 1024); };
   if constexpr (BN >= 256) {
-    wgmma_rs_n256(d, a, db(0));
-    if constexpr (BN == 320) wgmma_rs_n64(d + 128, a, db(256));
+    wgmma_ss_t_n256(d, da, db(0), scale_d);
+    if constexpr (BN == 320) wgmma_ss_t_n64(d + 128, da, db(256), scale_d);
   } else if constexpr (BN >= 128) {
-    wgmma_rs_n128(d, a, db(0));
-    if constexpr (BN == 192) wgmma_rs_n64(d + 64, a, db(128));
+    wgmma_ss_t_n128(d, da, db(0), scale_d);
+    if constexpr (BN == 192) wgmma_ss_t_n64(d + 64, da, db(128), scale_d);
   } else {
-    wgmma_rs_n64(d, a, db(0));
+    wgmma_ss_t_n64(d, da, db(0), scale_d);
   }
 }
 
 // ---- the warp-specialised GEMM main loop of K3 and K4 ----
 //
-// A block of three warpgroups walks over output tiles of 128 rows,
-// persistently: tile blockIdx.x, then every gridDim.x-th. Warpgroup 2
-// produces: it keeps a ring of Body::STAGES shared-memory stages full, one per
-// K step, and the ring runs on across tiles, so that the next tile's first
-// stages load while the consumers finish a tile. Warpgroups 0 and 1 consume,
-// 64 rows each: each waits for a stage, issues its wgmmas, and then waits for
-// the step before's (wgmma.wait_group 1) and releases that step's stage, so
-// that one step's products run while the next stage is awaited and
-// prepared; after a tile's last step comes the epilogue.
+// A block of three warpgroups walks over output tiles persistently.
+// Warpgroup 2 produces: it keeps a ring of Body::STAGES shared-memory stages
+// full, one per K step, and the ring runs on across tiles. Warpgroups 0 and
+// 1 consume: each waits for a stage, issues its wgmmas, then waits for the
+// step before's (wgmma.wait_group 1) and releases that step's stage; after a
+// tile's last step comes its epilogue. Two schedules (Body::PINGPONG):
+//  - cooperative: both consumers share each 128-row tile, 64 rows each (the
+//    stage's A holds both halves; B is read once for both): tile
+//    blockIdx.x, then every gridDim.x-th. Their epilogues run together, so
+//    it suits tiles with many K steps and a cheap epilogue (K3's launch 2,
+//    K4).
+//  - ping-pong: each consumer owns whole tiles (Body rows by its width):
+//    the block takes units of two tiles, 2u and 2u + 1, u = blockIdx.x, then
+//    every gridDim.x-th, warpgroup w taking tile 2u + w; the two take turns
+//    on the tensor cores (named barriers 4 and 5: a warpgroup issues all of
+//    its tile's products, passes the turn, and runs its epilogue while the
+//    other's products run). It suits a tile with few K steps and a costly
+//    epilogue (K3's launch 1: 5 steps at C 320, a GEGLU of every output).
+//    Its cost: each warpgroup's tile loads its own stages, so a tile of the
+//    cooperative one's rows but half its columns reads A twice as often
+//    (K3's launch 1 at L0: 1.64 GB from L2 against 1.23).
+// Measured on the cooperative-only loop before (scripts/torch_gemm_stamps.py,
+// NVIDIA H100 80GB HBM3, 700 W): launch 1 at L0 49 % of the consumers'
+// cycles in the GEGLU (the tensor cores idle), K4 41-47 % in the prologue
+// it applied to wgmma's register A between a stage's arrival and the issue.
+// On this loop (the same tool): launch 1's epilogue still 37-52 % of its
+// consumers' cycles with the turn barrier free (0.1-0.2 %); launch 2 and
+// K4's GEMM 54-67 % issuing wgmma; K4's mid block 67 % on full barriers
+// behind its producer's gathers.
 //
 // Body provides:
-//   STAGES, STAGE_BYTES, FULL_ARRIVALS (arrivals that complete a full barrier
-//   besides its transaction bytes), PRODUCER_THREADS (1 or 128);
+//   PINGPONG, STAGES, STAGE_BYTES, PRODUCER_THREADS (1: TMA only; 128: the
+//   warpgroup also gathers), PRODUCER_REGS, CONSUMER_REGS (setmaxnreg);
 //   int tiles() const, int ksteps() const;
-//   void begin_produce(int tile, int tw) const: once per tile, by every
-//     producer thread tw < PRODUCER_THREADS;
-//   void produce(int tile, int k, unsigned char* stage, uint64_t* full,
-//     int tw) const: fill the stage for step k and arrive on `full`;
+//   struct Loader { Loader(const Body&, int tw); void begin(int tile): once
+//     per tile, by every producer thread; void load(int k, unsigned char*
+//     stage, uint64_t* full): fill the stage for step k and arrive on
+//     `full`; };
 //   struct Consumer { Consumer(const Body&, int tile, int wg);
 //     void mma(int k, const unsigned char* stage): issue and commit the
 //     step's wgmmas; void epilogue(); };
 //   void consumers_done() const: once per consumer thread after its last
 //     tile (waits for the epilogue's outstanding bulk stores).
-// The caller has initialised `full` (FULL_ARRIVALS) and `empty` (8: one
-// arrival per consumer warp), fenced them, and synchronised the block.
+// The caller has initialised `full` (the producer's arrivals) and `empty`
+// (8 consumer warps, 4 in ping-pong), fenced them, and synchronised the
+// block.
 constexpr int GEMM_THREADS = 384;   // consumers 0-255, producer 256-383
-constexpr int GEMM_PRODUCER_REGS = 40, GEMM_CONSUMER_REGS = 232;
+constexpr int GEMM_TURN_BARRIER = 4;   // ping-pong turns: barriers 4 and 5
 
 template <class Body>
 __device__ __forceinline__ void gemm_main_loop(const Body& body, unsigned char* smem,
                                                uint64_t* full, uint64_t* empty) {
   constexpr int S = Body::STAGES;
   const int tiles = body.tiles(), ksteps = body.ksteps();
+  const int units = Body::PINGPONG ? (tiles + 1) / 2 : tiles;   // per step of a block's walk
   // the warpgroup index, warp-uniform to the compiler (setmaxnreg needs
   // branches it can tell apart)
   const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   if (role == 2) {
-    setmaxnreg_dec<GEMM_PRODUCER_REGS>();
+    setmaxnreg_dec<Body::PRODUCER_REGS>();
     const int tw = threadIdx.x - 256;
     if (tw >= Body::PRODUCER_THREADS) return;
+    typename Body::Loader p(body, tw);
     int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      body.begin_produce(tile, tw);
-      for (int k = 0; k < ksteps; ++k, ++it) {
-        const int stage = it % S;
-        if (it >= S) mbar_wait(&empty[stage], ((it / S) - 1) & 1);
-        body.produce(tile, k, smem + stage * Body::STAGE_BYTES, &full[stage], tw);
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+#pragma unroll
+      for (int w = 0; w < (Body::PINGPONG ? 2 : 1); ++w) {
+        const int tile = Body::PINGPONG ? 2 * u + w : u;
+        if (tile >= tiles) continue;
+        p.begin(tile);
+        for (int k = 0; k < ksteps; ++k, ++it) {
+          const int stage = it % S;
+          if (it >= S) mbar_wait(&empty[stage], ((it / S) - 1) & 1);
+          p.load(k, smem + stage * Body::STAGE_BYTES, &full[stage]);
+        }
       }
-    }
   } else {
-    setmaxnreg_inc<GEMM_CONSUMER_REGS>();
+    setmaxnreg_inc<Body::CONSUMER_REGS>();
     const bool lead = threadIdx.x % 32 == 0;
-    int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      typename Body::Consumer c(body, tile, role);
+    // the K steps of one tile, from step index `it` of the block's ring on
+    auto k_loop = [&](typename Body::Consumer& c, int it) {
       for (int k = 0; k < ksteps; ++k, ++it) {
         const int stage = it % S;
         mbar_wait(&full[stage], (it / S) & 1);
@@ -724,9 +780,35 @@ __device__ __forceinline__ void gemm_main_loop(const Body& body, unsigned char* 
         wgmma_wait<1>();
         if (k > 0 && lead) mbar_arrive(&empty[(it - 1) % S]);
       }
-      wgmma_wait<0>();
-      if (lead) mbar_arrive(&empty[(it - 1) % S]);
-      c.epilogue();
+    };
+    if constexpr (Body::PINGPONG) {
+      // warpgroup 0 takes the first turn; the last unit's last turn is not
+      // passed on, so that each barrier completes as often as it is awaited
+      if (role == 1) named_barrier_arrive(GEMM_TURN_BARRIER, 256);
+      for (int u = blockIdx.x, i = 0; u < units; u += gridDim.x, ++i) {
+        const int tile = 2 * u + role, it = (2 * i + role) * ksteps;
+        const bool pass = !(role == 1 && u + (int)gridDim.x >= units);
+        named_barrier(GEMM_TURN_BARRIER + role, 256);
+        if (tile < tiles) {
+          typename Body::Consumer c(body, tile, role);
+          k_loop(c, it);
+          if (pass) named_barrier_arrive(GEMM_TURN_BARRIER + 1 - role, 256);
+          wgmma_wait<0>();
+          if (lead) mbar_arrive(&empty[(it + ksteps - 1) % S]);
+          c.epilogue();
+        } else if (pass) {
+          named_barrier_arrive(GEMM_TURN_BARRIER + 1 - role, 256);
+        }
+      }
+    } else {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, it += ksteps) {
+        typename Body::Consumer c(body, tile, role);
+        k_loop(c, it);
+        wgmma_wait<0>();
+        if (lead) mbar_arrive(&empty[(it + ksteps - 1) % S]);
+        c.epilogue();
+      }
     }
     body.consumers_done();
   }

@@ -39,9 +39,9 @@ GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)  # grid x, y, z
 H100_SMS = 132
 
 # hopper.cuh's GEMM main loop (K3, K4): 128-row tiles on two consumer
-# warpgroups and a producer warpgroup, a ring of 4 stages 64 deep, output
-# tiles 64..320 columns wide by 64
-GEMM_ROWS, GEMM_DEPTH, GEMM_STAGES, GEMM_THREADS = 128, 64, 4, 384
+# warpgroups and a producer warpgroup, a ring of stages 64 deep with a full
+# and an empty mbarrier each, output tiles 64..320 columns wide by 64
+GEMM_ROWS, GEMM_DEPTH, GEMM_THREADS = 128, 64, 384
 GEMM_WIDTHS = (64, 128, 192, 256, 320)
 
 _lib = None
@@ -177,29 +177,50 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def gemm_width(cols: int) -> tuple:
+def gemm_width(cols: int, rows: int = 0, sms: int = H100_SMS) -> tuple:
     """(column tiles, tile width) of a GEMM with ``cols`` output columns: as
     few tiles of at most 320 columns as possible, each a multiple of 64 wide
-    (the last one masked)."""
+    (the last one masked). With ``rows``, of that width and the narrower
+    ones down to 256, the one whose tiles' rounds over ``sms`` blocks times
+    the width (the busiest block's share of the work) is least, the wider on
+    a tie: a grid that would leave many SMs idle (the mid block's 96 tiles of
+    320 on 132) takes tiles of 256 (120). Narrower tiles are not taken: each
+    column tile reads the whole of A again."""
     tiles = -(-cols // GEMM_WIDTHS[-1])
     per_tile = -(-cols // tiles)
-    return tiles, -(-per_tile // 64) * 64
+    fewest = -(-per_tile // 64) * 64
+    if not rows:
+        return tiles, fewest
+    row_tiles = -(-rows // GEMM_ROWS)
+    widths = [w for w in GEMM_WIDTHS if min(fewest, 256) <= w <= fewest]
+
+    def cost(w):
+        return -(-row_tiles * -(-cols // w) // sms) * w
+    width = min(widths, key=lambda w: (cost(w), -w))
+    return -(-cols // width), width
 
 
 def gemm_plan(rows: int, col_tiles: int, width: int, ksteps: int, extra_bytes: int = 0,
-              sms: int = H100_SMS) -> dict:
-    """The launch of one GEMM on hopper.cuh's main loop: a ring of 4 stages of
-    A [128, 64] and B [64, width] bf16, ``extra_bytes`` of the body's own, a
-    full and an empty mbarrier per stage and 1024 bytes that align the ring
-    (hopper.cuh ``gemm_smem_bytes``); a persistent grid of at most one block
-    per SM over ``ceil(rows / 128) * col_tiles`` tiles, block x taking tiles
-    x, x + grid, ..."""
+              sms: int = H100_SMS, stages: int = 4, pingpong: bool = False) -> dict:
+    """The launch of one GEMM on hopper.cuh's main loop: a ring of ``stages``
+    stages of A [128, 64] and B [64, width] bf16, ``extra_bytes`` of the
+    body's own, a full and an empty mbarrier per stage and 1024 bytes that
+    align the ring (hopper.cuh ``gemm_smem_bytes``); a persistent
+    grid of at most one block per SM over ``ceil(rows / 128) * col_tiles``
+    tiles. Cooperative: block x takes tiles x, x + grid, ...; ping-pong
+    (``pingpong``, only where the tiles outnumber the SMs): block x takes
+    units x, x + grid, ... of two tiles, 2u for its first consumer warpgroup
+    and 2u + 1 for its second."""
     stage = (GEMM_ROWS + width) * GEMM_DEPTH * 2
     tiles = -(-rows // GEMM_ROWS) * col_tiles
+    if pingpong and tiles <= sms:
+        raise ValueError(f"gemm_plan: {tiles} tiles pair on no more than {sms} SMs")
+    units = -(-tiles // 2) if pingpong else tiles
     return {"width": width, "col_tiles": col_tiles, "tiles": tiles, "ksteps": ksteps,
-            "stages": GEMM_STAGES, "threads": GEMM_THREADS,
-            "smem_bytes": GEMM_STAGES * stage + extra_bytes + 2 * GEMM_STAGES * 8 + 1024,
-            "grid": (max(1, min(tiles, sms)),)}
+            "schedule": "pingpong" if pingpong else "cooperative", "units": units,
+            "stages": stages, "threads": GEMM_THREADS,
+            "smem_bytes": stages * stage + extra_bytes + 2 * stages * 8 + 1024,
+            "grid": (max(1, min(units, sms)),)}
 
 
 # name -> a kernel's own check of a plan's fields (registered by its module)

@@ -17,9 +17,11 @@ register file: 1.26 GB at L0, 2.5 GB at L1), while writing h in bf16 and
 reading it back costs ``16 * C * N`` bytes (0.34 and 0.17 GB). So the kernel
 (``csrc/ffn.cu``) is two wgmma GEMMs on ``hopper.cuh``'s TMA-fed main loop:
 ``x @ W1^T`` with the activation in its epilogue, storing h ``[N, I]`` bf16 (the
-tensor the Pallas body and the plain path round at the same point), then
-``h @ W2^T + b2``. :func:`ffn_plan` sizes both launches; rows run in chunks
-of at most 2^18 so that h stays under 0.7 GB.
+tensor the Pallas body and the plain path round at the same point), on the
+ping-pong schedule (each consumer warpgroup's epilogue runs while the other's
+products do; cooperative where the tiles do not outnumber the SMs), then
+``h @ W2^T + b2`` on the cooperative one. :func:`ffn_plan` sizes both
+launches; rows run in chunks of at most 2^18 so that h stays under 0.7 GB.
 """
 
 from __future__ import annotations
@@ -33,10 +35,16 @@ from . import _build
 
 MAX_CHANNELS = 768
 CHUNK_ROWS = 1 << 18   # rows per launch pair: h [2^18, 1280] bf16 is 0.67 GB
-GEGLU_WIDTH = 256      # launch 1's tile: 128 columns of v and the same of g
-GELU_WIDTH = 128       # launch 1's tile in the GELU form: 128 columns of h
-GEGLU_STAGING = 128 * 128 * 2   # launch 1's h tile, staged for its TMA stores
 ACTIVATIONS = ("geglu", "gelu")
+# launch 1, per form: tiles of 128 rows by 128 W1 rows, h columns per tile
+# (GEGLU: 64 of v, the same 64 of g); per schedule the ring's stages and each
+# consumer warpgroup's rows of a tile (its h staging)
+LAUNCH1_WIDTH = 128
+LAUNCH1_H_COLS = {"geglu": 64, "gelu": 128}
+LAUNCH1 = {("geglu", "pingpong"): {"stages": 5, "rows": 128},
+           ("geglu", "cooperative"): {"stages": 6, "rows": 64},
+           ("gelu", "pingpong"): {"stages": 4, "rows": 128},
+           ("gelu", "cooperative"): {"stages": 5, "rows": 64}}
 
 
 def fits(c: int, inner: int) -> bool:
@@ -48,18 +56,28 @@ def fits(c: int, inner: int) -> bool:
 def ffn_plan(n: int, c: int, inner: int, sms: int = _build.H100_SMS,
              activation: str = "geglu") -> dict:
     """The two launches over ``n <= CHUNK_ROWS`` rows: the activation's
-    (x @ W1^T, K = C, tiles of 128 h columns, 256 wide for GEGLU's v and g,
-    with the tile's h staged beside the ring), keyed by ``activation``, and
-    ``out`` (h @ W2^T, K = I, C in tiles of 64..320 columns)."""
+    (x @ W1^T, K = C: tiles of 128 rows by 128 rows of W1, 64 or 128 h
+    columns, on the ping-pong schedule where they outnumber the SMs and on
+    the cooperative one elsewhere, each consumer warpgroup's h staged for its
+    TMA store and b1 beside the ring), keyed by ``activation``, and ``out``
+    (h @ W2^T, K = I, cooperative, C in tiles of 64..320 columns, b2 beside
+    the ring)."""
     if not 0 < n <= CHUNK_ROWS:
         raise ValueError(f"ffn_plan: {n} rows, expected 1..{CHUNK_ROWS}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"ffn_plan: activation {activation!r}, expected one of {ACTIVATIONS}")
     depth = _build.GEMM_DEPTH
-    width1 = GEGLU_WIDTH if activation == "geglu" else GELU_WIDTH
-    first = _build.gemm_plan(n, -(-inner // 128), width1, -(-c // depth), GEGLU_STAGING, sms)
+    h_cols = LAUNCH1_H_COLS[activation]
+    col_tiles1 = -(-inner // h_cols)
+    schedule = "pingpong" if -(-n // _build.GEMM_ROWS) * col_tiles1 > sms else "cooperative"
+    form = LAUNCH1[activation, schedule]
+    staging = 2 * form["rows"] * h_cols * 2
+    b1_bytes = 2 * (2 * inner if activation == "geglu" else inner)
+    first = _build.gemm_plan(n, col_tiles1, LAUNCH1_WIDTH, -(-c // depth), staging + b1_bytes,
+                             sms, form["stages"], pingpong=schedule == "pingpong")
+    first["h_cols"] = h_cols
     col_tiles, width = _build.gemm_width(c)
-    out = _build.gemm_plan(n, col_tiles, width, -(-inner // depth), sms=sms)
+    out = _build.gemm_plan(n, col_tiles, width, -(-inner // depth), 2 * c, sms)
     return {activation: first, "out": out}
 
 
@@ -117,7 +135,9 @@ def _launch(activation: str, x, w1, b1, w2, b2) -> torch.Tensor:
         rc = entry(
             _build.ptr(flat[i:]), _build.ptr(w1), _build.ptr(b1), _build.ptr(w2),
             _build.ptr(b2), _build.ptr(h), _build.ptr(flat_out[i:]), ctypes.c_int(rows),
-            ctypes.c_int(c), ctypes.c_int(inner), ctypes.c_int(plan["out"]["width"]),
+            ctypes.c_int(c), ctypes.c_int(inner),
+            ctypes.c_int(plan[activation]["schedule"] == "pingpong"),
+            ctypes.c_int(plan["out"]["width"]),
             ctypes.c_int(plan[activation]["grid"][0]),
             ctypes.c_int(plan[activation]["smem_bytes"]),
             ctypes.c_int(plan["out"]["grid"][0]), ctypes.c_int(plan["out"]["smem_bytes"]),

@@ -7,15 +7,16 @@ keeps them outside Pallas; the kernel (``csrc/temporal_conv.cu``) applies
 ``silu(x * s + t)`` in fp32, rounds to the compute dtype and convolves along
 frames with zero frame padding, accumulating in fp32.
 
-The kernel is one GEMM ``[B*F*P, 3C] x [3C, C']`` on ``hopper.cuh``'s
-TMA-fed wgmma main loop: W[d] slices by TMA, the rows of A gathered per tap
-with ``cp.async`` (a tile spans frames where P is small), the prologue
-applied in registers to the A fragments of wgmma's register form. Its cost
-is the prologue's evaluations: 3 per x element for each output column tile.
-With 64-column tiles that was 15, 30 and 60 at C' 320/640/1280, each an
-exponential and a division, about 4.2x the tensor-core time; tiles of up to
-320 columns (:func:`tconv_plan`) and one ``tanh.approx`` per element bring it
-to 3, 6 and 12 evaluations.
+The kernel (``csrc/temporal_conv.cu``) is the prologue as a kernel of its
+own, writing h = silu(x*s + t) in bf16 (the tensor the Pallas body and the
+plain path round at the same point), then one GEMM ``[B*F*P, 3C] x [3C,
+C']`` of h on ``hopper.cuh``'s TMA-fed wgmma main loop: W[d] slices by TMA,
+the rows of A by TMA from a 4-D map where ``P % 128 == 0`` (a tile is 128
+pixels of one frame) and gathered per tap with ``cp.async`` elsewhere (a
+tile spans frames where P is small). Fused into the GEMM, the prologue ran 3
+times per x element for each output column tile (3, 6 and 12 at C'
+320/640/1280 with tiles of up to 320 columns) and held the tensor cores
+back; on its own it runs once, for a round trip of h through HBM.
 
 Weights use the kernel layout ``[3, C, C']`` (tap, in, out).
 """
@@ -31,21 +32,21 @@ import torch.nn.functional as F
 from . import _build
 
 
-ROW_SRC_BYTES = 3 * _build.GEMM_ROWS * 4   # per tap and tile row: its source row
-
-
 def tconv_plan(b: int, f: int, p: int, c: int, c_out: int, sms: int = _build.H100_SMS) -> dict:
-    """The launch over ``[B, F, P, C] -> [B, F, P, C']``: tiles of 128 rows
-    by 64..320 columns, K steps over 3 taps x ceil(C / 64) channel slices,
-    the per-row source table beside the ring; ``evaluations`` is how many
-    times the prologue runs on each x element (3 taps x column tiles). C and
-    C' must be multiples of 8 (16-byte gathers, TMA strides)."""
+    """The launch over ``[B, F, P, C] -> [B, F, P, C']``: cooperative tiles
+    of 128 rows by 64..320 columns (the width that spreads the tiles over
+    ``sms`` best, :func:`_build.gemm_width`), K steps over 3 taps x
+    ceil(C / 64) channel slices; ``tma_a``: A comes by TMA (P % 128 == 0, a
+    tile is 128 pixels of one frame), else the producer gathers it;
+    ``evaluations`` is how many times the prologue runs on each x element
+    (once: a kernel of its own before the GEMM, writing h). C and C' must be
+    multiples of 8 (16-byte gathers, TMA strides)."""
     if c % 8 or c_out % 8:
         raise ValueError(f"tconv_plan: C={c}, C'={c_out} not multiples of 8")
-    col_tiles, width = _build.gemm_width(c_out)
+    col_tiles, width = _build.gemm_width(c_out, b * f * p, sms)
     plan = _build.gemm_plan(b * f * p, col_tiles, width, 3 * -(-c // _build.GEMM_DEPTH),
-                            ROW_SRC_BYTES, sms)
-    return {**plan, "evaluations": 3 * col_tiles}
+                            sms=sms)
+    return {**plan, "evaluations": 1, "tma_a": p % _build.GEMM_ROWS == 0}
 
 
 def groupnorm_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -110,19 +111,25 @@ def gn_silu_temporal_conv(x: torch.Tensor, s: Optional[torch.Tensor],
     plan = tconv_plan(bsz, f, p, c, c_out, _build.sm_count(x.device))
     _build.check_plan("gn_silu_temporal_conv", plan)
     out = torch.empty((bsz, f, p, c_out), dtype=x.dtype, device=x.device)
+    h = torch.empty_like(x) if s is not None else None   # the prologue kernel's output
     null = ctypes.c_void_p(0)
     rc = _build.library().anyv2v_temporal_conv(
         _build.ptr(x), null if s is None else _build.ptr(s),
-        null if t is None else _build.ptr(t), _build.ptr(w), _build.ptr(b),
+        null if t is None else _build.ptr(t), null if h is None else _build.ptr(h),
+        _build.ptr(w), _build.ptr(b),
         _build.ptr(out), ctypes.c_int(bsz), ctypes.c_int(f), ctypes.c_int(p),
         ctypes.c_int(c), ctypes.c_int(c_out), ctypes.c_int(plan["width"]),
         ctypes.c_int(plan["grid"][0]), ctypes.c_int(plan["smem_bytes"]), _build.stream())
     _build.check(rc, "gn_silu_temporal_conv")
     gn_silu_temporal_conv.launches += 1
+    if s is not None:
+        gn_silu_temporal_conv.prologue_launches += 1
     return out
 
 
+# every launch of the GEMM; those that the prologue kernel preceded
 gn_silu_temporal_conv.launches = 0
+gn_silu_temporal_conv.prologue_launches = 0
 
 
 def groupnorm_silu_temporal_conv(x: torch.Tensor, norm: torch.nn.GroupNorm, w: torch.Tensor,

@@ -41,7 +41,16 @@ Phases:
     128: multiples of 8 that no model has), ragged; K3's GELU
     form at C 320 x 65536 rows, 640 x 16384 and ragged (no single library
     call); K2 with a bias on the ``[B, S, 1, C]`` view that a biased short
-    ``[B, S, C]`` call takes;
+    ``[B, S, C]`` call takes; beside every K3 and K4 case, its products
+    alone by cuBLAS (``torch.addmm`` in bf16 on operands laid out
+    beforehand: K3's two launches, the first without its activation, and
+    K4's GEMM without its prologue), a yardstick that no single PyTorch call
+    computing the kernel's function gives (the records' ``products_ms``;
+    ``library_ms`` stays null); K4's prologue kernel, launched before its
+    GEMM wherever s, t are given, timed apart under torch.profiler beside
+    its byte bound (its record ``gn_silu_temporal_conv_prologue``, its
+    launches the wrapper's ``prologue_launches``; its error is the K4
+    output's, which its h feeds);
  3b. the op surfaces (before phase 4): the port's ``Attention`` with a score
     bias (SEINE L0 self, ConsistI2V L0 spatial cross per row, i2vgen-xl L2
     at dh 32), ``TemporalTransformer`` with a bias over its frames (SEINE L0
@@ -352,6 +361,99 @@ def _tconv_library(x, s, t, w, b):
         raise RuntimeError("the channels_last_3d view of x is not contiguous")
     w5 = w.permute(2, 1, 0)[..., None, None].contiguous()
     return lambda: torch.nn.functional.conv3d(x5, w5, b, padding=(1, 0, 0))
+
+
+def _gemm_yardstick(name, args):
+    """The products of K3's two launches and of K4 alone, each by one cuBLAS
+    call (``torch.addmm`` in bf16) a chunk of 2^18 rows, as the kernel runs
+    them, on operands laid out beforehand: launch 1's ``x W1^T + b1``
+    without its activation, launch 2's ``h W2^T + b2`` (its exact function,
+    on an h of x's rows), and K4's ``[B*F*P, 3C] x [3C, C'] + bias`` on the
+    three taps concatenated (no prologue). [(label, call)] for K3 and K4,
+    else []. A yardstick only: the port never calls them."""
+    if name in ("ffn_geglu", "ffn_gelu"):
+        from anyv2v_torch.ops.ffn import CHUNK_ROWS
+
+        x, w1, b1, w2, b2 = args
+        flat = x.reshape(-1, x.shape[-1])
+        h = torch.randn(min(flat.shape[0], CHUNK_ROWS), w2.shape[1], device=x.device,
+                        dtype=x.dtype)
+        o1 = torch.empty(h.shape[0], w1.shape[0], device=x.device, dtype=x.dtype)
+        o2 = torch.empty(h.shape[0], w2.shape[0], device=x.device, dtype=x.dtype)
+        chunks = [(i, min(CHUNK_ROWS, flat.shape[0] - i))
+                  for i in range(0, flat.shape[0], CHUNK_ROWS)]
+
+        def launch1():
+            for i, n in chunks:
+                torch.addmm(b1, flat[i:i + n], w1.t(), out=o1[:n])
+
+        def launch2():
+            for _, n in chunks:
+                torch.addmm(b2, h[:n], w2.t(), out=o2[:n])
+        return [("launch 1's product", launch1), ("launch 2", launch2)]
+    if name == "gn_silu_temporal_conv":
+        x, _, _, w, b = args
+        f = x.shape[1]
+        hp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
+        taps = torch.cat([hp[:, d:d + f] for d in range(3)], dim=-1).reshape(-1, 3 * x.shape[-1])
+        del hp
+        w2d = w.reshape(-1, w.shape[-1])
+        return [("the GEMM", lambda: torch.addmm(b, taps, w2d))]
+    return []
+
+
+def _k4_prologue(name, kern, args, calls=3):
+    """K4's prologue kernel in a case with s, t: {"ms": device ms per launch
+    under torch.profiler (over the events that carry its name), "plain_ms":
+    the plain prologue's (fp32, rounded to x's dtype), "bound_ms": x, s, t
+    read and h written once over the memory rate}, or None where the calls
+    launched no prologue (a tree without it). Raises where the wrapper
+    counted a prologue but no device event carries the kernel's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if name != "gn_silu_temporal_conv" or args[1] is None:
+        return None
+    count = _wrappers()[K4_PROLOGUE[0]]
+    before = count.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kern(*args)
+        torch.cuda.synchronize()
+    if count.launches == before:
+        return None
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and K4_PROLOGUE[1] in e.key]
+    n = sum(e.count for e in events)
+    if not n:
+        raise RuntimeError(f"K4 counted {count.launches - before} prologues but no device "
+                           f"event carries {K4_PROLOGUE[1]}")
+    if n != count.launches - before:
+        log(f"K4 prologue: {n} device events for {count.launches - before} launches")
+    x, s, t = args[:3]
+
+    def plain():
+        h = x.float() * s[:, None, None] + t[:, None, None]
+        return torch.nn.functional.silu(h).to(x.dtype)
+    return {"ms": sum(e.self_device_time_total for e in events) / 1e3 / n,
+            "plain_ms": _time_ms(plain, 2),
+            "bound_ms": _nbytes(x, s, t, x) / PEAK_BYTES * 1e3}
+
+
+def _add_k4_prologue(records, label, err, prologue):
+    """The prologue's record beside K4's: its error is the K4 case's (its h
+    feeds the output), its times summed over the main-path cases."""
+    rec = records.setdefault(K4_PROLOGUE[0], {
+        "name": K4_PROLOGUE[0], "route": "cuda", "source": "anyv2v_torch/csrc/temporal_conv.cu",
+        "replaces": "anyv2v_tpu/ops/pallas_temporal_conv.py:38", "launches": 0,
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
+        "library_ms": None, "cases": [], "_ops_ms": 0.0, "_bytes_ms": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    if not label.startswith(_OFF_PATH):
+        for key in ("ms", "plain_ms", "bound_ms"):
+            rec[key] += prologue[key]
+        rec["_bytes_ms"] += prologue["bound_ms"]
+    rec["cases"].append({"shape": label, "max_abs_err": err, **prologue, "bound_by": "bytes",
+                         "exp2": None})
 
 
 def _frame_view(x, heads):
@@ -722,8 +824,9 @@ _ATTENTION = ("folded_attention", "folded_attention_short", "frame_attention",
 _MODES = ("flash_attention_bias", "ffn_gelu")
 # the records whose launches are a share of another wrapper's: K1's
 # short-query body (only i2vgen-xl's 16-frame image-latent encoder and the
-# seine-tiny check reach it)
-_SUBS = ("folded_attention_short",)
+# seine-tiny check reach it) and K4's prologue (every K4 call of the models)
+_SUBS = ("folded_attention_short", "gn_silu_temporal_conv_prologue")
+K4_PROLOGUE = ("gn_silu_temporal_conv_prologue", "temporal_conv_kernel_prologue")
 # an attention kernel's error against the fp32 truth may be at most FP32_RATIO
 # times its plain version's (the bf16 rounding of the output) plus FP32_ATOL
 FP32_RATIO, FP32_ATOL = 1.5, 1e-4
@@ -796,6 +899,8 @@ def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
         lib_ms = _time_ms(case_library(*args), 5) if case_library is not None else None
         transpose_ms = (_time_ms(_frame_transposes(*args[:4]), 5)
                         if name == "frame_attention_long" else None)
+        products = {label: _time_ms(call, 5) for label, call in _gemm_yardstick(name, args)}
+        prologue = _k4_prologue(name, kern, args)
         flops, nbytes = cost(*args)
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -805,6 +910,11 @@ def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
             f"{nbytes:.3e} B), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             + ("" if transpose_ms is None else
                f" (on transposed copies; the transposes {transpose_ms:.4f} ms)")
+            + ("" if not products else "; the products alone (cuBLAS addmm): " + ", ".join(
+                f"{label} {v:.4f} ms" for label, v in products.items()))
+            + ("" if prologue is None else
+               f"; of it the prologue kernel {prologue['ms']:.4f} ms (profiler; plain "
+               f"{prologue['plain_ms']:.4f} ms, bound {prologue['bound_ms']:.4f} ms: bytes)")
             + ("" if vs_fp32 is None else
                f"; vs fp32 truth: kernel {vs_fp32[0]:.3e}, plain {vs_fp32[1]:.3e} "
                f"(bound {FP32_RATIO} x plain + {FP32_ATOL})"))
@@ -814,6 +924,7 @@ def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
             "name": name, "route": route, "source": src, "replaces": repl, "launches": 0,
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_by": None, "library_ms": 0.0 if library is not None else None,
+            **({"products_ms": 0.0} if products else {}),
             "cases": [], "_ops_ms": 0.0, "_bytes_ms": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if not label.startswith(_OFF_PATH):   # the record's times: main-path shapes only
@@ -823,10 +934,15 @@ def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
             rec["_ops_ms" if bound_by == "operations" else "_bytes_ms"] += bound_ms
             if lib_ms is not None:
                 rec["library_ms"] += lib_ms
+            if products:
+                rec["products_ms"] += sum(products.values())
         rec["cases"].append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                             "transpose_ms": transpose_ms, "vs_fp32": vs_fp32,
+                             "transpose_ms": transpose_ms, "products_ms": products or None,
+                             "vs_fp32": vs_fp32,
                              "exp2": _exp2_count(name, args)})
+        if prologue is not None:
+            _add_k4_prologue(records, label, err, prologue)
         del args
         torch.cuda.empty_cache()
 
@@ -877,6 +993,12 @@ def main():
     by_path["product"] = phase_product()
     torch.cuda.empty_cache()
     by_path["bench"] = phase_bench()
+    # every K4 call site of the models passes s, t: its prologue kernel runs
+    unpaired = {path: (c["gn_silu_temporal_conv"], c[K4_PROLOGUE[0]])
+                for path, c in by_path.items()
+                if c["gn_silu_temporal_conv"] != c[K4_PROLOGUE[0]]}
+    if unpaired:
+        raise RuntimeError(f"K4 calls without their prologue kernel (K4, prologue): {unpaired}")
     for rec in records.values():
         rec["launches_by_path"] = {path: c[rec["name"]] for path, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -930,6 +1052,8 @@ def _wrappers():
                                              "short_launches"),
             "ffn_geglu": ffn.ffn_geglu,
             "gn_silu_temporal_conv": temporal_conv.gn_silu_temporal_conv,
+            "gn_silu_temporal_conv_prologue": _Count(temporal_conv.gn_silu_temporal_conv,
+                                                     "prologue_launches"),
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_bias": _Count(flash_attention.flash_attention, "bias_launches"),
             "ffn_gelu": ffn.ffn_gelu}
@@ -2672,6 +2796,8 @@ _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel", "folded_att
                   ("K2 long", "frame_attention_long_kernel", "frame_attention_long"),
                   ("K2 frame_attention", "frame_attention_kernel", "frame_attention"),
                   ("K3 ffn", "ffn_kernel", "ffn_geglu"),
+                  ("K4 prologue", "temporal_conv_kernel_prologue",
+                   "gn_silu_temporal_conv_prologue"),
                   ("K4 temporal_conv", "temporal_conv_kernel", "gn_silu_temporal_conv"),
                   ("K5 flash_attention", "flash_attention_kernel", "flash_attention"))
 
@@ -2708,9 +2834,10 @@ class _ClockSampler:
 def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNet"):
     """One UNet forward at the inversion batch (1) and at the edit batch (3,
     every PnP flag on), or at ``batches``, under torch.profiler: device time by kernel group, the
-    device's busy share of the forward's wall time, the number of device ops
-    and the host's waits on the device (stream syncs, host-to-device copies)
-    inside the forward. ``forward`` (default ``pipe.unet``) is what one
+    device's busy share of the forward's wall time, the number of device ops,
+    the host's waits on the device (stream syncs, host-to-device copies)
+    inside the forward and its peak device memory (allocated, the weights
+    included). ``forward`` (default ``pipe.unet``) is what one
     forward calls, ``what`` its name in the log (InstantStyle: its
     ControlNet, then its UNet). Returns each forward's profiled wall ms by
     batch."""
@@ -2725,11 +2852,13 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNe
             forward(*args, **kw)
             torch.cuda.synchronize()
             before = {name: fn.launches for name, fn in _wrappers().items()}
+            torch.cuda.reset_peak_memory_stats()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 forward(*args, **kw)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         averages = prof.key_averages()
         events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -2751,7 +2880,8 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNe
             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); by group (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
             + f"; {sum(e.count for e in events)} device ops, host waits: {syncs} "
-            f"cudaStreamSynchronize, {h2d} host-to-device copies"
+            f"cudaStreamSynchronize, {h2d} host-to-device copies; peak device memory "
+            f"{peak_gib:.2f} GiB (allocated, weights included)"
             + f"; nvidia-smi over warm-up and window: {clocks.summary}")
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         for e in top:

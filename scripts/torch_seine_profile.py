@@ -1,15 +1,19 @@
-"""Profiles one SEINE (or ConsistI2V, or i2vgen-xl at 16 or 128 frames) UNet
+"""Profiles one SEINE (or ConsistI2V, or i2vgen-xl at 16 or 128 frames, or
+one rank's program of the 128-frame forward split over 4 ranks) UNet
 forward at full width on one NVIDIA GPU, at batch 1 (inversion) and batch 3
 (edit, every PnP flag on), twice.
 
-    python3 scripts/torch_seine_profile.py [TREE] [consisti2v | i2vgen | i2vgen128]
+    python3 scripts/torch_seine_profile.py [TREE] [consisti2v | i2vgen | i2vgen128 | i2vgen128rank]
 
 ``anyv2v_torch`` is imported from TREE (default: this checkout) and the
 profiler from this checkout's ``chip_smoke.py``, so two trees can be
 compared in one call: run it once per tree, in the order parent, change,
 change, parent. Each line gives wall time, device busy share, device time
-by kernel group, the number of device ops and the host's waits on the
-device. Weights are seeded random bf16, as in ``chip_smoke.py``.
+by kernel group, the number of device ops, the host's waits on the
+device and the forward's peak device memory. Weights are seeded random
+bf16, as in ``chip_smoke.py``. ``i2vgen128rank`` runs the rank's program as
+``chip_smoke.py``'s phase 13 does (``mock_manual_axis(4)``: every collective
+a local copy of its shape).
 """
 
 from __future__ import annotations
@@ -42,15 +46,20 @@ def main():
         raise RuntimeError(f"anyv2v_torch came from {anyv2v_torch.__file__}, not {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
+    forward = None
     if backbone.startswith("i2vgen"):
-        frames = 128 if backbone == "i2vgen128" else 16
+        frames = 16 if backbone == "i2vgen" else smoke.LONG_FRAMES
+        # a rank's share of the frames; the image latents stay whole
+        f_loc = frames // smoke.SHARD_RANKS if backbone == "i2vgen128rank" else frames
         pipe = build_i2vgen_pipeline("i2vgen-xl", device="cuda", seed=0, dtype=torch.bfloat16)
+        if backbone == "i2vgen128rank":
+            forward = smoke._mocked(pipe.unet)
 
         def make_args(batch, g):   # chip_smoke.py's i2vgen-xl forward at `frames` frames
             def rn(*shape, scale=1.0):
                 return torch.randn(*shape, generator=g, device="cuda") * scale
             kw = {"pnp": (True, True, True)} if batch == 3 else {}
-            return (rn(batch, frames, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
+            return (rn(batch, f_loc, 64, 64, 4), 501, rn(batch, 77, 1024, scale=0.1), 8,
                     rn(batch, frames, 64, 64, 4), rn(batch, 1, 1024, scale=0.1)), kw
     elif backbone == "consisti2v":
         pipe = build_consisti2v_pipeline("consisti2v", device="cuda", seed=0,
@@ -63,7 +72,7 @@ def main():
 
     print(f"anyv2v_torch from {tree}")
     for _ in range(2):
-        smoke.phase_profile(pipe, backbone, make_args)
+        smoke.phase_profile(pipe, backbone, make_args, forward=forward)
     return 0
 
 

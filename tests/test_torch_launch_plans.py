@@ -496,26 +496,39 @@ def test_check_plan_refuses_k1_and_k2_plans_one_block_cannot_hold(monkeypatch):
 
 
 def _check_gemm_plan(plan, rows, cols, extra_bytes=0):
-    """One launch on hopper.cuh's GEMM main loop: the ring fits one block, the
-    tiles cover the output, and block x's tiles x, x + grid, ... take each
-    (row tile, column tile) exactly once."""
+    """One launch on hopper.cuh's GEMM main loop: the ring (with the body's
+    own bytes: staging, bias) fits one block, no cluster, the tiles cover the
+    output, and the persistent walk takes each (row tile, column tile)
+    exactly once over the grid and both consumer warpgroups: cooperative,
+    block x's tiles x, x + grid, ... (both warpgroups on each); ping-pong,
+    block x's units u = x, x + grid, ..., warpgroup w taking tile 2u + w,
+    only where the tiles outnumber the SMs (the C entry pairs them exactly
+    where they outnumber its grid)."""
     width, col_tiles = plan["width"], plan["col_tiles"]
-    assert width in _build.GEMM_WIDTHS and plan["stages"] == 4 and plan["threads"] == 384
+    assert width in _build.GEMM_WIDTHS and plan["threads"] == 384
     assert col_tiles * width >= cols > (col_tiles - 1) * width
-    assert plan["smem_bytes"] <= SMEM
+    stage = (128 + width) * 64 * 2
+    assert plan["smem_bytes"] == (plan["stages"] * stage + extra_bytes + 2 * plan["stages"] * 8
+                                  + 1024) <= SMEM
+    assert plan["stages"] >= 4 and "cluster" not in plan
     _build.check_plan("gemm", plan)
     row_tiles = -(-rows // 128)
     assert plan["tiles"] == row_tiles * col_tiles
+    pingpong = plan["schedule"] == "pingpong"
     grid = plan["grid"][0]
-    assert 1 <= grid <= min(plan["tiles"], _build.H100_SMS)
+    assert plan["units"] == (-(-plan["tiles"] // 2) if pingpong else plan["tiles"])
+    assert 1 <= grid <= min(plan["units"], _build.H100_SMS)
+    assert not pingpong or plan["tiles"] > max(grid, _build.H100_SMS)
     taken = [0] * plan["tiles"]
     for x in range(grid):
-        for tile in range(x, plan["tiles"], grid):
-            taken[tile] += 1
+        for u in range(x, plan["units"], grid):
+            for tile in ((2 * u, 2 * u + 1) if pingpong else (u,)):
+                if tile < plan["tiles"]:
+                    taken[tile] += 1
     assert set(taken) == {1}
     # the same launch with a tile one step wider than the widest is refused
     wider = _build.gemm_plan(rows, col_tiles, _build.GEMM_WIDTHS[-1] + 64, plan["ksteps"],
-                             extra_bytes)
+                             extra_bytes, stages=plan["stages"], pingpong=pingpong)
     with pytest.raises(ValueError, match="no launch"):
         _build.check_plan("gemm", wider)
 
@@ -528,37 +541,56 @@ _TINY_TCONV = [(3, 8, 256, 16, 16), (3, 8, 64, 32, 32), (3, 8, 4, 32, 32), (3, 9
                (3, 40, 256, 16, 16), (3, 8, 1, 32, 32)]
 
 
+def _launch1_schedule(first, rows):
+    """Launch 1's schedule: ping-pong (5 or 4 stages, each warpgroup's h
+    staging of 128 rows) where its tiles outnumber the SMs, else cooperative
+    (a stage more, 64 rows each); returns the staging bytes."""
+    pingpong = first["tiles"] > _build.H100_SMS
+    assert first["schedule"] == ("pingpong" if pingpong else "cooperative")
+    assert first["tiles"] == -(-rows // 128) * first["col_tiles"]
+    gelu = first["h_cols"] == 128
+    assert first["stages"] == (4 if gelu else 5) + (0 if pingpong else 1)
+    return 2 * (128 if pingpong else 64) * first["h_cols"] * 2
+
+
 @pytest.mark.parametrize("shape", _chip_smoke_cases("ffn_geglu") + [
     pytest.param({"n": n, "c": c, "inner": 4 * c}, id=f"tiny rows {n} C{c}") for n, c in _TINY_FFN])
 def test_ffn_plan_covers_each_case(shape):
-    """Both of K3's launches, for every chunk of rows: launch 1 over the
-    inner width in tiles of 128 h columns (v and g, 256 wide), launch 2
-    over C."""
+    """Both of K3's launches, for every chunk of rows: launch 1 over tiles of
+    128 rows by 64 h columns (v and g, 128 rows of W1), on the ping-pong
+    schedule where its tiles outnumber the SMs and the cooperative one
+    elsewhere, each consumer warpgroup's h staging and b1 beside its ring;
+    launch 2 on the cooperative one over C, b2 beside its ring."""
     n, c, inner = shape["n"], shape["c"], shape["inner"]
     assert ffn.fits(c, inner)
     for i in range(0, n, ffn.CHUNK_ROWS):
         rows = min(ffn.CHUNK_ROWS, n - i)
         plan = ffn.ffn_plan(rows, c, inner)
-        assert plan["geglu"]["width"] == 256 and plan["geglu"]["ksteps"] == -(-c // 64)
-        _check_gemm_plan(plan["geglu"], rows, 2 * inner)
-        assert plan["out"]["ksteps"] == inner // 64
-        _check_gemm_plan(plan["out"], rows, c)
+        first = plan["geglu"]
+        assert first["width"] == 128 and first["h_cols"] == 64 and first["ksteps"] == -(-c // 64)
+        _check_gemm_plan(first, rows, 2 * inner,
+                         _launch1_schedule(first, rows) + 2 * 2 * inner)
+        assert first["col_tiles"] == inner // 64
+        assert plan["out"]["ksteps"] == inner // 64 and plan["out"]["schedule"] == "cooperative"
+        _check_gemm_plan(plan["out"], rows, c, 2 * c)
 
 
 @pytest.mark.parametrize("shape", _chip_smoke_cases("ffn_gelu") + [
     pytest.param({"n": n, "c": c, "inner": 4 * c}, id=f"tiny rows {n} C{c}") for n, c in _TINY_FFN])
 def test_ffn_gelu_plan_covers_each_case(shape):
-    """K3's GELU form: launch 1 over the inner width in tiles of 128 h
-    columns from one box of W1 rows, 128 wide, with the same staging as
-    GEGLU's; launch 2 as GEGLU's."""
+    """K3's GELU form: launch 1 over tiles of 128 h columns from one box of
+    W1 rows, its schedule as GEGLU's, a stage fewer beside twice the staging
+    of GEGLU's and b1; launch 2 as GEGLU's."""
     n, c, inner = shape["n"], shape["c"], shape["inner"]
     assert ffn.fits(c, inner)
     for i in range(0, n, ffn.CHUNK_ROWS):
         rows = min(ffn.CHUNK_ROWS, n - i)
         plan = ffn.ffn_plan(rows, c, inner, activation="gelu")
         assert set(plan) == {"gelu", "out"}
-        assert plan["gelu"]["width"] == 128 and plan["gelu"]["ksteps"] == -(-c // 64)
-        _check_gemm_plan(plan["gelu"], rows, inner, ffn.GEGLU_STAGING)
+        first = plan["gelu"]
+        assert first["width"] == 128 and first["h_cols"] == 128 and first["ksteps"] == -(-c // 64)
+        assert first["col_tiles"] == -(-inner // 128)
+        _check_gemm_plan(first, rows, inner, _launch1_schedule(first, rows) + 2 * inner)
         assert plan["out"] == ffn.ffn_plan(rows, c, inner)["out"]
     with pytest.raises(ValueError, match="activation"):
         ffn.ffn_plan(n, c, inner, activation="relu")
@@ -568,19 +600,39 @@ def test_ffn_gelu_plan_covers_each_case(shape):
     pytest.param(dict(zip(("b", "f", "p", "c", "c_out"), s)), id=f"tiny {s}")
     for s in _TINY_TCONV])
 def test_tconv_plan_covers_each_case(shape):
-    """K4's one launch: K steps over 3 taps x 64-channel slices, and the
-    prologue evaluated at most 3 * ceil(C' / 256) times per x element."""
+    """K4's GEMM: cooperative, K steps over 3 taps x 64-channel slices, A by
+    TMA exactly where a 128-row tile is 128 pixels of one frame (P % 128 ==
+    0); the prologue a kernel of its own, evaluated once per x element."""
     b, f, p, c, c_out = (shape[x] for x in ("b", "f", "p", "c", "c_out"))
     plan = tc.tconv_plan(b, f, p, c, c_out)
-    assert plan["ksteps"] == 3 * -(-c // 64)
-    assert plan["evaluations"] == 3 * plan["col_tiles"] <= 3 * -(-c_out // 256)
-    _check_gemm_plan(plan, b * f * p, c_out, tc.ROW_SRC_BYTES)
+    assert plan["ksteps"] == 3 * -(-c // 64) and plan["schedule"] == "cooperative"
+    assert plan["evaluations"] == 1
+    assert plan["tma_a"] == (p % 128 == 0)
+    if plan["tma_a"]:
+        assert (f * p) % 128 == 0 and (b * f * p) % 128 == 0
+    _check_gemm_plan(plan, b * f * p, c_out)
 
 
 def test_tconv_plan_evaluations_at_the_unet_widths():
-    """3, 6 and 12 evaluations per x element at C' 320, 640 and 1280 (the
-    64-column tiles before took 15, 30 and 60)."""
-    assert [tc.tconv_plan(1, 16, 64, c, c)["evaluations"] for c in (320, 640, 1280)] == [3, 6, 12]
+    """One evaluation per x element at C' 320, 640 and 1280 and at the tiny
+    archs' widths (the prologue a kernel of its own; fused into 320-column
+    tiles it took 3, 6 and 12, and 15, 30 and 60 into the 64-column tiles
+    before)."""
+    assert [tc.tconv_plan(3, 16, 256, c, c)["evaluations"] for c in (320, 640, 1280)] == [1, 1, 1]
+    assert tc.tconv_plan(1, 16, 64, 1280, 1280)["evaluations"] == 1
+    assert tc.tconv_plan(3, 8, 64, 32, 32)["evaluations"] == 1
+
+
+def test_tconv_plan_fills_the_card_at_the_mid_block():
+    """The mid block at batch 3 (3 x 16 x 64 rows, C' 1280): 320-column tiles
+    would be 96 for 132 SMs; the plan takes 120 of 256 columns, one round,
+    and keeps 320 wherever the rounds do not change."""
+    plan = tc.tconv_plan(3, 16, 64, 1280, 1280)
+    assert plan["width"] == 256 and plan["tiles"] == 120 and plan["grid"] == (120,)
+    assert plan["tiles"] >= 0.9 * _build.H100_SMS
+    assert tc.tconv_plan(3, 128, 16, 1280, 1280)["width"] == 256   # per rank of 4
+    for shape in ((1, 16, 4096, 320), (3, 16, 1024, 640), (3, 16, 256, 1280), (3, 128, 64, 1280)):
+        assert tc.tconv_plan(*shape, shape[-1])["width"] == 320
 
 
 @pytest.mark.parametrize("c,c_out", [(36, 32), (32, 36), (4, 4), (320, 1284)])

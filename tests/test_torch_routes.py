@@ -125,9 +125,11 @@ def test_every_routed_attention_shape_has_a_kernel_and_a_plan(monkeypatch, arch,
 def test_every_routed_ffn_and_temporal_conv_shape_has_a_plan(monkeypatch, arch, frames):
     """K3 and K4 run on hopper.cuh's GEMM main loop: each shape a forward
     sends them gets plans (K3 per chunk of rows) that one block can hold, K4
-    only at C and C' multiples of 8 and with its prologue on. i2vgen-xl and
-    ConsistI2V reach both, SEINE only K3; seine-tiny's widths (8, 16) are
-    too narrow for K3's gate and reach neither."""
+    only at C and C' multiples of 8 and with its prologue on, its A by TMA
+    exactly where P % 128 == 0 (a 128-row tile is then 128 pixels of one
+    frame) and gathered elsewhere. i2vgen-xl and ConsistI2V reach both,
+    SEINE only K3; seine-tiny's widths (8, 16) are too narrow for K3's gate
+    and reach neither."""
     seen = _routes(monkeypatch, arch, frames)
     ffns, tconvs = seen.get("ffn_geglu", set()), seen.get("gn_silu_temporal_conv", set())
     assert bool(ffns) == (arch != "seine-tiny")
@@ -140,7 +142,13 @@ def test_every_routed_ffn_and_temporal_conv_shape_has_a_plan(monkeypatch, arch, 
                 _build.check_plan("ffn_geglu", plan[part])
     for (b, f, p, c), c_out, prologue in tconvs:
         assert prologue and c % 8 == 0 and c_out % 8 == 0
-        _build.check_plan("gn_silu_temporal_conv", tc.tconv_plan(b, f, p, c, c_out))
+        plan = tc.tconv_plan(b, f, p, c, c_out)
+        _build.check_plan("gn_silu_temporal_conv", plan)
+        assert plan["tma_a"] == (p % 128 == 0)
+        if plan["tma_a"]:
+            assert (b * f * p) % 128 == 0 and p % 128 == 0
+        else:
+            assert p < 128 or arch.endswith("-tiny")
 
 
 def test_dropped_widths_are_refused():
