@@ -117,9 +117,10 @@ namespace {
 
 constexpr int BK = 128;            // keys per K/V tile
 // two consumer warpgroups and a producer warp. ptxas gives every thread of
-// such a block at most 168 registers (as it does a block of three
-// warpgroups, setmaxnreg or not: measured on the H100), so the consumers'
-// tiles are sized for 168.
+// such a block at most 168 registers (65536 / threads, rounded down to 8: as
+// it does a block of three warpgroups, setmaxnreg or not; the highest
+// register in the SASS, scripts/torch_attention_probe.py --sass, stays under
+// it, and past it ptxas spills), so the consumers' tiles are sized for 168.
 constexpr int MAX_THREADS = 288;
 constexpr int MAX_STAGES = 4;      // of the Q ring and of the K/V ring
 constexpr int BARRIER_BYTES = 256, ALIGN_SLACK = 1024;   // the swizzle atom

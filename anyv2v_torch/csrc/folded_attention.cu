@@ -13,12 +13,19 @@
 // 8/16/32) into 128-lane MXU tiles. Here the head width DH (stored: 8, 16,
 // 32, 64; the scale comes from the true width) is a template parameter, and
 // two bodies, each a kernel symbol of its own so that a profile tells them
-// apart, take the classes by query length:
-//  - folded_attention_kernel, Sq > 32: the Hopper body below;
-//  - folded_attention_short_kernel, Sq <= 32 (the image-latent encoder at 16
-//    frames, seine-tiny's short calls): the earlier body, mma.sync on K/V tiles
-//    from a cp.async ring, kept because a 64-row wgmma would waste three
-//    quarters of itself there (the encoder runs at 0.08x SDPA's time on it).
+// apart, take the classes (ops/folded_attention.py folded_plan):
+//  - folded_attention_kernel: the Hopper body below, for the long key axes
+//    (the spatial self-attentions);
+//  - folded_attention_short_kernel: the earlier body, mma.sync on K/V tiles
+//    from a cp.async ring, for Sq <= 32 (the image-latent encoder at 16
+//    frames, seine-tiny's short calls), where a 64-row wgmma would waste
+//    three quarters of itself, and for Sk <= 192 wherever its grid has a
+//    block per SM (the cross-attentions over 157 keys, the mid block, the
+//    128-frame image-latent encoder): there an item of the Hopper body is
+//    one to three key stages, and its fixed costs (the Q wait, the dummy
+//    first P.V, the staging and the store) made it 11-55 % slower than this
+//    body (scripts/torch_k1_classes.py times both over a sweep of Sk at each
+//    head width).
 //
 // What bounds it on the H100 (80GB HBM3, 700 W): at DH = 8 the softmax's
 // exponentials, not bytes or products. L0 self of one edit step is 48 rows x
@@ -33,14 +40,21 @@
 // an exponential to issue. The mma.sync body did not: scripts/torch_attention_stamps.py
 // put its warps' cycles at L0 self in the exponentials 26 %, P.V 23 %
 // (mma.sync and ldmatrix chains), the max tree 15 %, Q.K^T 12 %, the copies
-// 4 %: latency-bound at 2.24x its exp2 floor. The Hopper body below takes
-// the same time at L0 self (PERF.md section 6): its warps spend a third of
-// their cycles on the exponentials and the rest waiting on each step's
-// chain (the scores' wgmma, the turn, the max tree's shuffles), two warps a
-// sub-partition. Three or four consumer warpgroups (ptxas then allows 128
-// or 96 registers a thread), two units a step (spills), 128-key stages,
-// the row sums by fp32 adds and a skipped correction were all measured
-// slower.
+// 4 %: latency-bound at 2.24x its exp2 floor. The Hopper body below is 2 %
+// faster at L0 self (PERF.md section 6): its warps spend 38 % of their
+// cycles on the exponentials and the rest waiting on each step's chain (the
+// scores' wgmma behind the other warpgroup's products, the turn, the max
+// tree), two warps a sub-partition, the special-function unit under half
+// busy. What would keep more work in flight a warp dies of ptxas, which
+// compiles every part of a kernel to 65536 / threads registers (168 here)
+// whatever setmaxnreg asks: the next step's scores issued under this step's
+// softmax serialise the wgmmas (C7515: the softmax writes score registers
+// while a wgmma is in flight; with the scores read-only and P packed apart,
+// no warning but 1.25x slower), two units a step and three consumer
+// warpgroups spill (C7512), fewer units a warpgroup (1 or 2) are 1.2-1.6x
+// slower, and a quarter of the exponentials on the FMA pipe lengthens the
+// chain (1.1x). 128-key stages, the row sums by fp32 adds and a correction
+// skipped where no maximum grew were slower too.
 //
 // Design of the Hopper body (ops/folded_attention.py folded_plan sizes it;
 // the entry refuses a plan that does not match this file's layout):
@@ -59,13 +73,13 @@
 //  - A stage's units run as steps. A step issues its unit's Q.K^T and the
 //    previous step's P.V as two commit groups of wgmma, waits for the
 //    scores only, and runs the softmax while that P.V runs; no product is
-//    in flight from one step to the next (the next unit's scores issued
-//    ahead were slower: at four units a warpgroup ptxas ran out of
-//    registers and serialised the wgmmas, at two they took 1.6x the time).
-//    The two warpgroups take turns to issue (named barriers), so that one's
-//    softmax runs while the other waits for its scores, instead of both
-//    waiting at once. A unit's offsets are recomputed with selects and
-//    shifts: runtime divisions there cost a third of the kernel's time.
+//    in flight from one step to the next (the next step's scores issued
+//    ahead serialise the wgmmas: C7515, above).
+//    At DH 16 and up the two warpgroups take turns to issue (named
+//    barriers), so that one's softmax runs while the other waits for its
+//    scores, instead of both waiting at once; at DH 8 they issue freely.
+//    A unit's offsets are recomputed with selects and shifts: runtime
+//    divisions there cost a third of the kernel's time.
 //  - Tiles land by one 4-D TMA box each ([B, S, C] seen as [B, C/8, S, 8]:
 //    8-channel column chunks of 16-byte rows, [chunk][row][8]), which is
 //    wgmma's unswizzled layout. Q.K^T is an SS wgmma per 16 channels; at DH
@@ -75,8 +89,17 @@
 //    a chunk of ones (the n16 product's second 8 columns at DH 8, an n8
 //    product elsewhere). Keys past Sk are TMA's zero fill, masked to -inf.
 //  - Online softmax in the exp2 domain: the row maxima on raw scores, the
-//    scale folded into one fma before ex2.approx, one correction of the
-//    output and sums per unit and stage.
+//    scale folded into one fma before ex2.approx. The maxima move lazily:
+//    each thread takes the maxima of its own scores of its two rows, the
+//    warp votes, and only where one passes its row's maximum by more than
+//    8 in the exp2 domain do the quad's shuffles, the new maxima and the
+//    correction of the unit's output and sums run (most stages after the
+//    first few skip them); P is then at most 2^8, which bf16 and the fp32
+//    sums hold. That is done at DH 8 and 16 only, where the step's chain
+//    bounds the body: a row's largest P is then rarely exactly 1, and its
+//    bf16 rounding moves the output (at DH 64 it took a case past 1.5x the
+//    plain version's error against fp32). At DH 32 and 64 the maxima move
+//    at every stage, exactly (a vote with no margin was 2-3 % slower).
 //  - Output: normalised, staged as bf16 per unit ([chunk][64 rows][8]) and
 //    written by a TMA store (rows past Sq are clipped) while the next item
 //    computes.
@@ -90,7 +113,7 @@
 
 namespace {
 
-// ================= the Hopper body (Sq > 32) =================
+// ================= the Hopper body =================
 
 constexpr int BK = 64;              // keys per K/V stage (128 measured slower)
 constexpr int NWG = 2;              // consumer warpgroups (3 and 4 measured slower)
@@ -98,6 +121,10 @@ constexpr int THREADS = 128 * NWG + 32;   // and a producer warp
 constexpr int MAX_STAGES = 4;       // of the Q ring and of the K/V ring
 constexpr int BARRIER_BYTES = 256, ALIGN = 128;
 constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 1.0
+// At DH 8 and 16 a row's maximum moves only where a score of the warp's
+// rows passes it by more than LAZY_LOG2 in the exp2 domain, so P is at most
+// 2^LAZY_LOG2; wider heads move it at every stage.
+constexpr float LAZY_LOG2 = 8.f;
 
 // The units a consumer warpgroup holds at most, by head width: each keeps
 // DH/2 + 4 accumulators and 2 maxima a thread across the key loop, under
@@ -162,6 +189,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   using namespace hopper;
   constexpr int DC = DH / 8;          // 8-channel chunks of a head
   constexpr int NACC = DH / 2 + 4;    // a unit's output and row-sum registers
+  // the warpgroups take turns to issue, but at DH 8: timed in one call with
+  // and without, turns cost L0 self and the Sq = Sk = 8192 class 1-2 % at
+  // DH 8 and saved 1-9 % at DH 16, 32 and 64 (L1 self, L2 self, 300 keys)
+  constexpr bool TURNS = DH != 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + (ALIGN - 1)) & ~uintptr_t(ALIGN - 1));
@@ -226,7 +257,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool lead = lane == 0;
   const uint32_t sbase = smem_addr(smem);
   const uint32_t zero = sbase + L.zero_off, ones = sbase + L.ones_off;
-  const float sl = p.scale_log2;
+  const float sl = p.scale_log2, lazy = LAZY_LOG2 / sl;   // the lazy margin on raw scores
   // this warpgroup's unit i is u = wg + NWG i: with NWG query tiles an
   // item, its own tile of head i; with one, head wg + NWG i. A unit past the
   // item's (a head past the group) computes the group's last head and is
@@ -244,11 +275,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   // next waits for its scores instead of all waiting at once; warpgroup 0
   // goes first, and the last skips the very last arrival (all take the
   // same turns)
-  auto turn_begin = [&] { named_barrier(NWG + 1 + wg, 256); };
-  auto turn_end = [&](bool final_turn) {
-    if (!(wg == NWG - 1 && final_turn)) named_barrier_arrive(NWG + 1 + (wg + 1) % NWG, 256);
+  auto turn_begin = [&] {
+    if (TURNS) named_barrier(NWG + 1 + wg, 256);
   };
-  if (wg == NWG - 1) named_barrier_arrive(NWG + 1, 256);
+  auto turn_end = [&](bool final_turn) {
+    if (TURNS && !(wg == NWG - 1 && final_turn))
+      named_barrier_arrive(NWG + 1 + (wg + 1) % NWG, 256);
+  };
+  if (TURNS && wg == NWG - 1) named_barrier_arrive(NWG + 1, 256);
 
   int qi = 0, kv = 0;
   for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++qi) {
@@ -320,29 +354,39 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<1>();
       fence_frag(s);
       if (lead && i == U - 1) mbar_arrive(&kempty[(kv + t) % KS]);   // stage t's Q.K^T done
-      // the online softmax: keys past Sk masked, the maxima on raw scores
+      // the online softmax: keys past Sk masked, the maxima on raw scores,
+      // at DH 8 and 16 moved lazily: the warp's threads vote on their own
+      // maxima, and only where one passes its row's by the margin do the
+      // quad's shuffles and the correction run
       const int n = min(BK, p.Sk - t * BK);
       if (n < BK) mask_keys(s, n);
-      float mx0, mx1;
-      quad_row_max(s, mx0, mx1);
-      mx0 = fmaxf(mx0, m0[i]);
-      mx1 = fmaxf(mx1, m1[i]);
-      const float c0 = ex2((m0[i] - mx0) * sl), c1 = ex2((m1[i] - mx1) * sl);
-      m0[i] = mx0;
-      m1[i] = mx1;
-      exp2_frag(s, sl, -mx0 * sl, -mx1 * sl, (n + 7) / 8);
+      float mx0 = tile_max(s, 0), mx1 = tile_max(s, 2), c0 = 1.f, c1 = 1.f;
+      const bool grow =
+          DH > 16 || __any_sync(0xffffffffu, mx0 > m0[i] + lazy || mx1 > m1[i] + lazy);
+      if (grow) {
+        quad_max(mx0, mx1);
+        mx0 = fmaxf(mx0, m0[i]);
+        mx1 = fmaxf(mx1, m1[i]);
+        c0 = ex2((m0[i] - mx0) * sl);
+        c1 = ex2((m1[i] - mx1) * sl);
+        m0[i] = mx0;
+        m1[i] = mx1;
+      }
+      exp2_frag(s, sl, -m0[i] * sl, -m1[i] * sl, (n + 7) / 8);
       // step k-1's P.V has read P and written its unit's output
       wgmma_wait<0>();
       fence_frag(acc[ip]);
       fence_pa();
       if (lead && i == 0 && !first) mbar_arrive(&vempty[(kv + tp) % KS]);   // stage t-1's P.V done
       pack_frag(s, pa);
+      if (grow) {
 #pragma unroll
-      for (int r = 0; r < NACC; r += 4) {
-        acc[i][r + 0] *= c0;
-        acc[i][r + 1] *= c0;
-        acc[i][r + 2] *= c1;
-        acc[i][r + 3] *= c1;
+        for (int r = 0; r < NACC; r += 4) {
+          acc[i][r + 0] *= c0;
+          acc[i][r + 1] *= c0;
+          acc[i][r + 2] *= c1;
+          acc[i][r + 3] *= c1;
+        }
       }
     };
 
@@ -446,7 +490,7 @@ cudaError_t launch_units(Params& p, int units, const void* q, const void* k, con
   return cudaErrorInvalidValue;
 }
 
-// ========= the short-query body (Sq <= 32): mma.sync on a cp.async ring =========
+// ========= the short body: mma.sync on a cp.async ring =========
 
 namespace short_body {
 
@@ -746,8 +790,8 @@ extern "C" int anyv2v_folded_attention(const void* q, const void* k, const void*
   }
 }
 
-// The short-query body, Sq <= 32: DH 8/16/32/64, scale > 0; pointers
-// 16-byte aligned. The launch plan (heads per block, packed batch rows,
+// The short body (Sq <= 32, and the short-key class): DH 8/16/32/64, scale
+// > 0; pointers 16-byte aligned. The launch plan (heads per block, packed batch rows,
 // query tiles of 16, warps, dynamic shared bytes) comes from
 // ops/folded_attention.py::folded_plan; a plan that does not match the
 // shape is refused.
@@ -757,7 +801,7 @@ extern "C" int anyv2v_folded_attention_short(const void* q, const void* k, const
                                              int rows_per_block, int q_tiles, int warps,
                                              int smem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || Sq <= 0 || Sq > 32 || Sk <= 0 || H <= 0 || heads_per_block <= 0 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || heads_per_block <= 0 ||
       rows_per_block <= 0 || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   const float sl = scale * 1.4426950408889634f;

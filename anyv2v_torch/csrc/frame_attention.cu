@@ -110,7 +110,11 @@
 // bound of 1.92 at batch 3); at dh 8 (L0) the exponentials and the
 // latency around them, two warps a sub-partition each waiting on its own
 // unit's scores and P.V (three warpgroups measured slower: ptxas then
-// allows 128 registers a thread, and spills).
+// allows 128 registers a thread, and spills). Its softmax is one pass over
+// all keys, so K1's lazy row maxima have nothing to skip here, and a quarter
+// or an eighth of the exponentials on the FMA pipe (2^x by a polynomial)
+// measured no faster at L0 (6.49-6.54 ms against 6.46-6.47 at batch 3,
+// PERF.md section 6): the chain, not the special-function unit, paces it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -555,6 +555,15 @@ __device__ __forceinline__ void pv_sums_step(float* o, const uint32_t (&a)[4], u
   }
 }
 
+// Two per-thread row maxima (rows g and g+8 of the thread's warp) made the
+// maxima of their rows over the quad of threads that holds each row.
+__device__ __forceinline__ void quad_max(float& m0, float& m1) {
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+}
+
 // The row maxima of a wgmma score fragment (rows g and g+8 of the thread's
 // warp: columns 0-1 and 2-3 of each 8-key group) over the quad of threads
 // that holds each row.
@@ -562,10 +571,7 @@ template <int N4>
 __device__ __forceinline__ void quad_row_max(const float (&s)[N4], float& m0, float& m1) {
   m0 = tile_max(s, 0);
   m1 = tile_max(s, 2);
-  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+  quad_max(m0, m1);
 }
 
 // P = 2^(s * k + o) of a score fragment in place (o0 for row g, o1 for row

@@ -8,16 +8,18 @@ they fit the TPU's 128-lane tiles. On the GPU (``csrc/folded_attention.cu``)
 two bodies cover self and cross attention at every Sq and Sk and padded head
 widths 8/16/32/64, each a kernel symbol of its own:
 
-- Sq > 32, ``folded_attention_kernel``: persistent blocks of a TMA producer
-  warp and two ``wgmma`` consumer warpgroups on mbarrier rings, each
-  warpgroup pipelining (64 query rows, head) units so that the next unit's
-  scores run under this unit's softmax;
-- Sq <= 32, ``folded_attention_short_kernel``: ``mma.sync`` on K/V tiles from
-  a ``cp.async`` ring (the image-latent encoder at 16 frames, seine-tiny's
-  short calls), where a 64-row ``wgmma`` would be three quarters empty.
-
-At dh 8 the softmax's exponentials bound it, not bytes (the source says how
-the design keeps the special-function unit fed).
+- ``folded_attention_kernel``, the Hopper body: persistent blocks of a TMA
+  producer warp and two ``wgmma`` consumer warpgroups on mbarrier
+  rings, each warpgroup pipelining (64 query rows, head) units over 64-key
+  stages, for the long key axes (the spatial self-attentions);
+- ``folded_attention_short_kernel``, the short body: ``mma.sync`` on K/V
+  tiles from a ``cp.async`` ring, for Sq <= 32 (the image-latent encoder at
+  16 frames, seine-tiny's short calls), where a 64-row ``wgmma`` would be
+  three quarters empty, and for the short-key class (Sk <= 192 where its
+  grid fills the card: the cross-attentions over 157 keys, the mid block's
+  self-attention, the 128-frame image-latent encoder), where an item of the
+  Hopper body is one to three key stages and its fixed costs outweigh its
+  steps.
 
 :func:`folded_plan` sizes a launch and :func:`check_folded_plan` (registered
 in ``_build.PLAN_CHECKS``) refuses a plan with any field changed; the C
@@ -25,7 +27,7 @@ entries refuse a plan that does not match the shape.
 
 :func:`folded_attention` is the entry: CPU tensors take the plain version
 below, CUDA tensors launch a kernel (and nothing else). Its ``launches``
-counts every launch, ``short_launches`` those of the short-query body.
+counts every launch, ``short_launches`` those of the short body.
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ import torch
 from . import _build
 
 HEAD_DIMS = (8, 16, 32, 64)
-SHORT_MAX_QUERIES = 32   # Sq up to this takes the short-query body
+SHORT_MAX_QUERIES = 32   # Sq up to this takes the short body
+SHORT_MAX_KEYS = 192     # and Sk up to this, where its grid fills the card
 GROUP_CHANNELS = 128     # channels of one block's head group, at most
 
-# the Hopper body (Sq > 32)
+# the Hopper body
 BLOCK_KEYS = 64          # keys per K/V stage
 WARPGROUPS = 2           # consumer warpgroups (csrc NWG)
 UNITS = {8: 4, 16: 4, 32: 2, 64: 1}   # (64 rows, head) units a consumer warpgroup holds, at most
@@ -48,7 +51,7 @@ Q_STAGES, KV_STAGES = 2, 4
 THREADS = 128 * WARPGROUPS + 32   # and a producer warp
 BARRIER_BYTES, ALIGN = 256, 128
 
-# the short-query body (Sq <= 32)
+# the short body
 KEY_TILE = 64            # keys per stage of the K/V ring
 MAX_WARPS = 8
 STAGES = 2               # K/V ring stages (fixed in the kernel): two blocks share an SM
@@ -68,7 +71,7 @@ def folded_layout_bytes(head_dim: int, heads_per_block: int, q_tiles: int, units
 
 
 def _short_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
-    """The short-query body's launch: a block owns a tile of queries of one
+    """The short body's launch: a block owns a tile of queries of one
     batch row and a group of whole heads spanning at most 128 channels, or,
     where the row is narrower, ``rows_per_block`` batch rows packed side by
     side. A warp owns up to ``64 / head_dim`` items of (head, 16 queries);
@@ -94,25 +97,17 @@ def _short_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
             "grid": (-(-sq // (16 * q_tiles)) * -(-b // rows), heads // hb)}
 
 
-def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int,
-                sms: int = _build.H100_SMS) -> dict:
-    """The launch of K1 for one shape; ``body`` names the kernel.
-
-    Sq <= ``SHORT_MAX_QUERIES``: the short-query body (:func:`_short_plan`).
-    Otherwise the Hopper body: items of (batch row, head group, query tile
+def _hopper_plan(b: int, sq: int, sk: int, heads: int, head_dim: int, sms: int) -> dict:
+    """The Hopper body's launch: items of (batch row, head group, query tile
     of ``64 * q_tiles`` rows), ``q_tiles`` ``WARPGROUPS`` where Sq > 64, else
     1. An item is ``q_tiles * heads_per_block`` units of (64 rows, head),
     split over the consumer warpgroups, ``units`` each: each warpgroup takes
     its 64 rows of every head (``WARPGROUPS`` tiles) or every
     ``WARPGROUPS``-th head (1 tile). The head group is the most whole heads
     that keep ``units`` within ``UNITS[head_dim]`` and the group within 128
-    channels. ``ntiles`` stages of ``BLOCK_KEYS`` keys an
-    item, in a ring of ``KV_STAGES`` stages or as many as fit (at least 2);
-    a persistent grid of one block per SM (``sms``), or one per item where
-    there are fewer."""
-    shape = {"b": b, "sq": sq, "sk": sk, "heads": heads, "head_dim": head_dim, "sms": sms}
-    if sq <= SHORT_MAX_QUERIES:
-        return {"shape": shape, "body": "short", **_short_plan(b, sq, sk, heads, head_dim)}
+    channels. ``ntiles`` stages of ``BLOCK_KEYS`` keys an item, in a ring of
+    ``KV_STAGES`` stages or as many as fit (at least 2); a persistent grid
+    of one block per SM (``sms``), or one per item where there are fewer."""
     q_tiles = WARPGROUPS if sq > 64 else 1
     cap = UNITS[head_dim] * (WARPGROUPS // q_tiles)
     hb = max(d for d in range(1, heads + 1)
@@ -121,12 +116,33 @@ def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int,
     items = b * (heads // hb) * -(-sq // (64 * q_tiles))
     kv_stages = next((n for n in range(KV_STAGES, 2, -1) if folded_layout_bytes(
         head_dim, hb, q_tiles, units, Q_STAGES, n) <= _build.SMEM_LIMIT), 2)
-    return {"shape": shape, "body": "hopper", "heads_per_block": hb, "q_tiles": q_tiles,
-            "units": units, "q_stages": Q_STAGES, "kv_stages": kv_stages,
-            "ntiles": -(-sk // BLOCK_KEYS), "items": items, "threads": THREADS,
+    return {"heads_per_block": hb, "q_tiles": q_tiles, "units": units, "q_stages": Q_STAGES,
+            "kv_stages": kv_stages, "ntiles": -(-sk // BLOCK_KEYS), "items": items,
+            "threads": THREADS,
             "smem_bytes": folded_layout_bytes(head_dim, hb, q_tiles, units, Q_STAGES,
                                               kv_stages),
             "grid": (max(1, min(items, sms)),)}
+
+
+def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int,
+                sms: int = _build.H100_SMS) -> dict:
+    """The launch of K1 for one shape; ``body`` names the kernel.
+
+    The short body (:func:`_short_plan`) takes Sq <= ``SHORT_MAX_QUERIES``,
+    and Sk <= ``SHORT_MAX_KEYS`` wherever its grid has at least one block
+    per SM (``sms``): there an item of the Hopper body is one to three key
+    stages, and its fixed costs (the Q wait, the first step, the staging and
+    the store) outweigh its steps. ``scripts/torch_k1_classes.py`` times both
+    bodies over a sweep of Sk at each head width: past 192 keys the short
+    body still wins at 64 queries, but loses at i2vgen-xl's L2
+    self-attention (256 queries, 256 keys). The Hopper body
+    (:func:`_hopper_plan`) takes the rest."""
+    shape = {"b": b, "sq": sq, "sk": sk, "heads": heads, "head_dim": head_dim, "sms": sms}
+    short = _short_plan(b, sq, sk, heads, head_dim)
+    if sq <= SHORT_MAX_QUERIES or (sk <= SHORT_MAX_KEYS
+                                   and short["grid"][0] * short["grid"][1] >= sms):
+        return {"shape": shape, "body": "short", **short}
+    return {"shape": shape, "body": "hopper", **_hopper_plan(b, sq, sk, heads, head_dim, sms)}
 
 
 def check_folded_plan(plan: dict) -> None:
@@ -182,11 +198,21 @@ def folded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require_aligned("folded_attention", q, k, v)
     plan = folded_plan(b, sq, k.shape[1], heads, dh, sms=_build.sm_count(q.device))
     _build.check_plan("folded_attention", plan)
+    return launch(q, k, v, heads, scale, plan)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float,
+           plan: dict) -> torch.Tensor:
+    """Launch the kernel of ``plan["body"]`` on checked CUDA tensors; the C
+    entry refuses a plan that does not match the shape. The wrapper takes
+    :func:`folded_plan`'s plan; a probe may take either body's plan for a
+    shape (``scripts/torch_k1_classes.py``)."""
+    b, sq, c = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
     shape = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
              ctypes.c_int(b), ctypes.c_int(sq), ctypes.c_int(k.shape[1]),
-             ctypes.c_int(heads), ctypes.c_int(dh), ctypes.c_float(scale))
+             ctypes.c_int(heads), ctypes.c_int(c // heads), ctypes.c_float(scale))
     if plan["body"] == "short":
         rc = lib.anyv2v_folded_attention_short(
             *shape, *(ctypes.c_int(plan[key]) for key in (

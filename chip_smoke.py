@@ -17,9 +17,12 @@ Phases:
     against the fp32 truth, and each attention case's exp2 count beside the
     special-function units' time for it; K1 also at the shapes of the seine-tiny reference
     check (untimed) and at the class of the Pallas ``_packed_kernel``, keys
-    past 4096 (2 rows, Sq = Sk = 8192), its short-query body (Sq <= 32: the
-    record ``folded_attention_short``) at its own cases, and both K1 bodies
-    and K2 long on each side of their class and tile boundaries (ragged); K2 long at the 128-frame i2vgen-xl shapes
+    past 4096 (2 rows, Sq = Sk = 8192), its short body (Sq <= 32 and the
+    short-key class, Sk <= 192 where its grid fills the card: the record
+    ``folded_attention_short``, which every K1 case whose plan takes that
+    body reports to) at its own cases, and both K1 bodies and K2 long on
+    each side of their class and tile boundaries (ragged, Sk 191 and 193
+    at dh 8 and 64 for the short-key class); K2 long at the 128-frame i2vgen-xl shapes
     (L0-L3 temporal and transformer_in, batch 1 and 3), at SEINE's widths
     with a relative-position bias (S 64) and at Sk = S + 8; K1, K3 and K4 at
     128-frame shapes; K3 and K4 also at i2vgen-xl's edit batch and at the
@@ -504,8 +507,9 @@ def _kernels():
         "folded_attention": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
                              "anyv2v_tpu/ops/pallas_packed_flash.py:357", fa.folded_attention,
                              fa.folded_attention_plain, _attn_cost, _attn_library),
-        # K1's short-query body (Sq <= 32, its own kernel symbol), replacing
-        # _short_kernel's K1 classes; its launches are the wrapper's
+        # K1's short body (Sq <= 32 and the short-key class, its own kernel
+        # symbol), replacing _short_kernel's K1 classes and, at short key
+        # axes, the _wide_t_kernel class; its launches are the wrapper's
         # short_launches (also counted in the wrapper's launches)
         "folded_attention_short": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
                                    "anyv2v_tpu/ops/pallas_short_attention.py:125",
@@ -632,7 +636,12 @@ def _kernel_cases():
         (k1, "L0 self b2 S4096 h64 dh8", attn(2, 4096, 4096, 64, 8, 5)),
         (k1, "L0 cross b2 Sq4096 Sk157 dh8", attn(2, 4096, 157, 64, 8, 5)),
         (k1, "L1 self b2 S1024 dh16", attn(2, 1024, 1024, 64, 16, 10)),
-        (k1, "L2 cross b2 Sq256 Sk157 dh32", attn(2, 256, 157, 64, 32, 20)),
+        # the cross-attentions at the batch-3 forward's 48 rows: the short
+        # body's class reads its grid, and at 2 rows L2 cross would take
+        # the Hopper body, which the forward does not
+        (k1, "L1 cross b48 Sq1024 Sk157 dh16", attn(48, 1024, 157, 64, 16, 10)),
+        (k1, "L2 cross b48 Sq256 Sk157 dh32", attn(48, 256, 157, 64, 32, 20)),
+        (k1, "L2 self b48 S256 dh32", attn(48, 256, 256, 64, 32, 20)),
         (k1, "mid self b16 S64 dh32", attn(16, 64, 64, 64, 32, 20)),
         (k1s, "image-latent encoder b4096 S16 h2 dh8", attn(4096, 16, 16, 2, 8, 4)),
         (k1, "ConsistI2V mid cross b51 Sq64 Sk77 h20 dh64", attn(51, 64, 77, 20, 64, 64)),
@@ -703,6 +712,15 @@ def _kernel_cases():
         (k1, "ragged b2 Sq200 Sk300 h3 dh64", attn(2, 200, 300, 3, 64, 64)),
         (k1, "ragged b2 Sq300 Sk65 h5 dh8", attn(2, 300, 65, 5, 8, 8)),
         (k1, "ragged b2 Sq100 Sk100 h3 dh16", attn(2, 100, 100, 3, 16, 16)),
+        # K1 on each side of the short-key class (folded_attention
+        # SHORT_MAX_KEYS, where the short body's grid fills the card): Sk
+        # just under it takes the short body, just over it the Hopper body
+        (k1, "ragged short-key class b2 Sq4096 Sk191 h64 dh8", attn(2, 4096, 191, 64, 8, 5)),
+        (k1, "ragged past the short-key class b2 Sq4096 Sk193 h64 dh8",
+         attn(2, 4096, 193, 64, 8, 5)),
+        (k1, "ragged short-key class b51 Sq64 Sk191 h20 dh64", attn(51, 64, 191, 20, 64, 64)),
+        (k1, "ragged past the short-key class b51 Sq64 Sk193 h20 dh64",
+         attn(51, 64, 193, 20, 64, 64)),
         # the 128-frame long-video path (i2vgen-xl, 512^2): K2 long on every
         # temporal attention (64 heads of 5/10/20 stored as 8/16/32; L3 is the
         # mid block at 8x8), K1 on the image-latent encoder, K3 and K4 at L0
@@ -822,9 +840,10 @@ _ATTENTION = ("folded_attention", "folded_attention_short", "frame_attention",
 # the records of the two operand modes that no backbone reaches (the "op
 # surfaces" path launches them)
 _MODES = ("flash_attention_bias", "ffn_gelu")
-# the records whose launches are a share of another wrapper's: K1's
-# short-query body (only i2vgen-xl's 16-frame image-latent encoder and the
-# seine-tiny check reach it) and K4's prologue (every K4 call of the models)
+# the records whose launches are a share of another wrapper's: K1's short
+# body (the image-latent encoder, the cross-attentions over 77 or 157 keys,
+# the mid block's self-attention, the seine-tiny check) and K4's prologue
+# (every K4 call of the models)
 _SUBS = ("folded_attention_short", "gn_silu_temporal_conv_prologue")
 K4_PROLOGUE = ("gn_silu_temporal_conv_prologue", "temporal_conv_kernel_prologue")
 # an attention kernel's error against the fp32 truth may be at most FP32_RATIO
@@ -875,8 +894,23 @@ def phase_kernels(cases=None):
     return records
 
 
+def _k1_record(name, make):
+    """A K1 case's record is the body its plan takes: ``folded_attention``
+    (the Hopper body) or ``folded_attention_short`` (the short body, which
+    takes Sq <= 32 and the short-key class)."""
+    shape = getattr(make, "shape", None)
+    if name not in ("folded_attention", "folded_attention_short") or shape is None:
+        return name
+    from anyv2v_torch.ops import folded_attention as fa
+
+    plan = fa.folded_plan(shape["b"], shape["sq"], shape["sk"], shape["heads"], shape["dh"],
+                          sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    return "folded_attention_short" if plan["body"] == "short" else "folded_attention"
+
+
 def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
     for name, label, make, *override in cases:
+        name = _k1_record(name, make)
         route, src, repl, kern, plain, cost, library = kernels[name]
         case_library = override[0] if override else library
         args = make()
@@ -1211,7 +1245,7 @@ def phase_main_path():
         # the i2vgen-xl routes are K1-K4, as before K5 existed
         "K1-K4 launched": all(counts[n] > 0 for n in counts
                               if n not in ("flash_attention", "frame_attention_long") + _MODES),
-        "K1's short-query body launched (the image-latent encoder)":
+        "K1's short body launched (the image-latent encoder, the short-key class)":
         counts["folded_attention_short"] > 0,
         "K5 and K2 long not launched": counts["flash_attention"] == 0
         and counts["frame_attention_long"] == 0,
@@ -2870,6 +2904,10 @@ def phase_profile(pipe, arch, make_args, batches=(1, 3), forward=None, what="UNe
             label = next((lb for lb, key, _ in _KERNEL_GROUPS if key in e.key), "other")
             groups[label] += e.self_device_time_total / 1e3
         launched = {name: fn.launches - before[name] for name, fn in _wrappers().items()}
+        # K1's wrapper counts both bodies: its Hopper body's launches are
+        # what its short body's leave (ConsistI2V's K1 calls all take the
+        # short body)
+        launched["folded_attention"] -= launched["folded_attention_short"]
         silent = [label for label, _, name in _KERNEL_GROUPS
                   if launched[name] and not groups[label] > 0]
         if silent:

@@ -230,6 +230,22 @@ K1_WGMMA = ("auto step = [&]", [
      + FLUSH + "}\n"),
 ])
 
+# K1's Hopper body with its row maxima moved lazily ("max" is the
+# masking, the per-thread maxima, the vote and, where it passes, the quad's
+# shuffles and the correction; "rescale" runs only there)
+K1_WGMMA_LAZY = ("const bool grow =", [
+    *K1_WGMMA[1][:10],
+    ("        m1[i] = mx1;\n      }\n",
+     f"        m1[i] = mx1;\n      }}\n      FENCE(c0);\n      FENCE(c1);\n      T1({MAX});\n      T0;\n"),
+    ("      exp2_frag(s, sl, -m0[i] * sl, -m1[i] * sl, (n + 7) / 8);\n",
+     "      exp2_frag(s, sl, -m0[i] * sl, -m1[i] * sl, (n + 7) / 8);\n"
+     f"#pragma unroll\n      for (int x = 0; x < BK / 2; ++x) FENCE(s[x]);\n      T1({EXP});\n      T0;\n"),
+    K1_WGMMA[1][12], K1_WGMMA[1][13],
+    ("          acc[i][r + 3] *= c1;\n        }\n      }\n    };\n",
+     f"          acc[i][r + 3] *= c1;\n        }}\n      }}\n      T1({RESCALE});\n    }};\n"),
+    K1_WGMMA[1][15], K1_WGMMA[1][16],
+])
+
 K2_WGMMA = ("frame_attention_long_kernel(const __grid_constant__ Params p)", [
     HEADER,
     ("    int n = 0;\n    for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++n) {\n"
@@ -271,7 +287,7 @@ K2_WGMMA = ("frame_attention_long_kernel(const __grid_constant__ Params p)", [
 
 # source -> (stamp entry name, [patch sets]); a patch set applies where its marker is found
 SOURCES = {
-    "folded_attention.cu": ("folded", [K1_WGMMA, K1_MMA_SYNC]),
+    "folded_attention.cu": ("folded", [K1_WGMMA_LAZY, K1_WGMMA, K1_MMA_SYNC]),
     "frame_attention.cu": ("frame", [K2_WGMMA, K2_MMA_SYNC]),
 }
 

@@ -22,7 +22,15 @@ over the SMs. The instructions:
   ``ex2 + cvt`` (two fp32 exponentials and their pack: shows whether the pack
   takes the exponentials' pipe) and ``fma + ex2 + cvt`` (the whole inner loop
   of the fp32 form), and ``fma + cvt + ex2.bf16x2`` (the argument packed to
-  bf16x2 first, then one packed exponential per pair).
+  bf16x2 first, then one packed exponential per pair);
+- ``ex2_poly``: 2^x for x <= 0 on the FMA and integer pipes (below: a
+  clamp, a floor by one add rounding down, a degree-3 polynomial, the
+  exponent added into the bits);
+- ``loop_poly<n>8``: the softmax's real inner loop, a scale fma, a running
+  maximum, the exponential and the bf16 pack of each pair of scores, with
+  n of every 8 exponentials (n = 0 .. 4) on ``ex2_poly`` and the rest on
+  ``ex2.approx``: the rate at each share says how far moving exponentials
+  off the special-function unit lowers the softmax's floor.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(HERE, "anyv2v_torch", "csrc")
 ITERS = 256
 CHAINS = 8
 
@@ -70,16 +79,44 @@ OPS = {
                               ' asm volatile("ex2.approx.ftz.bf16x2 %0, %0;" : "+r"(u[j]));'
                               ' f[j] = __uint_as_float(u[j]);', 2),
 }
+# the real inner loop with n of each 8 exponentials (chains j < n) on ex2_poly
+for _n in range(5):
+    OPS[f"loop_poly{_n}8"] = (
+        "{ const float a = fmaf(f[j], g, -1.f), b = fmaf(e[j], g, -1.f);"
+        " m[j] = fmaxf(m[j], fmaxf(a, b));"
+        f" const float x = j < {_n} ? ex2_poly(a) : hopper::ex2(a);"
+        f" const float y = j < {_n} ? ex2_poly(b) : hopper::ex2(b);"
+        ' asm volatile("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u[j]) : "f"(y), "f"(x));'
+        " f[j] = __uint_as_float(u[j]); e[j] = y; }", 2)
+OPS["ex2_poly"] = ("f[j] = ex2_poly(-f[j]);", 1)
+
+# 2^x for x <= 0 off the special-function unit: x clamped to -127, j =
+# floor(x) by one add of 1.5 * 2^23 rounding down (j lands in the sum's low
+# mantissa bits), f = x - j in [0, 1), 2^f by a degree-3 polynomial (minimax
+# in relative error with p(0) = 1: at most 8.6e-5, a tenth of bf16's
+# half-ulp), j added into the exponent bits; -inf gives exactly 0
+POLY = """
+__device__ __forceinline__ float ex2_poly(float x) {
+  constexpr float ROUND = 12582912.f;   // 1.5 * 2^23
+  x = fmaxf(x, -127.f);
+  float t;
+  asm("add.rm.f32 %0, %1, %2;" : "=f"(t) : "f"(x), "f"(ROUND));
+  const float f = x - (t - ROUND);
+  const float p = fmaf(fmaf(fmaf(0.077068031f, f, 0.22764353f), f, 0.69511729f), f, 1.f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+"""
 
 KERNEL = """
 __global__ void probe_{name}(unsigned long long* cycles, float* sink, float seed) {{
-  float f[{chains}], e[{chains}];
+  float f[{chains}], e[{chains}], m[{chains}];
   unsigned u[{chains}];
   const float g = seed * 0.5f;
 #pragma unroll
   for (int j = 0; j < {chains}; ++j) {{
     f[j] = seed * (j + 1) * 1e-3f;
     e[j] = -f[j];
+    m[j] = -INFINITY;
     u[j] = 0xBC00BC00u ^ (unsigned)(threadIdx.x + j);
   }}
   __syncthreads();
@@ -93,7 +130,7 @@ __global__ void probe_{name}(unsigned long long* cycles, float* sink, float seed
   const long long t1 = clock64();
   float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < {chains}; ++j) acc += f[j] + e[j] + __uint_as_float(u[j]);
+  for (int j = 0; j < {chains}; ++j) acc += f[j] + e[j] + m[j] + __uint_as_float(u[j]);
   if (acc == 1.2345f) sink[threadIdx.x] = acc;
   if (threadIdx.x == 0) cycles[blockIdx.x] = (unsigned long long)(t1 - t0);
 }}
@@ -110,13 +147,13 @@ def build(out: str) -> str:
     os.makedirs(out)
     src = os.path.join(out, "sfu_probe.cu")
     with open(src, "w") as f:
-        f.write("#include <cuda_runtime.h>\n")
+        f.write("#include <cuda_runtime.h>\n#include \"hopper.cuh\"\n" + POLY)
         for name, (body, _) in OPS.items():
             f.write(KERNEL.format(name=name, body=body, iters=ITERS, chains=CHAINS))
     so = os.path.join(out, "libsfu_probe.so")
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-                    "-Xcompiler", "-fPIC", "-shared", "-o", so, src], check=True)
+                    "-Xcompiler", "-fPIC", "-shared", "-I", CSRC, "-o", so, src], check=True)
     return so
 
 
@@ -153,7 +190,8 @@ def main():
     for name in OPS:
         interesting = {k: v for k, v in ops.get(name, {}).items()
                        if k.split(".")[0] in ("MUFU", "F2FP", "FMNMX", "FFMA", "HMUL2", "HFMA2",
-                                              "F2F", "PRMT", "FMUL", "HADD2", "IMAD", "MOV")}
+                                              "F2F", "PRMT", "FMUL", "HADD2", "IMAD", "MOV", "FADD",
+                                              "SHF", "LEA", "IADD3", "LOP3", "FSEL")}
         print(f"sass {name}: {interesting}")
     lib = ctypes.CDLL(so)
     sms = torch.cuda.get_device_properties(0).multi_processor_count

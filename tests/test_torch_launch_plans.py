@@ -384,7 +384,8 @@ _FOLDED_EDITS = {
 
 def check_folded_launch(b, sq, sk, heads, dh, sms=_build.H100_SMS):
     """K1's plan of one call, as the wrapper makes it: the body its class
-    takes (the short-query body up to 32 queries, else the Hopper body); the
+    takes (the short body up to 32 queries, and up to ``SHORT_MAX_KEYS`` keys
+    where its grid has a block for every SM; else the Hopper body); the
     shared bytes are the layout's and fit one block; the TMA boxes are
     within the limits; the persistent walk and the warpgroups' units take
     each (batch row, head, 64-row query tile) exactly once, within the
@@ -392,7 +393,10 @@ def check_folded_launch(b, sq, sk, heads, dh, sms=_build.H100_SMS):
     assert dh in fa.HEAD_DIMS
     plan = fa.folded_plan(b, sq, sk, heads, dh, sms=sms)
     _build.check_plan("folded_attention", plan)
-    assert plan["body"] == ("short" if sq <= fa.SHORT_MAX_QUERIES else "hopper")
+    short_grid = fa._short_plan(b, sq, sk, heads, dh)["grid"]
+    short = sq <= fa.SHORT_MAX_QUERIES or (sk <= fa.SHORT_MAX_KEYS
+                                           and short_grid[0] * short_grid[1] >= sms)
+    assert plan["body"] == ("short" if short else "hopper")
     for key, edit in _FOLDED_EDITS[plan["body"]]:
         with pytest.raises(ValueError, match="no launch"):
             _build.check_plan("folded_attention", {**plan, key: edit(plan[key])})
@@ -436,7 +440,8 @@ def check_folded_launch(b, sq, sk, heads, dh, sms=_build.H100_SMS):
     return plan
 
 
-@pytest.mark.parametrize("shape", _chip_smoke_cases("folded_attention"))
+@pytest.mark.parametrize("shape", _chip_smoke_cases("folded_attention",
+                                                   "folded_attention_short"))
 def test_folded_plan_covers_each_chip_smoke_case(shape):
     """Each (batch row, head, query tile) falls in exactly one block, on the
     body its class takes."""
@@ -472,13 +477,58 @@ def test_k1_and_k2_long_plans_at_each_routed_shape(monkeypatch, arch, frames):
         check_frame_long_launch(b, s, k[1], hw, heads, c // heads)
 
 
-@pytest.mark.parametrize("sq,body", [(31, "short"), (32, "short"), (33, "hopper"),
-                                     (64, "hopper"), (65, "hopper"), (100, "hopper")])
-def test_folded_body_at_the_class_boundaries(sq, body):
-    """The short-query body takes Sq <= 32, the Hopper body the rest; one
-    64-row query tile an item up to 64 queries, one a warpgroup past it."""
+def _k1_instance(b, sq, sk, heads, dh):
+    """The kernel instance a K1 call launches: its body and head width, and
+    for the Hopper body its units a warpgroup (``csrc`` template
+    arguments)."""
+    plan = fa.folded_plan(b, sq, sk, heads, dh)
+    return (plan["body"], dh) + ((plan["units"],) if plan["body"] == "hopper" else ())
+
+
+@pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
+def test_chip_smoke_holds_each_routed_k1_instance(monkeypatch, arch, frames):
+    """K1's class rule reads the short body's grid, so the batch rows can
+    decide the body: a chip_smoke case at a routed call's queries, keys,
+    heads and head width takes the body that the call takes at the
+    forward's row count, and at the full-width archs every kernel instance
+    a forward launches is held by some chip_smoke case."""
+    cases = [tuple(p.values[0][x] for x in ("b", "sq", "sk", "heads", "dh"))
+             for p in _chip_smoke_cases("folded_attention", "folded_attention_short")]
+    held = {_k1_instance(*case) for case in cases}
+    seen = _routes(monkeypatch, arch, frames)
+    for (b, sq, c), k, heads in seen.get("folded_attention", set()):
+        routed = _k1_instance(b, sq, k[1], heads, c // heads)
+        assert "tiny" in arch or routed in held, (arch, (b, sq, k[1], heads), routed)
+        for case in cases:
+            if case[1:] == (sq, k[1], heads, c // heads):
+                assert _k1_instance(*case)[0] == routed[0], (case, b, routed)
+
+
+_CLASS_BOUNDARIES = [
+    # (batch rows, Sq, Sk, body): Sq on each side of 32 and of the query
+    # tiles' 64, over 77 keys on 2 rows (a short-body grid of a few blocks)
+    (2, 31, 77, "short"), (2, 32, 77, "short"), (2, 33, 77, "hopper"),
+    (2, 64, 77, "hopper"), (2, 65, 77, "hopper"), (2, 100, 77, "hopper"),
+    # Sk on each side of SHORT_MAX_KEYS where the short body's grid fills
+    # the card (3 rows of 4096 queries: 192 blocks of 64 queries)
+    (3, 4096, 191, "short"), (3, 4096, 192, "short"), (3, 4096, 193, "hopper"),
+    # the short body's blocks on each side of one per SM (2 rows of 4096
+    # queries: 128 blocks; one row of 132 or 131 tiles of 64 queries)
+    (2, 4096, 191, "hopper"), (1, 132 * 64, 191, "short"), (1, 131 * 64, 191, "hopper"),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,body", _CLASS_BOUNDARIES, ids=[
+    f"{sq}-{body}" if sk == 77 else f"b{b}-sq{sq}-sk{sk}-{body}"
+    for b, sq, sk, body in _CLASS_BOUNDARIES])
+def test_folded_body_at_the_class_boundaries(b, sq, sk, body):
+    """The short body takes Sq <= 32, and Sk <= SHORT_MAX_KEYS where its
+    grid has a block for every SM (132); the Hopper body the rest, with one
+    64-row query tile an item up to 64 queries, one a warpgroup past it; at
+    every head width."""
+    assert fa.SHORT_MAX_KEYS == 192 and _build.H100_SMS == 132
     for dh in fa.HEAD_DIMS:
-        plan = check_folded_launch(2, sq, 77, 128 // dh, dh)
+        plan = check_folded_launch(b, sq, sk, 128 // dh, dh)
         assert plan["body"] == body
         if body == "hopper":
             assert plan["q_tiles"] == (fa.WARPGROUPS if sq > 64 else 1)
