@@ -27,33 +27,37 @@
 // first-frame keys are never built.
 //
 // What bounds it on the H100 (80GB HBM3, 700 W; scripts/torch_flash_stamps.py
-// sums clock64 cycles by phase in an instrumented copy), by case class:
-//  - long self-attention and split-KV (Sk in the thousands): the softmax, not
-//    the products or the bytes. The operations bound is 2.2 ms at ConsistI2V's
-//    L0 split-KV (51 rows x 5 heads x 4096 queries x 8192 keys x 64 x 4 FLOP)
-//    and the exponentials' 2.0 ms (16 per clock per SM); at head width 40
-//    (SEINE) the exponentials' 1.54 ms is the larger. Each consumer
-//    warpgroup spends 45-51 % of its cycles in the softmax of its 64 x 128
-//    tile (one warp per SM sub-partition: the exponentials, maxima and sums
-//    of one warp are latency-bound), and 18-21 % waiting for K/V tiles that
-//    the producer, blocked 71 % of its time on slots not yet freed, issued
-//    three tiles ahead. At head width 64 the copies themselves took a share
-//    while they moved 16-byte row pieces (a copy of an eighth of the bytes
-//    was 9-12 % faster); 128-byte-swizzled tiles took it back.
-//  - cross-attention over one key tile (Sk <= 128): bytes, Q read and O
-//    written once (0.08 ms at ConsistI2V's L0 spatial cross), reached only
-//    if the copies stay in flight; per item the consumers' softmax of a
-//    partly masked tile (20-31 %), the epilogue (16-44 %, the staging
-//    barriers and TMA store) and the Q waits (9-14 %) leave it at 2.4-5.5x.
-//  - the editors' small calls (48 or 24 items of 128 rows): less than one
-//    wave of blocks on 132 SMs; 64-row items double the blocks.
+// sums clock64 cycles by phase in an instrumented copy, --loads stamps each
+// K/V copy, --short the one-key-tile body; PERF.md section 6), by class:
+//  - long self-attention and split-KV (the tiles body below): the softmax and
+//    the K/V stream. The operations bound is 2.2 ms at ConsistI2V's L0
+//    split-KV (51 rows x 5 heads x 4096 queries x 8192 keys x 64 x 4 FLOP),
+//    the exponentials' 2.0 ms (16 per clock per SM); at head width 40 (SEINE)
+//    the exponentials' 1.54 ms is the larger. Each consumer warpgroup spends
+//    45-51 % of its cycles in the softmax of its 64 x 128 tile (one warp per
+//    SM sub-partition: latency-bound) and about 14 % of a step (about 420 of
+//    2,900 cycles) waiting for K, in the steady state: a copy takes about 2.9
+//    steps from issue to landing and is issued about 2.75 ahead. Issuing K
+//    and V each as far ahead as its own ring allows, or a fifth stage, did
+//    not shorten the waits (the copies then took longer: the blocks stream
+//    K/V from L2 at 32 KB a 128 x 128 step, about 2.8 TB/s over 132 SMs);
+//    three consumer warpgroups on 192-row items (a third fewer bytes a
+//    score) lost to ptxas's register handling of the wgmma pipeline.
+//  - the one-key-tile class without a bias (the short body, below the tiles
+//    body): bytes, Q read and O written once (0.08 ms at ConsistI2V's L0
+//    spatial and temporal cross-attention), against each head's chain of a
+//    score product, one softmax, P.V and the stores: the softmax takes
+//    25-29 % of the consumers' cycles and the stores 16-26 %, the Q chunk
+//    waits 6-14 % (the producer waits for free Q slots 44-77 % of its time).
+//  - a call whose items leave the card under one wave (the editors' small
+//    calls): the launch and the first loads; 64-row items double the blocks.
 //  - a score bias: its bytes (4 per score, 25.8 GB read by the blocks at
 //    SEINE's L0 self with a bias shared by the batch, from L2 once HBM has
 //    given it once); the softmax with the bias's loads is 70-72 % of the
 //    consumers' cycles.
 //
-// Design (every head width that is a multiple of 8 up to 128, and 160, takes
-// this one body; the odd multiples of 8 run it with the score depth padded to
+// Design of the tiles body (every head width that is a multiple of 8 up to
+// 128, and 160, takes it; the odd multiples of 8 run it with the score depth padded to
 // 16; everything below the head width and the bias flag is a run-time field
 // of the launch plan, ops/flash_attention.py flash_plan, which the entry
 // checks against this file's layout):
@@ -116,11 +120,13 @@
 namespace {
 
 constexpr int BK = 128;            // keys per K/V tile
-// two consumer warpgroups and a producer warp. ptxas gives every thread of
-// such a block at most 168 registers (65536 / threads, rounded down to 8: as
-// it does a block of three warpgroups, setmaxnreg or not; the highest
-// register in the SASS, scripts/torch_attention_probe.py --sass, stays under
-// it, and past it ptxas spills), so the consumers' tiles are sized for 168.
+// two consumer warpgroups and a producer warp. ptxas compiles a kernel to
+// 65536 / threads registers a thread (168 here); setmaxnreg would give the
+// consumers more (hopper.cuh), but a producer warpgroup at 40 / 232, or
+// three consumer warpgroups at 24 / 160 up to head width 64, measured
+// 1.1-1.8x slower (PERF.md section 6): ptxas still serialised the wgmmas for
+// "insufficient register resources" (C7512) and spilled, now at 135-219
+// registers. So the consumers' tiles are sized for 168.
 constexpr int MAX_THREADS = 288;
 constexpr int MAX_STAGES = 4;      // of the Q ring and of the K/V ring
 constexpr int BARRIER_BYTES = 256, ALIGN_SLACK = 1024;   // the swizzle atom
@@ -633,6 +639,359 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   if (tw == 0) bulk_wait();
 }
 
+// ---- the one-key-tile class: a body of its own ----
+//
+// Unbiased calls with 0 < Sk <= 128 and no context, at the models' head
+// widths (40, 64, 80, 160): every cross-attention over 77 text tokens and the
+// IP adapter's 4 image tokens. An item is 64 query rows of one batch row and
+// a group of heads whose channels are whole 64-channel chunks (8 heads of 40,
+// 5 of 64, 4 of 80, 2 of 160: 320 channels; fewer for a call of few items),
+// one consumer warpgroup an item, three consumer warpgroups a block:
+//  - Q arrives as 128-byte-swizzled chunks of 64 rows x 64 channels through a
+//    ring of chunk slots that runs on across items; a warpgroup waits for the
+//    chunks a head reads and frees each chunk once its last head has read it,
+//    so the next items' chunks stream in under the current one.
+//  - K and V of the group stay resident per (batch row, group), NK keys deep:
+//    Sk rounded up to 16, the score product's N and P.V's depth (the
+//    template's NK), not 128. K is a swizzled tile like Q's where every head
+//    starts on a 16-channel step (64, 80, 160), V where heads are whole
+//    64-channel chunks (64), both by TMA; elsewhere each is the unswizzled
+//    [chunk][key][8] tile, which the producer warpgroup fills by cp.async
+//    (TMA moves such a tile one 16-byte piece at a time: about 7 us for a
+//    group's K and V at head width 40).
+//  - Heads of 40 start half of them on an 8-channel step, which no wgmma
+//    descriptor of a swizzled tile can express, so their Q is the register A
+//    operand, taken by ldmatrix at its swizzled 16-byte pieces (the score
+//    depth's pad, channels 40-47, as zero registers; K's pad chunk is the
+//    next head's, or a zero chunk after the group's).
+//  - Per head: the score product, one exact softmax (the key axis is one
+//    tile; the row sums of P as bf16, as P.V takes it), P.V, and the output
+//    written from the accumulators by 16-byte stores after a quad transpose
+//    (no staging, no barrier): the barrier handshake and the Q waits are
+//    paid once a group. The heads of an item run one after another; the
+//    other warpgroups' heads fill the SM in between.
+//  - A producer warpgroup gives up registers (setmaxnreg 24) so that the
+//    consumers hold 160 (a head at width 160 and 80 keys used 158).
+constexpr int SHORT_ROWS = 64;                 // query rows of an item
+constexpr int SHORT_MAX_KEYS = 80;             // past it, the tiles body measured faster
+constexpr int SHORT_SLOTS = 15;                // at most, Q chunk slots
+constexpr int SHORT_CHUNK = SHORT_ROWS * 128;  // bytes of one swizzled Q chunk
+constexpr int SHORT_WGS = 3;                   // consumer warpgroups, each its own items
+constexpr int SHORT_THREADS = 128 * (SHORT_WGS + 1);   // and a producer warpgroup
+static_assert(SHORT_THREADS == 512, "the setmaxnreg counts below fit 512 threads");
+
+template <int DH>
+struct ShortCfg {
+  static constexpr bool RS = DH % 16 != 0;    // Q as the register A operand
+  static constexpr bool KSW = !RS;            // K swizzled
+  static constexpr bool VSW = DH % 64 == 0;   // V swizzled
+  static constexpr int DP = (DH + 15) / 16 * 16;
+  static constexpr int VCH = DH / 8;
+};
+
+// The shared memory of a launch of the short body, in bytes from the
+// 1024-aligned base: the Q chunk slots; K, key_tile rows of an item's
+// 64-channel chunks and 16 bytes more (a swizzled tile, or the unswizzled
+// 8-channel chunks and one zero chunk); V from the next 1024-byte boundary,
+// the same without the 16 bytes; the barriers. ops/flash_attention.py
+// flash_short_bytes is the same formula.
+struct ShortLayout {
+  int k_off, v_off, bar_off, total;
+};
+
+inline ShortLayout make_short_layout(int key_tile, int qchunks, int slots) {
+  ShortLayout l;
+  const int row = qchunks * 128;   // bytes of a key's 64-channel chunks
+  l.k_off = slots * SHORT_CHUNK;
+  l.v_off = l.k_off + ((row + 16) * key_tile + 1023) / 1024 * 1024;
+  l.bar_off = l.v_off + row * key_tile;
+  l.total = l.bar_off + BARRIER_BYTES + ALIGN_SLACK;
+  return l;
+}
+
+struct ShortParams {
+  CUtensorMap q, k, v;           // k, v: the swizzled maps (KSW, VSW)
+  const __nv_bfloat16 *kg, *vg;  // k, v in global memory (the unswizzled tiles)
+  __nv_bfloat16* o;
+  int B, H, Sq, Sk, C;
+  float scale_log2;
+  int group, groups, qchunks, slots, qtiles, items;
+  ShortLayout lay;
+};
+
+// Thread `tw` of the producer warpgroup's share of one unswizzled K or V tile
+// of a (batch row, group): 8-channel chunk c of key j from global memory
+// into [chunk][key][8], by cp.async (TMA moves a tile of 16-byte pieces one
+// piece at a time); keys past Sk and channels past C are zeros. Consecutive
+// threads take consecutive keys of a chunk, so that the shared writes are
+// contiguous.
+template <int NK>
+__device__ __forceinline__ void load_chunks(uint32_t dst, const __nv_bfloat16* __restrict__ src,
+                                            const ShortParams& p, int b, int c0, int chunks,
+                                            int tw) {
+  for (int e = tw; e < chunks * NK; e += 128) {
+    const int c = e / NK, j = e % NK;
+    const bool ok = j < p.Sk && (c0 + c) * 8 < p.C;
+    const size_t off = ((size_t)b * p.Sk + min(j, p.Sk - 1)) * p.C + min(c0 + c, p.C / 8 - 1) * 8;
+    hopper::cp_async16(dst + e * 16, src + off, ok);
+  }
+}
+
+// 16 bytes a thread of a row's output: the quad's four threads hold 2
+// channels of each 8-channel group (the wgmma fragment); four groups at a
+// time are transposed across the quad (two rounds of shuffles), so that
+// thread t holds group g0 + t whole, and stores it with one 16-byte store.
+template <int N>
+__device__ __forceinline__ void store_row(__nv_bfloat16* o, const uint32_t (&r)[N], int groups,
+                                          bool ok) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int g0 = 0; g0 < N; g0 += 4) {
+    uint32_t x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = g0 + j < N ? r[g0 + j] : 0u;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {   // 2x2 blocks across threads t, t ^ 2
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 2) ? x[p] : x[2 + p], 2);
+      if (t & 2) x[p] = got; else x[2 + p] = got;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; q += 2) {   // within each block, across t, t ^ 1
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 1) ? x[q] : x[q + 1], 1);
+      if (t & 1) x[q] = got; else x[q + 1] = got;
+    }
+    if (ok && g0 + t < groups)
+      *reinterpret_cast<uint4*>(o + (g0 + t) * 8) = make_uint4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// One kernel symbol for both bodies (an overload on the parameters), so that
+// a profile sums K5's device time under one name.
+template <int DH, int NK>
+__global__ void __launch_bounds__(SHORT_THREADS, 1)
+    flash_attention_kernel(const __grid_constant__ ShortParams p) {
+  using namespace hopper;
+  using F = ShortCfg<DH>;
+  constexpr int KCHUNK = NK * 16;    // bytes of one unswizzled 8-channel chunk of K or V
+  constexpr int SWCHUNK = NK * 128;  // bytes of one swizzled 64-channel chunk of K or V
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.lay.bar_off);
+  uint64_t *qfull = bars, *qempty = bars + SHORT_SLOTS;
+  uint64_t *kvfull = bars + 2 * SHORT_SLOTS, *kvempty = kvfull + 1;
+  const int G = p.group, NS = p.slots, NCH = p.qchunks, kch = G * F::VCH;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], 4);   // the item's warpgroup
+    }
+    // the producer warpgroup's cp.async arrivals, and its TMA thread's
+    mbar_init(kvfull, (F::KSW && F::VSW ? 0 : 128) + (F::KSW || F::VSW ? 1 : 0));
+    mbar_init(kvempty, 4 * SHORT_WGS);   // every consumer warpgroup
+    mbar_fence_init();
+  }
+  if constexpr (F::RS) {   // the zero chunk after K
+    for (int e = threadIdx.x; e < NK; e += blockDim.x)
+      *reinterpret_cast<uint4*>(smem + p.lay.k_off + kch * KCHUNK + e * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // a contiguous run of items per block, query tile fastest, then the group,
+  // then the batch row: consecutive items share their K/V
+  const int begin = (int)((long long)blockIdx.x * p.items / gridDim.x);
+  const int end = (int)((long long)(blockIdx.x + 1) * p.items / gridDim.x);
+  auto item_of = [&](int it, int& b, int& g, int& r0) {
+    r0 = (it % p.qtiles) * SHORT_ROWS;
+    const int r = it / p.qtiles;
+    g = r % p.groups;
+    b = r / p.groups;
+  };
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == SHORT_WGS) {
+    // ---- producer: K/V once per (batch row, group), Q chunk by chunk ----
+    setmaxnreg_dec<24>();
+    const int tw = threadIdx.x - 128 * SHORT_WGS;
+    const bool tma = tw == 0;
+    int seg = -1, pb = -1, pg = -1;
+    for (int it = begin, i = 0; it < end; ++it, ++i) {
+      int b, g, r0;
+      item_of(it, b, g, r0);
+      if (b != pb || g != pg) {
+        ++seg;
+        pb = b;
+        pg = g;
+        if (seg > 0) mbar_wait(kvempty, (seg - 1) & 1);
+        unsigned char *ks = smem + p.lay.k_off, *vs = smem + p.lay.v_off;
+        if (tma && (F::KSW || F::VSW)) {
+          mbar_arrive_expect_tx(kvfull, ((F::KSW ? 1 : 0) + (F::VSW ? 1 : 0)) * NCH * SWCHUNK);
+          for (int c = 0; c < NCH; ++c) {
+            if constexpr (F::KSW) tma_load_3d(ks + c * SWCHUNK, &p.k, kvfull, g * G * DH + c * 64, 0, b);
+            if constexpr (F::VSW) tma_load_3d(vs + c * SWCHUNK, &p.v, kvfull, g * G * DH + c * 64, 0, b);
+          }
+        }
+        if constexpr (!F::KSW) load_chunks<NK>(smem_addr(ks), p.kg, p, b, g * kch, kch, tw);
+        if constexpr (!F::VSW) load_chunks<NK>(smem_addr(vs), p.vg, p, b, g * kch, kch, tw);
+        if constexpr (!F::KSW || !F::VSW) cp_async_mbar_arrive(kvfull);
+      }
+      if (!tma) continue;
+      for (int c = 0; c < NCH; ++c) {
+        const int q = i * NCH + c, slot = q % NS;
+        if (q >= NS) mbar_wait(&qempty[slot], ((q / NS) - 1) & 1);
+        mbar_arrive_expect_tx(&qfull[slot], SHORT_CHUNK);
+        tma_load_3d(smem + slot * SHORT_CHUNK, &p.q, &qfull[slot], g * G * DH + c * 64, r0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup `role` takes the run's items role, role + SHORT_WGS, ... ----
+  setmaxnreg_inc<160>();
+  const int wg = role, tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+  const bool lead = lane == 0;
+  const uint32_t kbase = smem_addr(smem + p.lay.k_off), vbase = smem_addr(smem + p.lay.v_off);
+  float s[NK / 2];
+  uint32_t pa[NK / 16][4];
+  uint32_t qa[F::DP / 16][4];
+  float acc[DH / 2];
+  int seg = -1, pb = -1, pg = -1;
+  for (int it = begin, i = 0; it < end; ++it, ++i) {
+    int b, g, r0;
+    item_of(it, b, g, r0);
+    if (b != pb || g != pg) {   // every warpgroup passes every K/V segment
+      if (seg >= 0 && lead) mbar_arrive(kvempty);
+      ++seg;
+      pb = b;
+      pg = g;
+      mbar_spin(kvfull, seg & 1);
+    }
+    if (i % SHORT_WGS != wg) continue;
+    const int qbase = i * NCH;
+    int waited = 0, released = 0;
+    auto chunk_addr = [&](int c) { return smem_addr(smem + ((qbase + c) % NS) * SHORT_CHUNK); };
+    auto wait_chunks = [&](int last) {
+      for (; waited <= last; ++waited)
+        mbar_spin(&qfull[(qbase + waited) % NS], ((qbase + waited) / NS) & 1);
+    };
+    auto release_chunks = [&](int below) {
+      for (; released < below; ++released)
+        if (lead) mbar_arrive(&qempty[(qbase + released) % NS]);
+    };
+    // head h's score product, issued and committed (a ragged group's heads
+    // past H read zeros and are never stored)
+    auto issue_scores = [&](int h) {
+      const int c0 = h * DH;   // the head's first channel in the group
+      wait_chunks(min((c0 + DH - 1) / 64, NCH - 1));
+      if constexpr (F::RS) {
+        // lane l: row (l % 8) + 8 * ((l / 8) % 2) of the warp's 16, the
+        // 8-channel piece (l / 16) of the 16-channel step
+        const int r = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
+#pragma unroll
+        for (int kk = 0; kk < F::DP / 16; ++kk) {
+          const int q = c0 / 8 + 2 * kk + lane / 16;   // the piece's 8-channel index
+          const uint32_t a = chunk_addr(q / 8) + r * 128 + (((q % 8) ^ (r % 8)) * 16);
+          if (kk * 16 + 8 < DH) {
+            ldmatrix_x4(qa[kk], a);
+          } else {   // the pad: channels DH .. DP
+            ldmatrix_x2(qa[kk][0], qa[kk][1], a);
+            qa[kk][2] = qa[kk][3] = 0u;
+          }
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::DP / 16; ++kk) {
+        const int c = c0 + 16 * kk;
+        if constexpr (F::RS) {
+          wgmma_rs_keys<NK>(s, qa[kk], wgmma_desc(kbase + (c / 8) * KCHUNK, KCHUNK, 128),
+                            kk > 0);
+        } else {
+          wgmma_ss_keys<NK>(s, wgmma_desc_sw128(chunk_addr(c / 64) + (c % 64) * 2, 16, 1024),
+                            wgmma_desc_sw128(kbase + (c / 64) * SWCHUNK + (c % 64) * 2, 16, 1024),
+                            kk > 0);
+        }
+      }
+      wgmma_commit();
+    };
+    // the exact softmax of head h's one key tile (keys >= Sk masked) into
+    // `ph`, its row sums into l0, l1; then the head's Q chunks are free
+    auto softmax = [&](int h, uint32_t (&ph)[NK / 16][4], float& l0, float& l1) {
+      fence_frag(s);
+      if (h + 1 == G) wait_chunks(NCH - 1);   // chunks no head reads landed too
+      release_chunks(h + 1 < G ? min(((h + 1) * DH) / 64, NCH) : NCH);
+      if (p.Sk < NK) mask_keys(s, p.Sk);
+      float m0, m1;
+      quad_row_max(s, m0, m1);
+      exp2_frag(s, p.scale_log2, -m0 * p.scale_log2, -m1 * p.scale_log2, (p.Sk + 7) / 8);
+      pack_frag(s, ph);
+      // the row sums of P as P.V takes it (bf16): numerator and denominator
+      // round alike, which matters where a few keys carry the row
+      l0 = 0.f;
+      l1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; r += 2) {
+          l0 += __uint_as_float(ph[kk][r] << 16) + __uint_as_float(ph[kk][r] & 0xffff0000u);
+          l1 += __uint_as_float(ph[kk][r + 1] << 16) +
+                __uint_as_float(ph[kk][r + 1] & 0xffff0000u);
+        }
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    };
+    // head h's P.V into acc (overwritten), issued and committed
+    auto issue_pv = [&](int h, const uint32_t (&ph)[NK / 16][4]) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk) {
+        if constexpr (F::VSW) {
+          wgmma_rs_n64(acc, ph[kk],
+                       wgmma_desc_sw128(vbase + h * SWCHUNK + kk * 16 * 128, SWCHUNK, 1024),
+                       kk > 0);
+        } else {
+          pv_step<DH>(acc, ph[kk], vbase + h * F::VCH * KCHUNK + kk * 16 * 16, KCHUNK, kk > 0);
+        }
+      }
+      wgmma_commit();
+    };
+    const int row = r0 + warp * 16 + lane / 4;   // this thread's rows: row, row + 8
+    __nv_bfloat16* orow = p.o + ((size_t)b * p.Sq + row) * p.C + g * G * DH;
+    // head h's output, normalised by its row sums (heads past H and rows past
+    // Sq are not stored)
+    auto store = [&](int h, float l0, float l1) {
+      fence_frag(acc);
+      const float i0 = 1.f / l0, i1 = 1.f / l1;
+      uint32_t r[DH / 8];
+      const bool head = g * G + h < p.H;
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt) r[nt] = pack_bf16(acc[nt * 4 + 0] * i0, acc[nt * 4 + 1] * i0);
+      store_row(orow + h * DH, r, DH / 8, head && row < p.Sq);
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt) r[nt] = pack_bf16(acc[nt * 4 + 2] * i1, acc[nt * 4 + 3] * i1);
+      store_row(orow + (size_t)8 * p.C + h * DH, r, DH / 8, head && row + 8 < p.Sq);
+    };
+
+    // one head after another: with a product in flight beside the softmax
+    // or the stores (the next head's scores, or the last head's P.V), ptxas
+    // serialises the wgmmas for register resources (C7511) and the head
+    // took longer (PERF.md section 6); the other warpgroup's head fills in
+    for (int h = 0; h < G; ++h) {
+      float l0, l1;
+      issue_scores(h);
+      wgmma_wait<0>();
+      softmax(h, pa, l0, l1);
+      issue_pv(h, pa);
+      wgmma_wait<0>();
+      store(h, l0, l1);
+    }
+  }
+}
+
 // A 4-D map over a bf16 [B, S, C] tensor seen as [B, C / 8, S, 8]: one box
 // of [chunks, rows, 8] lands in shared memory as the [chunk][row][8] tile
 // (one TMA instruction per tile, not one per 8 channels); rows past S read
@@ -677,12 +1036,27 @@ cudaError_t launch(Params& p, const void* q, const void* k, const void* v, const
     p.kc = p.k;
     p.vc = p.v;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DH, BIAS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         p.lay.total);
+  void (*kernel)(Params) = flash_attention_kernel<DH, BIAS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.lay.total);
   if (err != cudaSuccess) return err;
-  flash_attention_kernel<DH, BIAS>
-      <<<grid, 128 * (p.tile_rows / 64) + 32, p.lay.total, stream>>>(p);
+  kernel<<<grid, 128 * (p.tile_rows / 64) + 32, p.lay.total, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DH, int NK>
+cudaError_t launch_short(ShortParams& p, const void* q, const void* k, const void* v, int grid,
+                         cudaStream_t stream) {
+  using F = ShortCfg<DH>;
+  if (!make_map_sw(&p.q, q, p.B, p.Sq, p.C, SHORT_ROWS) ||
+      (F::KSW && !make_map_sw(&p.k, k, p.B, p.Sk, p.C, NK)) ||
+      (F::VSW && !make_map_sw(&p.v, v, p.B, p.Sk, p.C, NK)))
+    return cudaErrorInvalidValue;
+  void (*kernel)(ShortParams) = flash_attention_kernel<DH, NK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.lay.total);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, SHORT_THREADS, p.lay.total, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -747,4 +1121,60 @@ extern "C" int anyv2v_flash_attention(const void* q, const void* k, const void* 
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The one-key-tile body (no bias, no context; ops/flash_attention.py
+// flash_plan's body "short"): DH 40, 64, 80 or 160, Sk <= 80, key_tile Sk
+// rounded up to 16, head_group heads an item (whole 64-channel chunks, or
+// every head; at most 320 channels), q_slots Q chunk slots (at least one
+// item's 64-channel chunks for each consumer warpgroup), the
+// persistent grid (1..items) and smem_bytes, refused unless the bytes are
+// this file's layout of those fields and one block can hold them.
+extern "C" int anyv2v_flash_attention_short(const void* q, const void* k, const void* v, void* o,
+                                            int B, int Sq, int Sk, int H, int DH, float scale,
+                                            int key_tile, int head_group, int q_slots, int grid,
+                                            int smem_bytes, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Sk > SHORT_MAX_KEYS || H <= 0 || !(scale > 0.f) ||
+      key_tile != (Sk + 15) / 16 * 16 || head_group < 1 || head_group > H ||
+      ((head_group * DH) % 64 != 0 && head_group != H) || head_group * DH > 320)
+    return (int)cudaErrorInvalidValue;
+  ShortParams p;
+  p.kg = (const __nv_bfloat16*)k;
+  p.vg = (const __nv_bfloat16*)v;
+  p.o = (__nv_bfloat16*)o;
+  p.B = B;
+  p.H = H;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.C = H * DH;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.group = head_group;
+  p.groups = (H + head_group - 1) / head_group;
+  p.qchunks = (head_group * DH + 63) / 64;
+  p.slots = q_slots;
+  p.qtiles = (Sq + SHORT_ROWS - 1) / SHORT_ROWS;
+  const long long items = (long long)p.qtiles * p.groups * B;
+  if (q_slots < SHORT_WGS * p.qchunks || q_slots > SHORT_SLOTS ||
+      items > 0x7fffffffLL || grid < 1 || grid > items)
+    return (int)cudaErrorInvalidValue;
+  p.items = (int)items;
+  p.lay = make_short_layout(key_tile, p.qchunks, q_slots);
+  if (smem_bytes != p.lay.total || p.lay.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ANYV2V_KEYS(D)                                                                  \
+  switch (key_tile) {                                                                   \
+    case 16: return (int)launch_short<D, 16>(p, q, k, v, grid, s);                      \
+    case 32: return (int)launch_short<D, 32>(p, q, k, v, grid, s);                      \
+    case 48: return (int)launch_short<D, 48>(p, q, k, v, grid, s);                      \
+    case 64: return (int)launch_short<D, 64>(p, q, k, v, grid, s);                      \
+    default: return (int)launch_short<D, 80>(p, q, k, v, grid, s);                      \
+  }
+  switch (DH) {
+    case 40: ANYV2V_KEYS(40)
+    case 64: ANYV2V_KEYS(64)
+    case 80: ANYV2V_KEYS(80)
+    case 160: ANYV2V_KEYS(160)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ANYV2V_KEYS
 }

@@ -45,9 +45,11 @@
 // cycles on the exponentials and the rest waiting on each step's chain (the
 // scores' wgmma behind the other warpgroup's products, the turn, the max
 // tree), two warps a sub-partition, the special-function unit under half
-// busy. What would keep more work in flight a warp dies of ptxas, which
-// compiles every part of a kernel to 65536 / threads registers (168 here)
-// whatever setmaxnreg asks: the next step's scores issued under this step's
+// busy. What would keep more work in flight a warp did not pay (ptxas
+// compiles a kernel to 65536 / threads registers, 168 here, but the code
+// past a setmaxnreg.inc to the count that asks for: scripts/
+// torch_regcap_probe.py, 222 of 232 with no spill in a kernel of this
+// block's shape): the next step's scores issued under this step's
 // softmax serialise the wgmmas (C7515: the softmax writes score registers
 // while a wgmma is in flight; with the scores read-only and P packed apart,
 // no warning but 1.25x slower), two units a step and three consumer

@@ -4,12 +4,26 @@ or an optional split-KV context.
 
 Replaces ``anyv2v_tpu/ops/pallas_attention.py`` (``_flash_kernel``,
 ``_flash_splitkv_kernel``) and ``anyv2v_tpu/ops/pallas_cross_attention.py``
-(``_cross_kernel``); ``csrc/flash_attention.cu`` is one body for the three:
-persistent blocks walking (query tile, head, batch row) items, ``wgmma`` on
-tiles that a TMA producer loads into mbarrier-guarded rings, the softmax of
-one key tile overlapped with the previous tile's products, and K/V kept
-resident where the key axis is one tile (:func:`flash_plan` decides the
-walk, the tile and the rings):
+(``_cross_kernel``); ``csrc/flash_attention.cu`` holds two bodies for the
+three, both persistent blocks of consumer warpgroups beside a TMA producer
+(a warp; the short body's a warpgroup) on mbarrier-guarded rings, ``wgmma``
+for both products (:func:`flash_plan` picks the body, the walk, the tiles
+and the rings):
+
+- the tiles body (``body`` "tiles"): (query tile, head, batch row) items over
+  128-key K/V tiles, the softmax of one key tile overlapped with the
+  previous tile's products, K/V kept resident where the key axis is one
+  tile, the output staged and TMA-stored; every biased or split-KV call and
+  every long key axis;
+- the short body (``body`` "short", the one-key-tile class without a bias
+  at the models' head widths): items of 64 query rows and a group of heads
+  whose channels are whole 64-channel chunks (8 heads of 40, 5 of 64, 4 of
+  80, 2 of 160), one of three consumer warpgroups an item, the group's K
+  and V resident per (batch row, group) at a
+  key width of Sk rounded up to 16, Q streamed as 128-byte-swizzled chunks,
+  one exact softmax per head, the output written from the accumulators;
+
+at the calls:
 
 - long self or cross attention at head widths 40/64/80/160 (ConsistI2V's
   spatial cross-attention, 5/10/20 heads of 64, and its temporal
@@ -32,6 +46,7 @@ CUDA tensors launch the kernel (and nothing else).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -45,6 +60,14 @@ BLOCK_KEYS = 128        # keys per K/V tile
 MAX_STAGES = 4          # of the Q ring and of the K/V ring
 BARRIER_BYTES, ALIGN_SLACK = 256, 1024   # the slack aligns the tiles to the swizzle atom
 L2_BYTES = 50 * 2 ** 20
+# the one-key-tile body ("short"): the models' head widths, 64-row items, a
+# group of heads of at most 320 channels, Q chunks of 64 rows x 64 channels
+SHORT_HEAD_DIMS = (40, 64, 80, 160)
+SHORT_ROWS, SHORT_SLOTS, SHORT_CHUNK = 64, 15, 64 * 128
+SHORT_WGS = 3   # consumer warpgroups of the short body, each its own items
+GROUP_CHANNELS = 320
+SHORT_MAX_KEYS = 80     # past it the tiles body measured faster
+KEY_TILES = tuple(range(16, SHORT_MAX_KEYS + 1, 16))   # the short body's key widths
 
 
 def flash_layout_bytes(head_dim: int, tile_rows: int, q_stages: int, kv_stages: int) -> int:
@@ -59,6 +82,47 @@ def flash_layout_bytes(head_dim: int, tile_rows: int, q_stages: int, kv_stages: 
 
 def _fits(head_dim, tile_rows, q_stages, kv_stages):
     return flash_layout_bytes(head_dim, tile_rows, q_stages, kv_stages) <= _build.SMEM_LIMIT
+
+
+def flash_short_bytes(key_tile: int, q_chunks: int, slots: int) -> int:
+    """Shared bytes of one block of the short body (``csrc/flash_attention.cu``
+    ``make_short_layout``): ``slots`` Q chunks of 64 rows x 64 channels; K,
+    ``key_tile`` rows of an item's ``q_chunks`` 64-channel chunks and 16
+    bytes more (the zero chunk of the unswizzled layout); V from the next
+    1024-byte boundary without the 16 bytes; the barriers and the alignment
+    slack."""
+    row = q_chunks * 128
+    k_bytes = -(-(row + 16) * key_tile // 1024) * 1024
+    return slots * SHORT_CHUNK + k_bytes + row * key_tile + BARRIER_BYTES + ALIGN_SLACK
+
+
+def _short_plan(b: int, sq: int, heads: int, head_dim: int, sk: int, sms: int) -> Optional[dict]:
+    """The short body's fields for an unbiased one-key-tile call of at most
+    :data:`SHORT_MAX_KEYS` keys, or None where it does not take the call:
+    another width, or no head group of whole 64-channel chunks (or of every
+    head) whose Q ring holds an item's chunks for each consumer warpgroup
+    beside its K and V and whose items give each consumer warpgroup of
+    ``sms`` blocks one at least (a block's heads run one after another, so a
+    call of fewer items is faster on the tiles body's one head an item).
+    The largest group whose items give every warpgroup two is taken, else
+    the largest whose items give it one."""
+    if head_dim not in SHORT_HEAD_DIMS or not 0 < sk <= SHORT_MAX_KEYS:
+        return None
+    key_tile = -(-sk // 16) * 16
+    span = math.lcm(head_dim, 64)   # the fewest heads that are whole 64-channel chunks
+    unit = span // head_dim
+    for rounds in (2, 1):
+        for group in range(unit * max(1, GROUP_CHANNELS // span), 0, -unit):
+            group = min(group, heads)
+            chunks = -(-group * head_dim // 64)
+            room = (_build.SMEM_LIMIT - flash_short_bytes(key_tile, chunks, 0)) // SHORT_CHUNK
+            slots = min(SHORT_SLOTS, room)
+            items = -(-sq // SHORT_ROWS) * -(-heads // group) * b
+            if slots >= SHORT_WGS * chunks and items >= rounds * SHORT_WGS * sms:
+                return {"key_tile": key_tile, "head_group": group, "q_chunks": chunks,
+                        "q_slots": slots, "items": items,
+                        "smem_bytes": flash_short_bytes(key_tile, chunks, slots)}
+    return None
 
 
 def flash_plan(b: int, sq: int, heads: int, head_dim: int, bias: Optional[str] = None,
@@ -77,7 +141,9 @@ def flash_plan(b: int, sq: int, heads: int, head_dim: int, bias: Optional[str] =
       through a ring of up to 4. Otherwise the walk is strided (block x
       takes items x, x + grid, ...), 2 Q stages and as many K/V stages as
       fit, up to 4.
-    - ``threads``: 128 a consumer warpgroup and a producer warp of 32.
+    - ``threads``: 128 a consumer warpgroup and a producer warp of 32 (the
+      short body: :data:`SHORT_WGS` consumer warpgroups and a producer
+      warpgroup).
     - ``order``: which index of an item runs fastest, "query" (its K/V is
       shared with the items in flight) or "batch" (with a bias shared by the
       batch and a strided walk: the blocks in flight read the same bias
@@ -89,9 +155,32 @@ def flash_plan(b: int, sq: int, heads: int, head_dim: int, bias: Optional[str] =
 
     ``csrc/flash_attention.cu`` refuses a plan whose bytes are not its layout
     of these fields; :func:`check_flash_plan` (through ``_build.check_plan``)
-    refuses one that is not this function's plan for its ``shape``."""
+    refuses one that is not this function's plan for its ``shape``.
+
+    ``body`` names the kernel body (both are ``flash_attention_kernel``,
+    overloaded on their parameters): "tiles", every call above, ``key_tile``
+    128, ``head_group`` 1, the output staged and TMA-stored (``store``
+    "tma"); or "short", an unbiased call with ``0 < sk <= 80``, no context
+    and a head width of :data:`SHORT_HEAD_DIMS` (:func:`_short_plan`): items
+    of 64 query rows and ``head_group`` heads (8 of 40, 5 of 64, 4 of 80, 2
+    of 160: 320 channels, whole 64-channel chunks; fewer where the items
+    would not give each warpgroup two), one of the block's
+    :data:`SHORT_WGS` consumer warpgroups an item, ``threads`` with a
+    producer warpgroup, ``key_tile`` = ``sk`` rounded up to 16 (the score
+    product's width and P.V's depth), K and V of the group resident per
+    (batch row, group), Q through ``q_slots`` chunk slots of 64 rows x 64
+    channels (``q_chunks`` an item), the output written from the
+    accumulators (``store`` "plain"); a block walks a contiguous run of
+    items, query tile fastest, then group, then batch row."""
     if bias not in (None, "shared", "batch"):
         raise ValueError(f"flash_plan: bias {bias!r}, expected None, 'shared' or 'batch'")
+    shape = {"b": b, "sq": sq, "heads": heads, "head_dim": head_dim, "bias": bias, "sk": sk,
+             "sk2": sk2, "sms": sms}
+    short = _short_plan(b, sq, heads, head_dim, sk, sms) if bias is None and sk2 == 0 else None
+    if short is not None:
+        return {"shape": shape, "body": "short", "store": "plain", "tile_rows": SHORT_ROWS,
+                "threads": 128 * (SHORT_WGS + 1), "resident": True, "order": "query", **short,
+                "bias": None, "bias_bytes_read": 0, "grid": (max(1, min(short["items"], sms)),)}
     resident = 0 < sk <= BLOCK_KEYS and sk2 == 0
     kv_min = 1 if resident else 2
     tile_rows = 128
@@ -113,9 +202,8 @@ def flash_plan(b: int, sq: int, heads: int, head_dim: int, bias: Optional[str] =
         bias_bytes = one_read
     else:
         bias_bytes = b * one_read
-    return {"shape": {"b": b, "sq": sq, "heads": heads, "head_dim": head_dim, "bias": bias,
-                      "sk": sk, "sk2": sk2, "sms": sms},
-            "tile_rows": tile_rows, "threads": 128 * (tile_rows // 64) + 32,
+    return {"shape": shape, "body": "tiles", "store": "tma", "key_tile": BLOCK_KEYS,
+            "head_group": 1, "tile_rows": tile_rows, "threads": 128 * (tile_rows // 64) + 32,
             "resident": resident, "order": order, "q_stages": q_stages, "kv_stages": kv_stages, "items": items,
             "bias": bias, "bias_bytes_read": bias_bytes,
             "smem_bytes": flash_layout_bytes(head_dim, tile_rows, q_stages, kv_stages),
@@ -235,6 +323,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
     _build.check_plan("flash_attention", plan)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(0)
+    if plan["body"] == "short":
+        rc = _build.library().anyv2v_flash_attention_short(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), ctypes.c_int(b),
+            ctypes.c_int(sq), ctypes.c_int(sk), ctypes.c_int(heads), ctypes.c_int(dh),
+            ctypes.c_float(scale), ctypes.c_int(plan["key_tile"]),
+            ctypes.c_int(plan["head_group"]), ctypes.c_int(plan["q_slots"]),
+            ctypes.c_int(plan["grid"][0]), ctypes.c_int(plan["smem_bytes"]), _build.stream())
+        _build.check(rc, "flash_attention")
+        flash_attention.launches += 1
+        return out
     rc = _build.library().anyv2v_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v),
         null if k_ctx is None else _build.ptr(k_ctx),

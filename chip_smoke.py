@@ -789,6 +789,20 @@ def _kernel_cases():
         # the IP-Adapter Plus resampler (not on InstantStyle's path, which
         # takes the base adapter): 16 latents over 257 + 16 keys, 12 heads of 64
         (k5, "off-path Resampler b1 Sq16 Sk273 h12 dh64", attn(1, 16, 273, 12, 64, 64)),
+        # K5's one-key-tile body on each side of its key widths (Sk rounded up
+        # to 16, past 128 the tiles body; at dh 40 past 80 keys too, where
+        # K, V and the Q ring do not fit beside each other) and at
+        # head counts that leave a ragged head group (3 of 40; 12 of 40: 8 +
+        # 4; 6 of 80: 4 + 2; 3 of 160: 2 + 1; 7 of 64: 5 + 2), at query
+        # counts that give the body its items (and not a multiple of 64)
+        *[(k5, f"ragged one-tile b13 Sq4100 Sk{sk} h5 dh64", attn(13, 4100, sk, 5, 64, 64))
+          for sk in (1, 4, 16, 17, 77, 80, 128, 129)],
+        (k5, "ragged one-tile b13 Sq4100 Sk77 h3 dh40", attn(13, 4100, 77, 3, 40, 40)),
+        (k5, "ragged one-tile b13 Sq4100 Sk33 h12 dh40", attn(13, 4100, 33, 12, 40, 40)),
+        (k5, "ragged one-tile b13 Sq4100 Sk112 h8 dh40", attn(13, 4100, 112, 8, 40, 40)),
+        (k5, "ragged one-tile b13 Sq4100 Sk50 h6 dh80", attn(13, 4100, 50, 6, 80, 80)),
+        (k5, "ragged one-tile b13 Sq4100 Sk50 h3 dh160", attn(13, 4100, 50, 3, 160, 160)),
+        (k5, "ragged one-tile b13 Sq4100 Sk16 h7 dh64", attn(13, 4100, 16, 7, 64, 64)),
         # K4's prologue-free form at main-path shapes, beside one conv3d
         *[(k4, f"off-path prologue-free {lb}", tconv_args(*shape, prologue=False),
            _tconv_library)

@@ -1,9 +1,13 @@
 """Profiles one SEINE (or ConsistI2V, or i2vgen-xl at 16 or 128 frames, or
 one rank's program of the 128-frame forward split over 4 ranks) UNet
 forward at full width on one NVIDIA GPU, at batch 1 (inversion) and batch 3
-(edit, every PnP flag on), twice.
+(edit, every PnP flag on), twice; or one first-frame editor's forward at
+its CFG batch (InstructPix2Pix at 512^2 and CosXL at 1024^2, batch 3;
+InstantStyle's ControlNet and UNet at 1024^2, batch 2), as ``chip_smoke.py``
+profiles it, twice.
 
-    python3 scripts/torch_seine_profile.py [TREE] [consisti2v | i2vgen | i2vgen128 | i2vgen128rank]
+    python3 scripts/torch_seine_profile.py [TREE] [consisti2v | i2vgen | i2vgen128 | i2vgen128rank
+        | instructpix2pix | cosxl | instantstyle]
 
 ``anyv2v_torch`` is imported from TREE (default: this checkout) and the
 profiler from this checkout's ``chip_smoke.py``, so two trees can be
@@ -46,6 +50,15 @@ def main():
         raise RuntimeError(f"anyv2v_torch came from {anyv2v_torch.__file__}, not {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
+    editors = {"instructpix2pix": (512, 3), "cosxl": (1024, 3), "instantstyle": (1024, 2)}
+    if backbone in editors:
+        from anyv2v_torch.utils.model_zoo import build_image_edit_pipeline
+
+        pipe = build_image_edit_pipeline(backbone, device="cuda", seed=0, dtype=torch.bfloat16)
+        print(f"anyv2v_torch from {tree}")
+        for _ in range(2):
+            smoke._editor_profile(pipe, backbone, *editors[backbone])
+        return 0
     forward = None
     if backbone.startswith("i2vgen"):
         frames = 16 if backbone == "i2vgen" else smoke.LONG_FRAMES

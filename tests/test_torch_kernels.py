@@ -34,6 +34,7 @@ from anyv2v_tpu.ops.pallas_temporal_conv import temporal_conv3
 from anyv2v_tpu.ops.pallas_temporal_ew import temporal_ew_attention
 from anyv2v_torch.ops.attention import multi_head_attention
 from anyv2v_torch.ops.ffn import ffn_geglu, ffn_gelu
+from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from anyv2v_torch.ops.folded_attention import folded_attention
 from anyv2v_torch.ops.frame_attention import frame_attention
@@ -310,6 +311,56 @@ def test_flash_attention_vs_cross_short_kv(b, sq, sk, heads):
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                           heads, 0.125)
     _close(got, want)
+
+
+@pytest.mark.parametrize("sk", [1, 4, 16, 17, 77, 80, 128, 129])
+def test_flash_attention_one_tile_key_widths_vs_cross_short_kv(sk):
+    """K5's one-key-tile body takes Sk rounded up to 16 as its key width (16,
+    32, ..., 80; past 80 keys the tiles body): the wrapper at key counts on
+    each side of each width and of the tiles body's one tile (128) against
+    the Pallas cross kernel, 5 heads of 64 (one head group of 320
+    channels)."""
+    b, sq, heads = 2, 70, 5
+    plan = fl.flash_plan(13, 4100, heads, 64, None, sk)   # chip_smoke's case of this Sk
+    assert plan["body"] == ("short" if sk <= fl.SHORT_MAX_KEYS else "tiles")
+    assert plan["key_tile"] == (-(-sk // 16) * 16 if sk <= fl.SHORT_MAX_KEYS else 128)
+    rng = np.random.RandomState(16)
+    c = heads * 64
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    want = cross_attention_short_kv(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    heads=heads, scale=0.125)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, 0.125)
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,heads,dh,group",
+    [
+        (2, 70, 77, 3, 40, 3),      # fewer heads of 40 than a group of 8: one ragged group
+        (1, 65, 33, 12, 40, 8),     # 8 + 4
+        (2, 70, 50, 6, 80, 4),      # 4 + 2
+        (1, 40, 50, 3, 160, 2),     # 2 + 1
+        (2, 70, 20, 7, 64, 5),      # 5 + 2
+        (2, 70, 77, 5, 64, 5),      # one whole group
+    ],
+)
+def test_flash_attention_ragged_head_groups_vs_flash_bshd(b, sq, sk, heads, dh, group):
+    """The short body's items cover a group of heads whose channels are whole
+    64-channel chunks; where the head count is not a multiple of the group,
+    the last group is ragged (the group asserted at a call that fills the
+    card). The wrapper against the Pallas split-head kernel at such head
+    counts."""
+    plan = fl.flash_plan(13, 4100, heads, dh, None, sk)   # a call that fills the card
+    assert plan["body"] == "short" and plan["head_group"] == group
+    rng = np.random.RandomState(17)
+    c = heads * dh
+    q, k, v = _rand(rng, b, sq, c), _rand(rng, b, sk, c), _rand(rng, b, sk, c)
+    want = flash_attention_bshd(*(jnp.asarray(x.reshape(b, x.shape[1], heads, dh))
+                                  for x in (q, k, v)), scale=dh ** -0.5)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          heads, dh ** -0.5)
+    _close(got, np.asarray(want).reshape(b, sq, c))
 
 
 @pytest.mark.parametrize("lead,c", [((1024,), 128), ((2, 300), 320), ((4, 40), 64)])

@@ -20,6 +20,7 @@ from HBM once) and K3's GELU form (launch 1 over 128-column tiles of h).
 """
 
 import itertools
+import math
 
 import pytest
 
@@ -175,7 +176,9 @@ def test_short_plan_of_the_16_frame_path():
 def _flash_items(plan, b, sq, heads):
     """The (batch row, head, query tile) of every item that each block of a
     K5 plan walks, in ``csrc/flash_attention.cu``'s order (``walk_of``,
-    ``item_of``): {item: times taken}."""
+    ``item_of``; the short body's item covers a head group, walked in
+    contiguous runs, query tile fastest, then group, then batch row):
+    {(batch row, head, query tile): times taken}."""
     tr, grid, items = plan["tile_rows"], plan["grid"][0], plan["items"]
     qtiles = -(-sq // tr)
     taken = {}
@@ -183,40 +186,99 @@ def _flash_items(plan, b, sq, heads):
         walk = (range(x * items // grid, (x + 1) * items // grid)
                 if plan["resident"] else range(x, items, grid))
         for it in walk:
-            if plan["order"] == "batch":
-                key = (it % b, (it // b) // qtiles, (it // b) % qtiles)
+            if plan["body"] == "short":
+                g, groups = plan["head_group"], -(-heads // plan["head_group"])
+                row, grp, qt = (it // qtiles) // groups, (it // qtiles) % groups, it % qtiles
+                keys = [(row, h, qt) for h in range(grp * g, min(heads, (grp + 1) * g))]
+            elif plan["order"] == "batch":
+                keys = [(it % b, (it // b) // qtiles, (it // b) % qtiles)]
             else:
-                key = ((it // qtiles) // heads, (it // qtiles) % heads, it % qtiles)
-            taken[key] = taken.get(key, 0) + 1
+                keys = [((it // qtiles) // heads, (it // qtiles) % heads, it % qtiles)]
+            for key in keys:
+                taken[key] = taken.get(key, 0) + 1
     return taken
 
 
-# one field of a K5 plan changed: each must be refused
+# one field of a K5 plan changed: each must be refused (the fields a body has)
 _FLASH_PLAN_EDITS = [
     ("tile_rows", lambda v: 192 - v), ("threads", lambda v: v + 128),
     ("q_stages", lambda v: v + 1), ("kv_stages", lambda v: v - 1),
     ("resident", lambda v: not v), ("order", lambda v: "batch" if v == "query" else "query"),
     ("items", lambda v: v + 1), ("grid", lambda v: (v[0] - 1 or 2,)),
     ("smem_bytes", lambda v: v + 16), ("bias_bytes_read", lambda v: v + 4),
+    ("body", lambda v: "tiles" if v == "short" else "short"),
+    ("store", lambda v: "tma" if v == "plain" else "plain"), ("key_tile", lambda v: v - 16),
+    ("head_group", lambda v: v + 1), ("q_slots", lambda v: v - 1), ("q_chunks", lambda v: v + 1),
 ]
+
+
+def _short_expected(b, sq, heads, dh, sk, sk2, bias, sms=_build.H100_SMS):
+    """Whether the short body should take a call: unbiased, at most 80 keys,
+    no context, a model's head width, and a head group of whole 64-channel
+    chunks (or every head) whose K, V and a Q ring of an item for each
+    consumer warpgroup fit and whose items give every consumer warpgroup of
+    every block one."""
+    if bias is not None or sk2 or not 0 < sk <= fl.SHORT_MAX_KEYS or dh not in fl.SHORT_HEAD_DIMS:
+        return False
+    unit = math.lcm(dh, 64) // dh
+    for g in range(unit, unit * max(1, 320 // (unit * dh)) + 1, unit):
+        g = min(g, heads)
+        chunks = -(-g * dh // 64)
+        if (fl.flash_short_bytes(-(-sk // 16) * 16, chunks, fl.SHORT_WGS * chunks) <= SMEM
+                and -(-sq // 64) * -(-heads // g) * b >= fl.SHORT_WGS * sms):
+            return True
+    return False
+
+
+def _check_short_plan(plan, b, sq, heads, dh, sk, sms):
+    g, chunks, slots = plan["head_group"], plan["q_chunks"], plan["q_slots"]
+    assert plan["store"] == "plain" and plan["tile_rows"] == fl.SHORT_ROWS
+    assert plan["threads"] == 128 * (fl.SHORT_WGS + 1) and plan["resident"]
+    assert plan["order"] == "query"
+    assert plan["key_tile"] == -(-sk // 16) * 16 and plan["key_tile"] in fl.KEY_TILES
+    assert 1 <= g <= heads and ((g * dh) % 64 == 0 or g == heads) and g * dh <= 320
+    assert chunks == -(-g * dh // 64) and fl.SHORT_WGS * chunks <= slots <= fl.SHORT_SLOTS
+    assert plan["items"] == -(-sq // 64) * -(-heads // g) * b
+    assert plan["smem_bytes"] == fl.flash_short_bytes(plan["key_tile"], chunks, slots) <= SMEM
+    # the largest slot count that fits; items for every warpgroup, two where
+    # a group of whole chunks gives two
+    assert slots == fl.SHORT_SLOTS or fl.flash_short_bytes(plan["key_tile"], chunks,
+                                                            slots + 1) > SMEM
+    assert plan["items"] >= fl.SHORT_WGS * sms
+    unit = math.lcm(dh, 64) // dh
+    if plan["items"] < 2 * fl.SHORT_WGS * sms:
+        assert g == unit or g == heads or all(
+            -(-sq // 64) * -(-heads // w) * b < 2 * fl.SHORT_WGS * sms
+            for w in range(unit, g, unit))
 
 
 def check_flash_walk(b, sq, heads, dh, sk, sk2=0, bias=None, sms=_build.H100_SMS):
     """K5's plan of one call, as the wrapper makes it: the persistent walk
     takes each (batch row, head, query tile) exactly once on at most one
-    block per SM; K/V is resident only where the whole key axis is one tile;
-    64-row items only where 128-row items would leave the card under one
-    wave (or do not fit beside two K/V stages); the shared bytes are this
+    block per SM; the short body exactly where it should take the call (its
+    own checks below); K/V is resident only where the whole key axis is one
+    tile; 64-row items only where 128-row items would leave the card under
+    one wave (or do not fit beside two K/V stages); the shared bytes are this
     layout's and one block can hold them; a bias shared by the batch comes
     from HBM once; a plan with any field changed is refused."""
     assert dh in fl.HEAD_DIMS
     plan = fl.flash_plan(b, sq, heads, dh, bias, sk, sk2=sk2, sms=sms)
     _build.check_plan("flash_attention", plan)
     tr, items = plan["tile_rows"], plan["items"]
-    assert tr in fl.TILE_ROWS and plan["threads"] == 128 * (tr // 64) + 32
-    assert items == -(-sq // tr) * heads * b and plan["grid"] == (min(items, sms),)
+    assert plan["grid"] == (min(items, sms),)
     taken = _flash_items(plan, b, sq, heads)
-    assert len(taken) == items and set(taken.values()) == {1}
+    assert len(taken) == -(-sq // tr) * heads * b and set(taken.values()) == {1}
+    assert (plan["body"] == "short") == _short_expected(b, sq, heads, dh, sk, sk2, bias, sms)
+    for key, edit in _FLASH_PLAN_EDITS:
+        if key in plan:
+            with pytest.raises(ValueError, match="no launch"):
+                _build.check_plan("flash_attention", {**plan, key: edit(plan[key])})
+    if plan["body"] == "short":
+        _check_short_plan(plan, b, sq, heads, dh, sk, sms)
+        return plan
+    assert plan["store"] == "tma" and plan["key_tile"] == 128 and plan["head_group"] == 1
+    assert tr in fl.TILE_ROWS and plan["threads"] == 128 * (tr // 64) + 32
+    assert items == -(-sq // tr) * heads * b
     one_tile = 0 < sk <= fl.BLOCK_KEYS and sk2 == 0
     assert plan["resident"] == one_tile
     fits_128 = fl.flash_layout_bytes(dh, 128, 2, 1 if one_tile else 2) <= SMEM
@@ -229,9 +291,6 @@ def check_flash_walk(b, sq, heads, dh, sk, sk2=0, bias=None, sms=_build.H100_SMS
         assert plan["bias_bytes_read"] == heads * sq * sk * 4
     elif bias == "batch":
         assert plan["bias_bytes_read"] == b * heads * sq * sk * 4
-    for key, edit in _FLASH_PLAN_EDITS:
-        with pytest.raises(ValueError, match="no launch"):
-            _build.check_plan("flash_attention", {**plan, key: edit(plan[key])})
     return plan
 
 
@@ -265,17 +324,58 @@ def test_flash_plan_covers_each_chip_smoke_case(shape):
 
 @pytest.mark.parametrize("shape", _chip_smoke_cases("flash_attention_bias"))
 def test_flash_bias_plan_covers_each_chip_smoke_case(shape):
-    """K5 with a bias: the unbiased plan's tile, rings and shared bytes (each
-    consumer thread reads its scores' bias from global memory), with the
-    batch row fastest where a bias is shared and K/V not resident, so that
-    the shared bias comes from HBM once; a per-row bias is read once."""
+    """K5 with a bias: the tiles body, at the unbiased plan's tile, rings and
+    shared bytes where that plan takes the tiles body too (each consumer
+    thread reads its scores' bias from global memory), with the batch row
+    fastest where a bias is shared and K/V not resident, so that the shared
+    bias comes from HBM once; a per-row bias is read once."""
     b, sq, sk, heads, dh, form = (shape[x] for x in ("b", "sq", "sk", "heads", "dh", "bias"))
     assert form in ("shared", "batch")
     plan = check_flash_walk(b, sq, heads, dh, sk, bias=form)
     plain = fl.flash_plan(b, sq, heads, dh, None, sk)
-    for key in ("tile_rows", "q_stages", "kv_stages", "resident", "smem_bytes", "grid"):
-        assert plan[key] == plain[key]
-    assert plan["bias"] == form
+    assert plan["body"] == "tiles" and plan["bias"] == form
+    if plain["body"] == "tiles":
+        for key in ("tile_rows", "q_stages", "kv_stages", "resident", "smem_bytes", "grid"):
+            assert plan[key] == plain[key]
+
+
+@pytest.mark.parametrize("dh", fl.SHORT_HEAD_DIMS)
+@pytest.mark.parametrize("sk", [1, 4, 16, 17, 32, 33, 77, 80, 81, 112, 113, 128, 129])
+def test_flash_short_body_at_its_key_widths(sk, dh):
+    """The short body's key width is Sk rounded up to 16 (the score product's
+    N, the softmax's width and P.V's depth), one instance per width of
+    ``KEY_TILES``; past 128 keys, or where no head group fits beside a Q ring
+    of an item for each consumer warpgroup (heads of 40 past 80 keys, of 160
+    past 96), the tiles body takes the call (``check_flash_walk`` holds the
+    rule); every plan walked and checked."""
+    for b, sq, heads in ((3, 17 * 1024, 8), (13, 4100, 5), (13, 4100, 3)):
+        plan = check_flash_walk(b, sq, heads, dh, sk)
+        if sk > 128:
+            assert plan["body"] == "tiles"
+        elif sk <= 80 or plan["body"] == "short":
+            assert plan["body"] == "short" and plan["key_tile"] == -(-sk // 16) * 16
+
+
+@pytest.mark.parametrize("heads,dh,group", [
+    (8, 40, 8), (3, 40, 3), (12, 40, 8), (8, 80, 4), (6, 80, 4), (8, 160, 2), (3, 160, 2),
+    (5, 64, 5), (7, 64, 5), (20, 64, 5), (1, 64, 1)])
+def test_flash_short_head_groups(heads, dh, group):
+    """A head group is the most heads whose channels make whole 64-channel
+    chunks, up to 320 channels (8 of 40, 4 of 80, 2 of 160, 5 of 64), or
+    every head where there are fewer; the last group may be ragged. Where
+    the items would not give every warpgroup of every block two (then one),
+    the group shrinks, and below its fewest heads the tiles body takes the
+    call."""
+    plan = check_flash_walk(13, 4100, heads, dh, 77)
+    assert plan["body"] == "short" and plan["head_group"] == group
+    assert plan["q_chunks"] == -(-group * dh // 64)
+    # the editors' calls: SDXL's L2 cross-attention and the IP adapter's take
+    # one head an item; SD1.5's L0 cross-attention (8 heads of 40 an item,
+    # 192 items) and its mid block's self-attention (24 items) the tiles body
+    assert check_flash_walk(3, 1024, 20, 64, 77)["head_group"] == 1
+    assert check_flash_walk(2, 1024, 20, 64, 4)["head_group"] == 1
+    assert check_flash_walk(3, 4096, 8, 40, 77)["body"] == "tiles"
+    assert check_flash_walk(3, 64, 8, 160, 64)["body"] == "tiles"
 
 
 @pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
