@@ -40,46 +40,44 @@
 // an exponential to issue. The mma.sync body did not: scripts/torch_attention_stamps.py
 // put its warps' cycles at L0 self in the exponentials 26 %, P.V 23 %
 // (mma.sync and ldmatrix chains), the max tree 15 %, Q.K^T 12 %, the copies
-// 4 %: latency-bound at 2.24x its exp2 floor. The Hopper body below is 2 %
-// faster at L0 self (PERF.md section 6): its warps spend 38 % of their
-// cycles on the exponentials and the rest waiting on each step's chain (the
-// scores' wgmma behind the other warpgroup's products, the turn, the max
-// tree), two warps a sub-partition, the special-function unit under half
-// busy. What would keep more work in flight a warp did not pay (ptxas
-// compiles a kernel to 65536 / threads registers, 168 here, but the code
-// past a setmaxnreg.inc to the count that asks for: scripts/
-// torch_regcap_probe.py, 222 of 232 with no spill in a kernel of this
-// block's shape): the next step's scores issued under this step's
-// softmax serialise the wgmmas (C7515: the softmax writes score registers
-// while a wgmma is in flight; with the scores read-only and P packed apart,
-// no warning but 1.25x slower), two units a step and three consumer
-// warpgroups spill (C7512), fewer units a warpgroup (1 or 2) are 1.2-1.6x
-// slower, and a quarter of the exponentials on the FMA pipe lengthens the
-// chain (1.1x). 128-key stages, the row sums by fp32 adds and a correction
-// skipped where no maximum grew were slower too.
+// 4 %: latency-bound at 2.24x its exp2 floor. In the Hopper body each
+// consumer warp runs one chain a step (the wgmma issue and the scores' wait,
+// the max tree, the exponentials, the pack); more warps a sub-partition keep
+// the special-function unit busier: three consumer warpgroups (layout WG3)
+// take L0 self at the forward's 48 rows 11 % under two (PERF.md section 6),
+// the unit 61-64 % busy by the stamps' count. Tried and slower (PERF.md):
+// two warpgroups each keeping the next step's scores and the last step's
+// P.V in flight under a step's softmax (two score, P and P.V buffers by step
+// parity), and two units a step. A wgmma accumulator that any other
+// instruction writes while a product is in flight makes ptxas serialise the
+// loop's wgmmas (C7515), and the compiler itself moves zero-initialisations
+// and branches of operand selects there. A quarter of the exponentials on the
+// FMA pipe lengthened the chain (1.1x), and 128-key stages, the row sums by
+// fp32 adds and a correction skipped where no maximum grew were slower.
 //
 // Design of the Hopper body (ops/folded_attention.py folded_plan sizes it;
 // the entry refuses a plan that does not match this file's layout):
 //  - Persistent blocks (one per SM) walk items of (batch row, head group,
-//    128 or 64 query rows), query tile fastest, so the blocks in flight
-//    share K/V in L2. A producer warp (one thread issuing TMA) fills a ring
-//    of 2 Q tiles and a ring of 4 stages of 64 keys with separate full and
-//    empty mbarriers for K and V; the consumers poll the full barriers.
-//  - Two consumer warpgroups share each stage. An item is U units a
-//    warpgroup, a unit being (64 query rows, one head): with 128 rows each
-//    warpgroup takes its 64 rows of every head of the group, with 64 rows
-//    the warpgroups split the heads. Each unit keeps its output, row sums
-//    and row maxima in registers across the key loop (DH/2 + 6 a thread),
-//    so U is 4 at DH 8 and 16, 2 at 32, 1 at 64, under ptxas's 168
-//    registers a thread.
+//    64 rows or one 64-row tile a consumer warpgroup), query tile fastest,
+//    so the blocks in flight share K/V in L2. The producer (a warp, or in
+//    WG3 a warpgroup of which one thread issues TMA) fills a ring of 2 Q
+//    tiles and a ring of 4 stages of 64 keys with separate full and empty
+//    mbarriers for K and V; the consumers poll the full barriers.
+//  - Two (WARP2) or three (WG3, head width 8 where its 192-row items fill
+//    the card) consumer warpgroups share each stage. An item is U units a
+//    warpgroup, a unit being (64 query rows, one head): with a tile a
+//    warpgroup each takes its 64 rows of every head of the group, with one
+//    tile the warpgroups split the heads. Each unit keeps its output, row
+//    sums and row maxima in registers across the key loop (DH/2 + 6 a
+//    thread), so U is 4 at DH 8 and 16, 2 at 32, 1 at 64: at most 166
+//    registers a thread, under WARP2's 168 and within WG3's 160.
 //  - A stage's units run as steps. A step issues its unit's Q.K^T and the
 //    previous step's P.V as two commit groups of wgmma, waits for the
 //    scores only, and runs the softmax while that P.V runs; no product is
-//    in flight from one step to the next (the next step's scores issued
-//    ahead serialise the wgmmas: C7515, above).
-//    At DH 16 and up the two warpgroups take turns to issue (named
-//    barriers), so that one's softmax runs while the other waits for its
-//    scores, instead of both waiting at once; at DH 8 they issue freely.
+//    in flight from one step to the next.
+//    At DH 16 and up the warpgroups take turns to issue (named barriers),
+//    so that one's softmax runs while another waits for its scores, instead
+//    of all waiting at once; at DH 8 they issue freely.
 //    A unit's offsets are recomputed with selects and shifts: runtime
 //    divisions there cost a third of the kernel's time.
 //  - Tiles land by one 4-D TMA box each ([B, S, C] seen as [B, C/8, S, 8]:
@@ -102,9 +100,10 @@
 //    bf16 rounding moves the output (at DH 64 it took a case past 1.5x the
 //    plain version's error against fp32). At DH 32 and 64 the maxima move
 //    at every stage, exactly (a vote with no margin was 2-3 % slower).
-//  - Output: normalised, staged as bf16 per unit ([chunk][64 rows][8]) and
-//    written by a TMA store (rows past Sq are clipped) while the next item
-//    computes.
+//  - Output: normalised; WARP2 stages it as bf16 per unit ([chunk][64
+//    rows][8]) and writes it by a TMA store (rows past Sq are clipped) while
+//    the next item computes; WG3 stores each thread's two rows from the
+//    registers (its consumers may have no bulk-group wait, below).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,8 +117,6 @@ namespace {
 // ================= the Hopper body =================
 
 constexpr int BK = 64;              // keys per K/V stage (128 measured slower)
-constexpr int NWG = 2;              // consumer warpgroups (3 and 4 measured slower)
-constexpr int THREADS = 128 * NWG + 32;   // and a producer warp
 constexpr int MAX_STAGES = 4;       // of the Q ring and of the K/V ring
 constexpr int BARRIER_BYTES = 256, ALIGN = 128;
 constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 1.0
@@ -128,23 +125,55 @@ constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 1.0
 // 2^LAZY_LOG2; wider heads move it at every stage.
 constexpr float LAZY_LOG2 = 8.f;
 
+// The block's layouts (ops/folded_attention.py LAYOUTS):
+//  - WARP2: two consumer warpgroups and a producer warp (ptxas gives each
+//    thread 168 registers), the output staged and written by TMA stores;
+//  - WG3: three consumer warpgroups and a producer warpgroup, which gives its
+//    registers up (setmaxnreg 24) so that the consumers hold 160, the output
+//    stored from the registers. ptxas compiles the code past a
+//    setmaxnreg.inc to the count it asks for only where no bulk-group wait
+//    (a TMA store's) sits in that code: with one there, the consumers get the
+//    launch's 128 and spill at four units of 16 channels (scripts/
+//    torch_regcap_probe.py --k1, "a bulk wait in the consumers").
+enum Form : int { WARP2 = 0, WG3 = 1 };
+
+template <int L>
+struct FormCfg {
+  static constexpr int NWG = L == WG3 ? 3 : 2;   // consumer warpgroups
+  static constexpr bool PRODUCER_WG = L == WG3;  // else a producer warp
+  static constexpr int THREADS = 128 * NWG + (PRODUCER_WG ? 128 : 32);
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 160;   // setmaxnreg (WG3)
+  static_assert(!PRODUCER_WG || (PRODUCER_REGS + NWG * CONSUMER_REGS) * 128 <= 65536,
+                "the setmaxnreg counts fit the register file");
+};
+
+__host__ __device__ constexpr int nwg_of(int layout) { return layout == WG3 ? 3 : 2; }
+
+// The layouts a head width may take: WG3 at 8 only (at 16 its 192-row items
+// waste a ninth of i2vgen-xl's L1 tiles and measured slower).
+__host__ __device__ constexpr bool layout_ok(int dh, int layout) {
+  return layout == WARP2 || (layout == WG3 && dh == 8);
+}
+
 // The units a consumer warpgroup holds at most, by head width: each keeps
-// DH/2 + 4 accumulators and 2 maxima a thread across the key loop, under
-// ptxas's 168 registers a thread.
+// DH/2 + 4 accumulators and 2 maxima a thread across the key loop.
 __host__ __device__ constexpr int max_units(int dh) {
   return dh <= 16 ? 4 : dh == 32 ? 2 : 1;
 }
 
 // The shared memory of one launch, in bytes from the 128-aligned base: the
-// Q ring, the K ring, the V ring, the output staging (units of [chunk][64
-// rows][8] for every consumer warpgroup), the zero chunk and the ones chunk
-// (64 rows of 16 bytes each), the barriers. ops/folded_attention.py
-// folded_layout_bytes is the same formula.
+// Q ring, the K ring, the V ring, with WARP2 the output staging (units of
+// [chunk][64 rows][8] for every consumer warpgroup), the zero chunk and the
+// ones chunk (64 rows of 16 bytes each), the barriers.
+// ops/folded_attention.py folded_layout_bytes is the same formula.
 struct Layout {
   int q_bytes, kv_bytes, o_unit, q_off, k_off, v_off, o_off, zero_off, ones_off, bar_off, total;
 };
 
-inline Layout make_layout(int dh, int hb, int tile_rows, int units, int q_stages, int kv_stages) {
+// staged: the units staged for TMA stores (WARP2: every consumer
+// warpgroup's; WG3: none)
+inline Layout make_layout(int dh, int hb, int tile_rows, int staged, int q_stages,
+                          int kv_stages) {
   const int g = hb * dh;
   Layout l;
   l.q_bytes = tile_rows * g * 2;
@@ -154,26 +183,27 @@ inline Layout make_layout(int dh, int hb, int tile_rows, int units, int q_stages
   l.k_off = q_stages * l.q_bytes;
   l.v_off = l.k_off + kv_stages * l.kv_bytes;
   l.o_off = l.v_off + kv_stages * l.kv_bytes;
-  l.zero_off = l.o_off + NWG * units * l.o_unit;
+  l.zero_off = l.o_off + staged * l.o_unit;
   l.ones_off = l.zero_off + BK * 16;
   l.bar_off = l.ones_off + BK * 16;
   l.total = l.bar_off + BARRIER_BYTES + ALIGN;
   return l;
 }
 
-// The TMA maps of q, k, v (loads) and o (stores), the shapes, and the
-// launch plan's fields.
+// The TMA maps of q, k, v (loads) and o (WARP2's stores), the output, the
+// shapes, and the launch plan's fields.
 struct Params {
   CUtensorMap q, k, v, o;
   int B, Sq, Sk, H;
   int hb;          // heads of a group
   int ng;          // head groups
-  int qt;          // 64-row query tiles of an item (1 or 2)
+  int qt;          // 64-row query tiles of an item (1, or one a consumer warpgroup)
   int units;       // (query tile, head) units of an item: qt * hb
   int nqp;         // items of a (batch row, head group)
   int items, ntiles, q_stages, kv_stages;
   float scale_log2;
   Layout lay;
+  __nv_bfloat16* out;
 };
 
 struct Item {
@@ -185,10 +215,12 @@ __device__ __forceinline__ Item item_of(const Params& p, int it) {
   return {r / p.ng, r % p.ng, (it % p.nqp) * p.qt * 64};
 }
 
-template <int DH, int U>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int DH, int U, int L>
+__global__ void __launch_bounds__(FormCfg<L>::THREADS, 1)
     folded_attention_kernel(const __grid_constant__ Params p) {
   using namespace hopper;
+  using F = FormCfg<L>;
+  constexpr int NWG = F::NWG;
   constexpr int DC = DH / 8;          // 8-channel chunks of a head
   constexpr int NACC = DH / 2 + 4;    // a unit's output and row-sum registers
   // the warpgroups take turns to issue, but at DH 8: timed in one call with
@@ -198,8 +230,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + (ALIGN - 1)) & ~uintptr_t(ALIGN - 1));
-  const Layout& L = p.lay;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  const Layout& lay = p.lay;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t *qfull = bars, *qempty = bars + MAX_STAGES;
   uint64_t *kfull = bars + 2 * MAX_STAGES, *kempty = bars + 3 * MAX_STAGES;
   uint64_t *vfull = bars + 4 * MAX_STAGES, *vempty = bars + 5 * MAX_STAGES;
@@ -221,15 +253,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   // the zero chunk (the score depth's second 8 channels at DH 8) and the
   // ones chunk (the row sums' column)
   for (int e = threadIdx.x; e < 2 * BK; e += blockDim.x)
-    *reinterpret_cast<uint4*>(smem + L.zero_off + e * 16) =
+    *reinterpret_cast<uint4*>(smem + lay.zero_off + e * 16) =
         e < BK ? make_uint4(0u, 0u, 0u, 0u) : make_uint4(ONES2, ONES2, ONES2, ONES2);
   fence_proxy_async();
   __syncthreads();
 
-  // the warpgroup index (the producer warp's is NWG), warp-uniform
+  // the warpgroup index (the producer's is NWG), warp-uniform
   const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   if (role == NWG) {
     // ---- producer ----
+    if constexpr (F::PRODUCER_WG) setmaxnreg_dec<F::PRODUCER_REGS>();
     if (threadIdx.x != 128 * NWG) return;
     const int c0 = p.hb * DC;   // chunks of a head group
     int qi = 0, kv = 0;
@@ -237,17 +270,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       const Item x = item_of(p, it);
       const int slot = qi % QS;
       if (qi >= QS) mbar_wait(&qempty[slot], ((qi / QS) - 1) & 1);
-      mbar_arrive_expect_tx(&qfull[slot], L.q_bytes);
-      tma_load_4d(smem + L.q_off + slot * L.q_bytes, &p.q, &qfull[slot], 0, x.q0, x.hg * c0, x.b);
+      mbar_arrive_expect_tx(&qfull[slot], lay.q_bytes);
+      tma_load_4d(smem + lay.q_off + slot * lay.q_bytes, &p.q, &qfull[slot], 0, x.q0, x.hg * c0, x.b);
       for (int t = 0; t < p.ntiles; ++t, ++kv) {
         const int stage = kv % KS, round = kv / KS;
         if (round > 0) mbar_wait(&kempty[stage], (round - 1) & 1);
-        mbar_arrive_expect_tx(&kfull[stage], L.kv_bytes);
-        tma_load_4d(smem + L.k_off + stage * L.kv_bytes, &p.k, &kfull[stage], 0, t * BK,
+        mbar_arrive_expect_tx(&kfull[stage], lay.kv_bytes);
+        tma_load_4d(smem + lay.k_off + stage * lay.kv_bytes, &p.k, &kfull[stage], 0, t * BK,
                     x.hg * c0, x.b);
         if (round > 0) mbar_wait(&vempty[stage], (round - 1) & 1);
-        mbar_arrive_expect_tx(&vfull[stage], L.kv_bytes);
-        tma_load_4d(smem + L.v_off + stage * L.kv_bytes, &p.v, &vfull[stage], 0, t * BK,
+        mbar_arrive_expect_tx(&vfull[stage], lay.kv_bytes);
+        tma_load_4d(smem + lay.v_off + stage * lay.kv_bytes, &p.v, &vfull[stage], 0, t * BK,
                     x.hg * c0, x.b);
       }
     }
@@ -255,10 +288,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   // ---- consumers ----
+  if constexpr (F::PRODUCER_WG) setmaxnreg_inc<F::CONSUMER_REGS>();
   const int wg = role, tw = threadIdx.x % 128, lane = tw % 32, g = lane / 4, t4 = lane % 4;
   const bool lead = lane == 0;
   const uint32_t sbase = smem_addr(smem);
-  const uint32_t zero = sbase + L.zero_off, ones = sbase + L.ones_off;
+  const uint32_t zero = sbase + lay.zero_off, ones = sbase + lay.ones_off;
   const float sl = p.scale_log2, lazy = LAZY_LOG2 / sl;   // the lazy margin on raw scores
   // this warpgroup's unit i is u = wg + NWG i: with NWG query tiles an
   // item, its own tile of head i; with one, head wg + NWG i. A unit past the
@@ -270,7 +304,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto head_of = [&](int i) { return min(head_at(i), p.hb - 1); };
   auto qoff = [&](int i) { return (head_of(i) * DC * TR + qtile * 64) * 16; };   // [chunk][row][8]
   auto hoff = [&](int i) { return head_of(i) * DC * BK * 16; };   // in a K or V stage
-  unsigned char* ostage = smem + L.o_off + wg * U * L.o_unit;
+  unsigned char* ostage = smem + lay.o_off + wg * U * lay.o_unit;
   const int T = p.ntiles;
   // the consumer warpgroups take turns to issue their products, in a ring
   // of named barriers (NWG + 1 ...), so that one's softmax runs while the
@@ -290,9 +324,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++qi) {
     const Item x = item_of(p, it);
     const int slot = qi % QS;
-    const uint32_t qs = sbase + L.q_off + slot * L.q_bytes;
-    auto kst = [&](int t) { return sbase + L.k_off + ((kv + t) % KS) * L.kv_bytes; };
-    auto vst = [&](int t) { return sbase + L.v_off + ((kv + t) % KS) * L.kv_bytes; };
+    const uint32_t qs = sbase + lay.q_off + slot * lay.q_bytes;
+    auto kst = [&](int t) { return sbase + lay.k_off + ((kv + t) % KS) * lay.kv_bytes; };
+    auto vst = [&](int t) { return sbase + lay.v_off + ((kv + t) % KS) * lay.kv_bytes; };
     auto ph = [&](int t) { return (uint32_t)(((kv + t) / KS) & 1); };
 
     float acc[U][NACC], m0[U], m1[U];
@@ -414,6 +448,30 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     kv += T;
 
+    if constexpr (F::PRODUCER_WG) {
+      // normalise and store each unit's two rows a thread from the
+      // registers, 4 bytes an 8-channel chunk (rows past Sq are not stored):
+      // no bulk-group wait in the consumers' code (above)
+      const int r = x.q0 + qtile * 64 + (tw / 32) * 16 + g, C = p.H * DH;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int h = head_at(i);
+        if (h >= p.hb) continue;
+        const float i0 = 1.f / acc[i][DH / 2], i1 = 1.f / acc[i][DH / 2 + 2];
+        __nv_bfloat16* dst =
+            p.out + ((size_t)x.b * p.Sq + r) * C + (x.hg * p.hb + h) * DH + 2 * t4;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          if (r < p.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
+                __floats2bfloat162_rn(acc[i][c * 4 + 0] * i0, acc[i][c * 4 + 1] * i0);
+          if (r + 8 < p.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * C + c * 8) =
+                __floats2bfloat162_rn(acc[i][c * 4 + 2] * i1, acc[i][c * 4 + 3] * i1);
+        }
+      }
+      continue;
+    }
     // normalise, stage each unit as bf16 ([chunk][64 rows][8]) once the
     // previous item's stores have read the staging buffer, store by TMA
     if (tw == 0) bulk_wait_read();
@@ -422,7 +480,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < U; ++i) {
       const float i0 = 1.f / acc[i][DH / 2], i1 = 1.f / acc[i][DH / 2 + 2];
-      unsigned char* st = ostage + i * L.o_unit;
+      unsigned char* st = ostage + i * lay.o_unit;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         unsigned char* dst = st + (c * 64 + r) * 16 + 4 * t4;
@@ -439,12 +497,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < U; ++i) {
         const int r0 = x.q0 + qtile * 64, h = head_at(i);
         if (h < p.hb && r0 < p.Sq)
-          tma_store_4d(&p.o, ostage + i * L.o_unit, 0, r0, (x.hg * p.hb + h) * DC, x.b);
+          tma_store_4d(&p.o, ostage + i * lay.o_unit, 0, r0, (x.hg * p.hb + h) * DC, x.b);
       }
       bulk_commit();
     }
   }
-  if (tw == 0) bulk_wait();
+  if (!F::PRODUCER_WG && tw == 0) bulk_wait();
 }
 
 // A 4-D map over a bf16 [B, S, C] tensor seen as [B, C / 8, S, 8]: one box
@@ -457,36 +515,37 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int C, int rows, 
   return hopper::make_bf16_map(map, ptr, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <int DH, int U>
+template <int DH, int U, int L>
 cudaError_t launch(Params& p, const void* q, const void* k, const void* v, void* o, int grid,
                    cudaStream_t stream) {
   const int C = p.H * DH, chunks = p.hb * DH / 8;
   if (!make_map(&p.q, q, p.B, p.Sq, C, p.qt * 64, chunks) ||
       !make_map(&p.k, k, p.B, p.Sk, C, BK, chunks) || !make_map(&p.v, v, p.B, p.Sk, C, BK, chunks) ||
-      !make_map(&p.o, o, p.B, p.Sq, C, 64, DH / 8))
+      (L == WARP2 && !make_map(&p.o, o, p.B, p.Sq, C, 64, DH / 8)))
     return cudaErrorInvalidValue;
-  auto kernel = folded_attention_kernel<DH, U>;
+  p.out = static_cast<__nv_bfloat16*>(o);
+  auto kernel = folded_attention_kernel<DH, U, L>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.lay.total);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, p.lay.total, stream>>>(p);
+  kernel<<<grid, FormCfg<L>::THREADS, p.lay.total, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, int L>
 cudaError_t launch_units(Params& p, int units, const void* q, const void* k, const void* v,
                          void* o, int grid, cudaStream_t stream) {
   switch (units) {
     case 1:
-      return launch<DH, 1>(p, q, k, v, o, grid, stream);
+      return launch<DH, 1, L>(p, q, k, v, o, grid, stream);
     case 2:
-      if constexpr (max_units(DH) >= 2) return launch<DH, 2>(p, q, k, v, o, grid, stream);
+      if constexpr (max_units(DH) >= 2) return launch<DH, 2, L>(p, q, k, v, o, grid, stream);
       break;
     case 3:
-      if constexpr (max_units(DH) >= 3) return launch<DH, 3>(p, q, k, v, o, grid, stream);
+      if constexpr (max_units(DH) >= 3) return launch<DH, 3, L>(p, q, k, v, o, grid, stream);
       break;
     case 4:
-      if constexpr (max_units(DH) >= 4) return launch<DH, 4>(p, q, k, v, o, grid, stream);
+      if constexpr (max_units(DH) >= 4) return launch<DH, 4, L>(p, q, k, v, o, grid, stream);
       break;
   }
   return cudaErrorInvalidValue;
@@ -741,20 +800,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // The Hopper body, Sq > 32: DH 8/16/32/64, scale > 0, pointers 16-byte
-// aligned. The launch plan (ops/folded_attention.py folded_plan): heads a
-// group, 64-row query tiles an item (1 or 2), units a warpgroup, the Q and
-// K/V ring depths, the persistent grid and smem_bytes, refused unless the
-// units are the item's split over two warpgroups, the bytes are this file's
-// layout of those fields and one block can hold them.
+// aligned. The launch plan (ops/folded_attention.py folded_plan): the block
+// layout, heads a group, 64-row query tiles an item (1, or one a consumer
+// warpgroup), units a warpgroup, the Q and K/V ring depths, the persistent
+// grid and smem_bytes, refused unless the head width may take the layout,
+// the units are the item's split over its warpgroups, the bytes are this
+// file's layout of those fields and one block can hold them.
 extern "C" int anyv2v_folded_attention(const void* q, const void* k, const void* v, void* o,
                                        int B, int Sq, int Sk, int H, int DH, float scale,
-                                       int heads_per_block, int q_tiles, int units,
+                                       int layout, int heads_per_block, int q_tiles, int units,
                                        int q_stages, int kv_stages, int grid, int smem_bytes,
                                        void* stream) {
-  if (B <= 0 || Sq <= 32 || Sk <= 0 || H <= 0 || heads_per_block <= 0 ||
-      H % heads_per_block != 0 || heads_per_block * DH > 128 || (q_tiles != 1 && q_tiles != NWG) ||
-      units < 1 || units > max_units(DH) ||
-      units != (q_tiles * heads_per_block + NWG - 1) / NWG ||
+  if (DH != 8 && DH != 16 && DH != 32 && DH != 64) return (int)cudaErrorInvalidValue;
+  const int nwg = nwg_of(layout);
+  if (B <= 0 || Sq <= 32 || Sk <= 0 || H <= 0 || !layout_ok(DH, layout) ||
+      heads_per_block <= 0 || H % heads_per_block != 0 || heads_per_block * DH > 128 ||
+      (q_tiles != 1 && q_tiles != nwg) || units < 1 || units > max_units(DH) ||
+      units != (q_tiles * heads_per_block + nwg - 1) / nwg ||
       q_stages < 1 || q_stages > MAX_STAGES || kv_stages < 1 || kv_stages > MAX_STAGES ||
       !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
@@ -775,20 +837,20 @@ extern "C" int anyv2v_folded_attention(const void* q, const void* k, const void*
   p.q_stages = q_stages;
   p.kv_stages = kv_stages;
   p.scale_log2 = scale * 1.4426950408889634f;
-  p.lay = make_layout(DH, heads_per_block, 64 * q_tiles, units, q_stages, kv_stages);
+  p.lay = make_layout(DH, heads_per_block, 64 * q_tiles, layout == WARP2 ? nwg * units : 0,
+                      q_stages, kv_stages);
   if (smem_bytes != p.lay.total || p.lay.total > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (DH) {
     case 8:
-      return (int)launch_units<8>(p, units, q, k, v, o, grid, s);
+      return (int)(layout == WG3 ? launch_units<8, WG3>(p, units, q, k, v, o, grid, s)
+                                 : launch_units<8, WARP2>(p, units, q, k, v, o, grid, s));
     case 16:
-      return (int)launch_units<16>(p, units, q, k, v, o, grid, s);
+      return (int)launch_units<16, WARP2>(p, units, q, k, v, o, grid, s);
     case 32:
-      return (int)launch_units<32>(p, units, q, k, v, o, grid, s);
-    case 64:
-      return (int)launch_units<64>(p, units, q, k, v, o, grid, s);
+      return (int)launch_units<32, WARP2>(p, units, q, k, v, o, grid, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return (int)launch_units<64, WARP2>(p, units, q, k, v, o, grid, s);
   }
 }
 

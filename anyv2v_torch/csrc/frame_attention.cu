@@ -417,8 +417,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
 
 namespace long_body {
 
-// consumer warpgroups (three measured slower: ptxas then allows 128
-// registers a thread, and spills); and a producer warp
+// consumer warpgroups (three measured slower: at 128 registers a thread
+// they spill, and setmaxnreg would not lift that while the consumers' TMA
+// stores keep their bulk-group waits, hopper.cuh); and a producer warp
 constexpr int NWG = 2;
 constexpr int THREADS = 128 * NWG + 32;
 constexpr int MAX_STAGES = 2;      // item stages of the ring

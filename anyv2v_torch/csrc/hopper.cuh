@@ -269,9 +269,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // setmaxnreg.inc to the count it asks for (scripts/torch_regcap_probe.py,
 // the SASS's highest register: 222 of 232 at 384 threads and 230 at 288
 // with no spill, 152 of 160 at 512, where without it the same code spills
-// at 166 and 126). At run time the increase comes out of what a
-// setmaxnreg.dec of another warpgroup of the block gave up, so a producer
-// warpgroup decreases first.
+// at 166 and 126), but not where a bulk-group wait (cp.async.bulk.wait_group,
+// a TMA store's) sits in that code: then the launch's count holds it (K1's
+// three consumer warpgroups at 160: 124 registers and spills with the wait,
+// 156 and none without; torch_regcap_probe.py --k1). At run time the
+// increase comes out of what a setmaxnreg.dec of another warpgroup of the
+// block gave up, so a producer warpgroup decreases first.
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));

@@ -9,9 +9,13 @@ two bodies cover self and cross attention at every Sq and Sk and padded head
 widths 8/16/32/64, each a kernel symbol of its own:
 
 - ``folded_attention_kernel``, the Hopper body: persistent blocks of a TMA
-  producer warp and two ``wgmma`` consumer warpgroups on mbarrier
-  rings, each warpgroup pipelining (64 query rows, head) units over 64-key
-  stages, for the long key axes (the spatial self-attentions);
+  producer and ``wgmma`` consumer warpgroups on mbarrier rings, each
+  warpgroup stepping through (64 query rows, head) units over 64-key stages,
+  for the long key axes (the spatial self-attentions), in one of two block
+  layouts (``LAYOUTS``): "wg3" at head width 8 where its items fill the card,
+  three consumer warpgroups beside a producer warpgroup that gives its
+  registers up by ``setmaxnreg`` (three softmax chains a sub-partition);
+  "warp2" elsewhere, two consumer warpgroups and a producer warp;
 - ``folded_attention_short_kernel``, the short body: ``mma.sync`` on K/V
   tiles from a ``cp.async`` ring, for Sq <= 32 (the image-latent encoder at
   16 frames, seine-tiny's short calls), where a 64-row ``wgmma`` would be
@@ -45,11 +49,23 @@ GROUP_CHANNELS = 128     # channels of one block's head group, at most
 
 # the Hopper body
 BLOCK_KEYS = 64          # keys per K/V stage
-WARPGROUPS = 2           # consumer warpgroups (csrc NWG)
 UNITS = {8: 4, 16: 4, 32: 2, 64: 1}   # (64 rows, head) units a consumer warpgroup holds, at most
 Q_STAGES, KV_STAGES = 2, 4
-THREADS = 128 * WARPGROUPS + 32   # and a producer warp
 BARRIER_BYTES, ALIGN = 256, 128
+# its block layouts (csrc Form, by id): consumer warpgroups, the producer's
+# threads (a warp, or a warpgroup that gives registers up), the registers a
+# thread of each after setmaxnreg (None: no setmaxnreg), and whether the
+# output is staged for TMA stores (else stored from the registers)
+LAYOUTS = {
+    "warp2": {"id": 0, "warpgroups": 2, "producer_threads": 32, "producer_regs": None,
+              "consumer_regs": None, "staged": True},
+    "wg3": {"id": 1, "warpgroups": 3, "producer_threads": 128, "producer_regs": 24,
+            "consumer_regs": 160, "staged": False},
+}
+# "wg3" at head width 8 where its items fill the card WG3_MIN_WAVES times and
+# its 192-row items pad Sq to at most WG3_MAX_PAD times the rows of "warp2"'s
+# 128-row items
+WG3_MIN_WAVES, WG3_MAX_PAD = 4, 1.0625
 
 # the short body
 KEY_TILE = 64            # keys per stage of the K/V ring
@@ -57,17 +73,17 @@ MAX_WARPS = 8
 STAGES = 2               # K/V ring stages (fixed in the kernel): two blocks share an SM
 
 
-def folded_layout_bytes(head_dim: int, heads_per_block: int, q_tiles: int, units: int,
+def folded_layout_bytes(head_dim: int, heads_per_block: int, q_tiles: int, staged: int,
                         q_stages: int, kv_stages: int) -> int:
     """Shared bytes of one Hopper-body block (``csrc/folded_attention.cu``
     ``make_layout``): a ring of Q tiles ``[64 * q_tiles, G]`` and one of K
     and V tiles ``[64, G]`` (G = the head group's channels), the output's
-    staging (``units`` of ``[64, dh]`` a warpgroup), a zero and a ones chunk
-    of 64 rows of 16 bytes, the barriers and the alignment slack."""
+    staging (``staged`` units of ``[64, dh]``: every consumer warpgroup's
+    where the layout stages it, else none), a zero and a ones chunk of 64 rows
+    of 16 bytes, the barriers and the alignment slack."""
     g = heads_per_block * head_dim
     return (q_stages * 64 * q_tiles * g * 2 + 2 * kv_stages * BLOCK_KEYS * g * 2
-            + WARPGROUPS * units * 64 * head_dim * 2 + 2 * BLOCK_KEYS * 16 + BARRIER_BYTES
-            + ALIGN)
+            + staged * 64 * head_dim * 2 + 2 * BLOCK_KEYS * 16 + BARRIER_BYTES + ALIGN)
 
 
 def _short_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
@@ -97,29 +113,36 @@ def _short_plan(b: int, sq: int, sk: int, heads: int, head_dim: int) -> dict:
             "grid": (-(-sq // (16 * q_tiles)) * -(-b // rows), heads // hb)}
 
 
-def _hopper_plan(b: int, sq: int, sk: int, heads: int, head_dim: int, sms: int) -> dict:
-    """The Hopper body's launch: items of (batch row, head group, query tile
-    of ``64 * q_tiles`` rows), ``q_tiles`` ``WARPGROUPS`` where Sq > 64, else
-    1. An item is ``q_tiles * heads_per_block`` units of (64 rows, head),
-    split over the consumer warpgroups, ``units`` each: each warpgroup takes
-    its 64 rows of every head (``WARPGROUPS`` tiles) or every
-    ``WARPGROUPS``-th head (1 tile). The head group is the most whole heads
-    that keep ``units`` within ``UNITS[head_dim]`` and the group within 128
-    channels. ``ntiles`` stages of ``BLOCK_KEYS`` keys an item, in a ring of
-    ``KV_STAGES`` stages or as many as fit (at least 2); a persistent grid
-    of one block per SM (``sms``), or one per item where there are fewer."""
-    q_tiles = WARPGROUPS if sq > 64 else 1
-    cap = UNITS[head_dim] * (WARPGROUPS // q_tiles)
+def _hopper_plan(b: int, sq: int, sk: int, heads: int, head_dim: int, sms: int,
+                 layout: str) -> dict:
+    """The Hopper body's launch in ``layout`` (``LAYOUTS``) of ``nwg``
+    consumer warpgroups: items of (batch row, head group, query tile of
+    ``64 * q_tiles`` rows), ``q_tiles`` ``nwg`` where Sq > 64, else 1. An
+    item is ``q_tiles * heads_per_block`` units of (64 rows, head), split
+    over the consumer warpgroups, ``units`` each: each warpgroup takes its 64
+    rows of every head (``nwg`` tiles) or every ``nwg``-th head (1 tile). The
+    head group is the most whole heads that keep ``units`` within
+    ``UNITS[head_dim]`` and the group within 128 channels. ``ntiles`` stages
+    of ``BLOCK_KEYS`` keys an item, in a ring of ``KV_STAGES`` stages or as
+    many as fit (at least 2); a persistent grid of one block per SM
+    (``sms``), or one per item where there are fewer."""
+    lay = LAYOUTS[layout]
+    nwg = lay["warpgroups"]
+    q_tiles = nwg if sq > 64 else 1
+    cap = UNITS[head_dim] * (nwg // q_tiles)
     hb = max(d for d in range(1, heads + 1)
              if heads % d == 0 and d <= cap and d * head_dim <= GROUP_CHANNELS)
-    units = -(-q_tiles * hb // WARPGROUPS)
+    units = -(-q_tiles * hb // nwg)
+    staged = nwg * units if lay["staged"] else 0
     items = b * (heads // hb) * -(-sq // (64 * q_tiles))
     kv_stages = next((n for n in range(KV_STAGES, 2, -1) if folded_layout_bytes(
-        head_dim, hb, q_tiles, units, Q_STAGES, n) <= _build.SMEM_LIMIT), 2)
-    return {"heads_per_block": hb, "q_tiles": q_tiles, "units": units, "q_stages": Q_STAGES,
+        head_dim, hb, q_tiles, staged, Q_STAGES, n) <= _build.SMEM_LIMIT), 2)
+    return {"layout": layout, "warpgroups": nwg,
+            "threads": 128 * nwg + lay["producer_threads"],
+            "producer_regs": lay["producer_regs"], "consumer_regs": lay["consumer_regs"],
+            "heads_per_block": hb, "q_tiles": q_tiles, "units": units, "q_stages": Q_STAGES,
             "kv_stages": kv_stages, "ntiles": -(-sk // BLOCK_KEYS), "items": items,
-            "threads": THREADS,
-            "smem_bytes": folded_layout_bytes(head_dim, hb, q_tiles, units, Q_STAGES,
+            "smem_bytes": folded_layout_bytes(head_dim, hb, q_tiles, staged, Q_STAGES,
                                               kv_stages),
             "grid": (max(1, min(items, sms)),)}
 
@@ -136,13 +159,27 @@ def folded_plan(b: int, sq: int, sk: int, heads: int, head_dim: int,
     bodies over a sweep of Sk at each head width: past 192 keys the short
     body still wins at 64 queries, but loses at i2vgen-xl's L2
     self-attention (256 queries, 256 keys). The Hopper body
-    (:func:`_hopper_plan`) takes the rest."""
+    (:func:`_hopper_plan`) takes the rest, in the layout "wg3" at head width
+    8 where its items fill the card ``WG3_MIN_WAVES`` times (its 192-row
+    items leave the last wave of a small call part empty) and pad the query
+    rows no more than ``WG3_MAX_PAD`` times "warp2"'s (Sq 200: 384 rows
+    against 256, and 11-20 % slower), else "warp2"."""
     shape = {"b": b, "sq": sq, "sk": sk, "heads": heads, "head_dim": head_dim, "sms": sms}
     short = _short_plan(b, sq, sk, heads, head_dim)
     if sq <= SHORT_MAX_QUERIES or (sk <= SHORT_MAX_KEYS
                                    and short["grid"][0] * short["grid"][1] >= sms):
         return {"shape": shape, "body": "short", **short}
-    return {"shape": shape, "body": "hopper", **_hopper_plan(b, sq, sk, heads, head_dim, sms)}
+    plan = _hopper_plan(b, sq, sk, heads, head_dim, sms, "warp2")
+    if head_dim == 8 and _takes_wg3(b, sq, sk, heads, sms):
+        plan = _hopper_plan(b, sq, sk, heads, head_dim, sms, "wg3")
+    return {"shape": shape, "body": "hopper", **plan}
+
+
+def _takes_wg3(b: int, sq: int, sk: int, heads: int, sms: int) -> bool:
+    """Whether a Hopper-body call at head width 8 takes the layout "wg3"."""
+    wg3 = _hopper_plan(b, sq, sk, heads, 8, sms, "wg3")
+    return (wg3["items"] >= WG3_MIN_WAVES * sms
+            and -(-sq // 192) * 192 <= WG3_MAX_PAD * -(-sq // 128) * 128)
 
 
 def check_folded_plan(plan: dict) -> None:
@@ -220,7 +257,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale:
             _build.stream())
     else:
         rc = lib.anyv2v_folded_attention(
-            *shape, *(ctypes.c_int(plan[key]) for key in (
+            *shape, ctypes.c_int(LAYOUTS[plan["layout"]]["id"]), *(ctypes.c_int(plan[key]) for key in (
                 "heads_per_block", "q_tiles", "units", "q_stages", "kv_stages")),
             ctypes.c_int(plan["grid"][0]), ctypes.c_int(plan["smem_bytes"]), _build.stream())
     _build.check(rc, "folded_attention")

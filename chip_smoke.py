@@ -712,6 +712,12 @@ def _kernel_cases():
         (k1, "ragged b2 Sq200 Sk300 h3 dh64", attn(2, 200, 300, 3, 64, 64)),
         (k1, "ragged b2 Sq300 Sk65 h5 dh8", attn(2, 300, 65, 5, 8, 8)),
         (k1, "ragged b2 Sq100 Sk100 h3 dh16", attn(2, 100, 100, 3, 16, 16)),
+        # the three-warpgroup layout (dh 8 where its items fill the card
+        # WG3_MIN_WAVES times and pad the rows little) at 1, 2 and 3 units a
+        # warpgroup, ragged rows and keys
+        (k1, "ragged wg3 b120 Sq300 Sk300 h5 dh8", attn(120, 300, 300, 5, 8, 8)),
+        (k1, "ragged wg3 b300 Sq300 Sk260 h2 dh8", attn(300, 300, 260, 2, 8, 8)),
+        (k1, "ragged wg3 b150 Sq300 Sk260 h6 dh8", attn(150, 300, 260, 6, 8, 8)),
         # K1 on each side of the short-key class (folded_attention
         # SHORT_MAX_KEYS, where the short body's grid fills the card): Sk
         # just under it takes the short body, just over it the Hopper body

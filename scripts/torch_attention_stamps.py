@@ -12,6 +12,14 @@ bodies, or the ``wgmma`` bodies that replaced them), builds the copy, runs each
 case once at ``chip_smoke.py``'s shapes, and prints each phase's share of the
 summed cycles of the kernel's warps and the kernel's time by CUDA events.
 
+With the Hopper body's two block layouts (a tree whose K1 has them), it also counts the
+exponentials and prints the share of clocks the special-function units are
+busy: exponentials / (16 x SMs x clocks), for the instrumented run (clocks:
+the longest consumer warp's cycles) and at the time of the same tree
+built without stamps (``--out``'s ``_plain`` copy, timed by CUDA events in a
+process of its own; clocks: that time at the SM clock the instrumented run
+measured).
+
 Phases (a phase is the time between two stamps of one warp; the products and
 loads are asynchronous, so a phase that waits for their results carries
 their latency):
@@ -32,6 +40,7 @@ import argparse
 import ctypes
 import os
 import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -285,9 +294,37 @@ K2_WGMMA = ("frame_attention_long_kernel(const __grid_constant__ Params p)", [
      "  if (tw == 0) bulk_wait();\n" + FLUSH + "}\n"),
 ])
 
+# K1's Hopper body with its two block layouts: the lazy set's phases,
+# the consumers' stamps started past their setmaxnreg, the three-warpgroup
+# layout's epilogue (the output stored from the registers), and the counts
+# the special-function units' share needs: the exponentials
+# (g_stamps[EXPS], by lane 0 of each warp), the consumer warps
+# (g_stamps[WARPS]) and the longest consumer warp's cycles (g_stamps[LIFE])
+EXPS, WARPS, LIFE = 12, 11, 10
+_LAZY = dict(enumerate(K1_WGMMA_LAZY[1]))
+K1_LAYOUTS = ("setmaxnreg_inc<F::CONSUMER_REGS>", [
+    *[_LAZY[i] for i in range(5)],
+    ("    return;\n  }\n\n  // ---- consumers ----\n"
+     "  if constexpr (F::PRODUCER_WG) setmaxnreg_inc<F::CONSUMER_REGS>();\n",
+     PRODUCER_FLUSH + "    return;\n  }\n\n  // ---- consumers ----\n"
+     "  if constexpr (F::PRODUCER_WG) setmaxnreg_inc<F::CONSUMER_REGS>();\n"
+     "  unsigned long long st[16] = {};\n  const long long tall = clock64();\n  long long t0 = tall;\n"),
+    *[_LAZY[i] for i in range(6, 11)],
+    ("      exp2_frag(s, sl, -m0[i] * sl, -m1[i] * sl, (n + 7) / 8);\n",
+     "      exp2_frag(s, sl, -m0[i] * sl, -m1[i] * sl, (n + 7) / 8);\n"
+     f"      st[{EXPS}] += 4 * min((n + 7) / 8, BK / 8) + (grow ? 2 : 0);\n"
+     f"#pragma unroll\n      for (int x = 0; x < BK / 2; ++x) FENCE(s[x]);\n      T1({EXP});\n      T0;\n"),
+    *[_LAZY[i] for i in range(12, 16)],
+    ("      continue;\n    }\n", f"      T1({EPI});\n      continue;\n    }}\n"),
+    ("      bulk_commit();\n    }\n  }\n  if (!F::PRODUCER_WG && tw == 0) bulk_wait();\n}\n",
+     f"      bulk_commit();\n    }}\n    T1({EPI});\n  }}\n"
+     f"  if (!F::PRODUCER_WG && tw == 0) bulk_wait();\n  st[{WARPS}] = 1;\n" + FLUSH
+     + f"  if (threadIdx.x % 32 == 0) atomicMax(&g_stamps[{LIFE}], st[{TOTAL}]);\n}}\n"),
+])
+
 # source -> (stamp entry name, [patch sets]); a patch set applies where its marker is found
 SOURCES = {
-    "folded_attention.cu": ("folded", [K1_WGMMA_LAZY, K1_WGMMA, K1_MMA_SYNC]),
+    "folded_attention.cu": ("folded", [K1_LAYOUTS, K1_WGMMA_LAZY, K1_WGMMA, K1_MMA_SYNC]),
     "frame_attention.cu": ("frame", [K2_WGMMA, K2_MMA_SYNC]),
 }
 
@@ -296,16 +333,19 @@ CASES = [
     ("folded", "K1 L0 self b2 S4096 h64 dh8", (2, 4096, 4096, 64, 8, 5)),
     ("folded", "K1 L1 self b2 S1024 h64 dh16", (2, 1024, 1024, 64, 16, 10)),
     ("folded", "K1 L0 cross b2 Sq4096 Sk157 h64 dh8", (2, 4096, 157, 64, 8, 5)),
+    ("folded", "K1 row 5 class b2 S8192 h64 dh8", (2, 8192, 8192, 64, 8, 5)),
     ("frame", "K2 long L0 b3 S128 HW4096 h64 dh8", (3, 128, 128, 4096, 64, 8, 5)),
     ("frame", "K2 long transformer_in b3 S128 HW4096 h8 dh64", (3, 128, 128, 4096, 8, 64, 64)),
 ]
 
 
-def make_copy(tree: str, out: str) -> None:
+def make_copy(tree: str, out: str, stamped: bool = True) -> None:
     if os.path.exists(out):
         shutil.rmtree(out)
     shutil.copytree(os.path.join(tree, "anyv2v_torch"), os.path.join(out, "anyv2v_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
+    if not stamped:
+        return
     for name, (entry, sets) in SOURCES.items():
         path = os.path.join(out, "anyv2v_torch", "csrc", name)
         with open(path) as f:
@@ -321,15 +361,27 @@ def make_copy(tree: str, out: str) -> None:
             f.write(src + _entry(entry))
 
 
+def time_plain(tree: str, out: str) -> dict:
+    """{case label: ms} of the tree built without stamps, in a process of its own."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree, "--out", out,
+                        "--plain"], capture_output=True, text=True)
+    if p.returncode:
+        raise RuntimeError(f"the plain copy failed: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    return {line.split(" ms ", 1)[1]: float(line.split(" ms ", 1)[0].split()[-1])
+            for line in p.stdout.splitlines() if line.startswith("plain ")}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--out", default=os.path.join(HERE, "build", "variants", "attention_stamps"))
+    ap.add_argument("--plain", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA GPU: torch.cuda.is_available() is False")
         return 1
-    make_copy(os.path.abspath(a.tree), a.out)
+    plain_ms = {} if a.plain else time_plain(os.path.abspath(a.tree), a.out + "_plain")
+    make_copy(os.path.abspath(a.tree), a.out, stamped=not a.plain)
     sys.path.insert(0, a.out)
     from anyv2v_torch.ops import _build
     from anyv2v_torch.ops import folded_attention as fa
@@ -355,9 +407,19 @@ def main():
             args = (rn(b, s, hw, h * dh), rn(b, sk, hw, h * dh), rn(b, sk, hw, h * dh), h,
                     true_dh ** -0.5)
             fn = fr.frame_attention_long
-        stamps = getattr(lib, f"anyv2v_{kind}_stamps")
         fn(*args)
         torch.cuda.synchronize()
+        if a.plain:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            print(f"plain {start.elapsed_time(end) / 5:.4f} ms {label}", flush=True)
+            del args
+            continue
+        stamps = getattr(lib, f"anyv2v_{kind}_stamps")
         buf = np.zeros(32, np.uint64)
         ptr = buf.ctypes.data_as(ctypes.c_void_p)
         if stamps(ptr, 1):
@@ -369,10 +431,25 @@ def main():
         torch.cuda.synchronize()
         if stamps(ptr, 0):
             raise RuntimeError("stamps: read failed")
-        tot = float(buf[TOTAL])
-        print(f"{label}: {start.elapsed_time(end):.4f} ms instrumented, {tot:.4e} warp-cycles; "
+        tot, ms = float(buf[TOTAL]), start.elapsed_time(end)
+        if not tot:
+            print(f"{label}: {ms:.4f} ms, no stamps (a body without a patch set)", flush=True)
+            del args
+            continue
+        print(f"{label}: {ms:.4f} ms instrumented, {tot:.4e} warp-cycles; "
               + ", ".join(f"{n} {100 * float(buf[c]) / tot:.1f} %" for c, n in enumerate(PHASES)
                           if buf[c]), flush=True)
+        if kind == "folded" and buf[WARPS]:
+            # the SFU-busy share: exponentials / (16 x SMs x clocks)
+            exps, cycles = 32 * float(buf[EXPS]), float(buf[LIFE])
+            sms = fa.folded_plan(*shape[:5])["grid"][0]
+            mhz = cycles / (ms * 1e3)
+            line = (f"  {exps:.4e} exponentials, SM clock {mhz:.0f} MHz; special-function units "
+                    f"busy {100 * exps / (16 * sms * cycles):.1f} % of the instrumented run")
+            if label in plain_ms:
+                line += (f", {100 * exps / (16 * sms * mhz * 1e3 * plain_ms[label]):.1f} % at the "
+                         f"plain build's {plain_ms[label]:.4f} ms")
+            print(line, flush=True)
         if buf[16 + TOTAL]:
             print(f"  producer: {100 * float(buf[16 + COPY]) / float(buf[16 + TOTAL]):.1f} % "
                   "of its cycles waiting for free slots", flush=True)

@@ -24,6 +24,16 @@ allocation), the highest register number the SASS uses plus one, the
 ``STL`` / ``LDL`` (spill) and ``USETMAXREG`` counts, and every ptxas
 warning, word for word. A consumer that passes 65536 / threads without
 ``STL`` got its registers from ``setmaxnreg``.
+
+    python3 scripts/torch_regcap_probe.py --k1 [--only TEXT] [--out DIR]
+
+builds, instead, K1's ``csrc/folded_attention.cu`` with every head width in
+the three-warpgroup layout of its Hopper body (``setmaxnreg`` 24 / 160), once
+as it is and once with each change of ``K1_VARIANTS`` (text patches of the
+source: other placements of ``setmaxnreg``, and a bulk-group wait put back in
+the consumers' code, which holds them at the launch's 128 registers), and
+prints the same table for every instance of its kernels (``--only``: the
+builds whose name contains the text).
 """
 
 from __future__ import annotations
@@ -160,6 +170,55 @@ template __global__ void regcap_wgmma<288, 2, 0, 232>(float*, int);
 """
 
 
+# K1's Hopper body with every head width in the three-warpgroup layout (the
+# C entry's switch launching WG3 instances; compiled, never launched)
+K1_ALL_WG3 = [(f"launch_units<{dh}, WARP2>(p", f"launch_units<{dh}, WG3>(p")
+              for dh in (16, 32, 64)]
+# the same with setmaxnreg placed otherwise, and with what held the
+# consumers at the launch's registers put back: (anchor, replacement) text
+# patches of csrc/folded_attention.cu
+_INC = "  if constexpr (F::PRODUCER_WG) setmaxnreg_inc<F::CONSUMER_REGS>();\n"
+_DEC = "    if constexpr (F::PRODUCER_WG) setmaxnreg_dec<F::PRODUCER_REGS>();\n"
+_RETURN = "    if (threadIdx.x != 128 * NWG) return;\n"
+_ROLE = "  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);\n"
+_TURN0 = "  if (TURNS && wg == NWG - 1) named_barrier_arrive(NWG + 1, 256);\n"
+K1_VARIANTS = {
+    # the role from threadIdx.x alone: not warp-uniform to the compiler
+    "role not by shfl": [(_ROLE, "  const int role = (int)threadIdx.x / 128;\n")],
+    # the increase after code that only some consumer threads run
+    "inc after divergent code": [(_INC, ""), (_TURN0, _TURN0 + _INC)],
+    # the increase inside a lambda
+    "inc in a lambda": [(_INC, "  auto take = [] { setmaxnreg_inc<F::CONSUMER_REGS>(); };\n"
+                               "  take();\n")],
+    # the increase and the decrease on two paths that merge before the roles split
+    "inc on a merging path": [(_INC, ""), (_DEC, ""),
+                              (_ROLE, _ROLE + "  if (role == NWG) setmaxnreg_dec<F::PRODUCER_REGS>();\n"
+                               "  else setmaxnreg_inc<F::CONSUMER_REGS>();\n")],
+    # the decrease by the producer's one TMA thread only
+    "dec after the return": [(_DEC, ""), (_RETURN, _RETURN + _DEC)],
+    # no __launch_bounds__
+    "no launch bounds": [("__global__ void __launch_bounds__(FormCfg<L>::THREADS, 1)\n"
+                          "    folded_attention_kernel", "__global__ void folded_attention_kernel")],
+    # the producer warpgroup at 40 and the consumers at 152
+    "producer at 40": [("PRODUCER_REGS = 24, CONSUMER_REGS = 160;",
+                        "PRODUCER_REGS = 40, CONSUMER_REGS = 152;")],
+    # (not runnable) a bulk-group wait in the consumers' code, as WARP2's TMA
+    # stores of the output have it
+    "a bulk wait in the consumers": [("  if (!F::PRODUCER_WG && tw == 0) bulk_wait();\n}\n",
+                                      "  if (tw == 0) bulk_wait();\n}\n")],
+}
+
+
+def k1_source(patches=()) -> str:
+    with open(os.path.join(CSRC, "folded_attention.cu")) as f:
+        src = f.read()
+    for anchor, new in [*K1_ALL_WG3, *patches]:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"anchor found {src.count(anchor)} times: {anchor!r}")
+        src = src.replace(anchor, new)
+    return src
+
+
 def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
@@ -169,7 +228,7 @@ def tool(name: str) -> str:
 
 
 def sass_table(cubin: str) -> list:
-    """(function, highest register + 1, STL, LDL, USETMAXREG) per function."""
+    """(function, highest register + 1, STL, LDL, USETMAXREG, CALL) per function."""
     text = subprocess.run([tool("cuobjdump"), "-sass", cubin], capture_output=True,
                           text=True).stdout
     rows = []
@@ -180,7 +239,7 @@ def sass_table(cubin: str) -> list:
             o.split(".")[0] for o in re.findall(
                 r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func))
         rows.append((name, max(regs) + 1 if regs else 0, ops["STL"], ops["LDL"],
-                     ops["USETMAXREG"]))
+                     ops["USETMAXREG"], ops["CALL"]))
     return rows
 
 
@@ -219,22 +278,31 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cutlass", default="/usr/local/cutlass/include")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "regcap"))
+    ap.add_argument("--k1", action="store_true")
+    ap.add_argument("--only", default="", help="with --k1: the builds whose name contains this")
     a = ap.parse_args()
     os.makedirs(a.out, exist_ok=True)
     print(subprocess.run([nvcc(), "--version"], capture_output=True, text=True).stdout.strip()
           .splitlines()[-1])
-    for line in cutlass_counts(a.cutlass):
-        print(f"cutlass header: {line}")
-    jobs = [build("cutlass_ws", CUTLASS_SRC, a.out,
-                  ["-I", a.cutlass, "--expt-relaxed-constexpr", "-DNDEBUG"]),
-            build("port_ws", PORT_SRC, a.out, ["-I", CSRC])]
+    if a.k1:
+        builds = [("k1_wg3", k1_source())]
+        builds += [("k1_wg3_" + name.replace(" ", "_"), k1_source(patches))
+                   for name, patches in K1_VARIANTS.items()]
+        jobs = [build(name, text, a.out, ["-I", CSRC]) for name, text in builds
+                if a.only in name]
+    else:
+        for line in cutlass_counts(a.cutlass):
+            print(f"cutlass header: {line}")
+        jobs = [build("cutlass_ws", CUTLASS_SRC, a.out,
+                      ["-I", a.cutlass, "--expt-relaxed-constexpr", "-DNDEBUG"]),
+                build("port_ws", PORT_SRC, a.out, ["-I", CSRC])]
     failed = 0
     for cubin, proc in jobs:
         log, _ = proc.communicate()
         name = os.path.basename(cubin)
         for line in log.splitlines():
             if ("Used" in line or "Compiling entry" in line or "warning" in line.lower()
-                    or "error" in line.lower()):
+                    or "error" in line.lower() or "C75" in line):
                 print(f"ptxas/nvcc [{name}]: {line.strip()[:400]}")
         if proc.returncode:
             print(f"nvcc failed for {name} (exit {proc.returncode}); its last lines:")
@@ -242,9 +310,10 @@ def main():
             failed += 1
             continue
         rows = sass_table(cubin)
-        for (fn, regs, stl, ldl, setmax), pretty in zip(rows, demangle([r[0] for r in rows])):
+        for (fn, regs, stl, ldl, setmax, call), pretty in zip(rows,
+                                                             demangle([r[0] for r in rows])):
             print(f"sass [{name}] {pretty[:160]}: {regs} registers used, STL {stl}, LDL {ldl}, "
-                  f"USETMAXREG {setmax}")
+                  f"USETMAXREG {setmax}, CALL {call}")
     return 1 if failed else 0
 
 

@@ -470,16 +470,37 @@ def _check_short_folded_plan(plan, b, sq, sk, heads, dh):
 # one field of a K1 plan changed: each must be refused
 _FOLDED_EDITS = {
     "hopper": [("body", lambda v: "short"), ("heads_per_block", lambda v: v * 2),
-               ("q_tiles", lambda v: 1 if v > 1 else fa.WARPGROUPS), ("units", lambda v: v + 1),
+               ("q_tiles", lambda v: 1 if v > 1 else 2), ("units", lambda v: v + 1),
                ("q_stages", lambda v: v + 1), ("kv_stages", lambda v: v - 1),
                ("ntiles", lambda v: v + 1), ("items", lambda v: v + 1),
                ("threads", lambda v: v - 32), ("smem_bytes", lambda v: v + 16),
-               ("grid", lambda v: (v[0] - 1 or 2,))],
+               ("grid", lambda v: (v[0] - 1 or 2,)), ("warpgroups", lambda v: v + 1),
+               ("layout", lambda v: next(n for n in fa.LAYOUTS if n != v)),
+               ("consumer_regs", lambda v: (v or 168) + 8)],
     "short": [("body", lambda v: "hopper"), ("heads_per_block", lambda v: v * 2),
               ("rows_per_block", lambda v: v + 1), ("q_tiles", lambda v: v + 1),
               ("warps", lambda v: v - 1), ("key_rows", lambda v: v + 16),
               ("smem_bytes", lambda v: v + 16), ("grid", lambda v: (v[0] + 1, v[1]))],
 }
+
+
+def _check_register_budget(plan):
+    """One Hopper-body block's registers fit the SM's 65536: with a producer
+    warpgroup, its count and each consumer warpgroup's after setmaxnreg, each
+    a multiple of 8 in [24, 256], 128 threads apiece; with a producer warp (no
+    setmaxnreg), the count ptxas gives every thread (a sub-partition's 16384
+    over its warps, down to a multiple of 8: 168 at 288 threads)."""
+    nwg, threads = plan["warpgroups"], plan["threads"]
+    producer, consumer = plan["producer_regs"], plan["consumer_regs"]
+    if producer is None:
+        assert consumer is None and threads == 128 * nwg + 32
+        per_thread = min(255, 16384 // (32 * -(-(threads // 32) // 4))) // 8 * 8
+        assert per_thread == 168 and threads * per_thread <= 65536
+        return
+    assert threads == 128 * (nwg + 1)
+    for count in (producer, consumer):
+        assert count % 8 == 0 and 24 <= count <= 256
+    assert producer < consumer and (producer + consumer * nwg) * 128 <= 65536
 
 
 def check_folded_launch(b, sq, sk, heads, dh, sms=_build.H100_SMS):
@@ -504,20 +525,31 @@ def check_folded_launch(b, sq, sk, heads, dh, sms=_build.H100_SMS):
         _check_short_folded_plan(plan, b, sq, sk, heads, dh)
         return plan
     hb, qt, units = plan["heads_per_block"], plan["q_tiles"], plan["units"]
-    nwg = fa.WARPGROUPS
+    lay = fa.LAYOUTS[plan["layout"]]
+    nwg = lay["warpgroups"]
+    wg3_items = fa._hopper_plan(b, sq, sk, heads, dh, sms, "wg3")["items"]
+    pad = -(-sq // 192) * 192 / (-(-sq // 128) * 128)
+    assert plan["layout"] == ("wg3" if dh == 8 and wg3_items >= fa.WG3_MIN_WAVES * sms
+                              and pad <= fa.WG3_MAX_PAD else "warp2")
+    assert plan["warpgroups"] == nwg
+    assert plan["threads"] == 128 * nwg + lay["producer_threads"]
+    assert (plan["producer_regs"], plan["consumer_regs"]) == (lay["producer_regs"],
+                                                               lay["consumer_regs"])
+    _check_register_budget(plan)
     assert qt == (nwg if sq > 64 else 1) and heads % hb == 0 and hb * dh <= fa.GROUP_CHANNELS
-    assert units == -(-qt * hb // nwg) <= fa.UNITS[dh] and plan["threads"] == 128 * nwg + 32
+    assert units == -(-qt * hb // nwg) <= fa.UNITS[dh]
     assert hb == max(d for d in range(1, heads + 1) if heads % d == 0
                      and d <= fa.UNITS[dh] * (nwg // qt) and d * dh <= fa.GROUP_CHANNELS)
     assert plan["ntiles"] == -(-sk // fa.BLOCK_KEYS)
     kvs = plan["kv_stages"]
+    staged = nwg * units if lay["staged"] else 0
     assert 2 <= kvs <= fa.KV_STAGES and (kvs == fa.KV_STAGES or fa.folded_layout_bytes(
-        dh, hb, qt, units, plan["q_stages"], kvs + 1) > SMEM)
+        dh, hb, qt, staged, plan["q_stages"], kvs + 1) > SMEM)
     assert plan["smem_bytes"] == fa.folded_layout_bytes(
-        dh, hb, qt, units, plan["q_stages"], plan["kv_stages"]) <= SMEM
+        dh, hb, qt, staged, plan["q_stages"], plan["kv_stages"]) <= SMEM
     c, g = heads * dh, hb * dh
-    _check_tma([8, sq, c // 8, b], [c * 2, 16, sq * c * 2], [[8, 64 * qt, g // 8, 1],
-                                                             [8, 64, dh // 8, 1]])
+    _check_tma([8, sq, c // 8, b], [c * 2, 16, sq * c * 2],
+               [[8, 64 * qt, g // 8, 1]] + ([[8, 64, dh // 8, 1]] if lay["staged"] else []))
     _check_tma([8, sk, c // 8, b], [c * 2, 16, sk * c * 2], [[8, fa.BLOCK_KEYS, g // 8, 1]])
     # the walk (csrc item_of): block x takes items x, x + grid, ...; item it
     # is query pair it % nqp of head group (it // nqp) % ng of batch row
@@ -579,10 +611,11 @@ def test_k1_and_k2_long_plans_at_each_routed_shape(monkeypatch, arch, frames):
 
 def _k1_instance(b, sq, sk, heads, dh):
     """The kernel instance a K1 call launches: its body and head width, and
-    for the Hopper body its units a warpgroup (``csrc`` template
-    arguments)."""
+    for the Hopper body its units a warpgroup and its layout (``csrc``
+    template arguments)."""
     plan = fa.folded_plan(b, sq, sk, heads, dh)
-    return (plan["body"], dh) + ((plan["units"],) if plan["body"] == "hopper" else ())
+    return (plan["body"], dh) + ((plan["units"], plan["layout"]) if plan["body"] == "hopper"
+                                 else ())
 
 
 @pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
@@ -631,7 +664,39 @@ def test_folded_body_at_the_class_boundaries(b, sq, sk, body):
         plan = check_folded_launch(b, sq, sk, 128 // dh, dh)
         assert plan["body"] == body
         if body == "hopper":
-            assert plan["q_tiles"] == (fa.WARPGROUPS if sq > 64 else 1)
+            assert plan["q_tiles"] == (plan["warpgroups"] if sq > 64 else 1)
+
+
+# every K1 call of i2vgen-xl's batch-3 forwards at 16 and 128 frames that
+# takes the Hopper body: (batch rows, Sq, Sk, heads, head width)
+_I2VGEN_HOPPER_K1 = [(3 * f, s, s, 64, dh) for f in (16, 128)
+                     for s, dh in ((4096, 8), (1024, 16), (256, 32))]
+
+
+@pytest.mark.parametrize("frames", (16, 128))
+def test_the_i2vgen_hopper_k1_shapes_are_the_routed_ones(monkeypatch, frames):
+    """The shapes below are exactly the K1 calls of the forward whose plan
+    takes the Hopper body."""
+    seen = _routes(monkeypatch, "i2vgen-xl", frames)
+    routed = {(b, sq, k[1], heads, c // heads) for (b, sq, c), k, heads in seen["folded_attention"]
+              if fa.folded_plan(b, sq, k[1], heads, c // heads)["body"] == "hopper"}
+    assert routed == {s for s in _I2VGEN_HOPPER_K1 if s[0] == 3 * frames}
+
+
+@pytest.mark.parametrize("shape", _I2VGEN_HOPPER_K1,
+                         ids=[f"b{b}-s{sq}-dh{dh}" for b, sq, _, _, dh in _I2VGEN_HOPPER_K1])
+def test_folded_register_budget_at_each_routed_hopper_shape(shape):
+    """At every Hopper-body call of i2vgen-xl's forwards the block's
+    setmaxnreg counts fit the register file, and its shared bytes (the
+    layout's formula) fit one block."""
+    b, sq, sk, heads, dh = shape
+    plan = fa.folded_plan(b, sq, sk, heads, dh)
+    assert plan["body"] == "hopper" and plan["layout"] == ("wg3" if dh == 8 else "warp2")
+    _check_register_budget(plan)
+    staged = plan["warpgroups"] * plan["units"] if fa.LAYOUTS[plan["layout"]]["staged"] else 0
+    assert plan["smem_bytes"] == fa.folded_layout_bytes(
+        dh, plan["heads_per_block"], plan["q_tiles"], staged, plan["q_stages"],
+        plan["kv_stages"]) <= _build.SMEM_LIMIT
 
 
 def test_check_plan_refuses_k1_and_k2_plans_one_block_cannot_hold(monkeypatch):
