@@ -1,0 +1,7 @@
+"""The least time of K1's calls in the traced request (operations at
+989 TFLOP/s or bytes at 3.35 TB/s, the larger; true head widths) over their
+device time, in %."""
+
+
+def read(trace):
+    return trace.roofline("k1")
