@@ -32,12 +32,14 @@ from ..ops.ffn import ffn_geglu, ffn_gelu, fits as ffn_fits
 from ..ops.pnp import inject_source_rows
 from ..ops.temporal_conv import groupnorm_silu_temporal_conv
 from ..parallel.mesh import around_frame_op
+from ..utils.profiling import spanned
 
 # ---------------------------------------------------------------------------
 # functional helpers
 # ---------------------------------------------------------------------------
 
 
+@spanned("layer.norm")
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
     """GroupNorm over every axis but the first and last of a channels-last
     tensor, in fp32 (returns fp32)."""
@@ -49,11 +51,13 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
     return y * norm.weight.float() + norm.bias.float()
 
 
+@spanned("layer.norm")
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
                         norm.bias.float(), norm.eps)
 
 
+@spanned("layer.conv")
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """nn.Conv2d on a channels-last ``[N, H, W, C]`` tensor."""
     y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride,
@@ -202,6 +206,7 @@ class TemporalConvLayer(nn.Module):
             stage.add_module("2" if i == 1 else "3", TemporalConv3(channels, channels))
             self.add_module(f"conv{i}", stage)
 
+    @spanned("unet.resnet")
     def forward(self, x):
         b, f = x.shape[:2]
         h = around_frame_op(self._stages, (x.reshape(b, f, -1, x.shape[-1]),), gather=False)
@@ -333,6 +338,7 @@ class FeedForward(nn.Module):
             nn.Linear(inner, dim),
         ])
 
+    @spanned("layer.ffn")
     def forward(self, x):
         proj, out = self.net[0].proj, self.net[2]
         if self.activation == "geglu":
@@ -397,6 +403,7 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth)])
         self.proj_out = proj(inner, channels)
 
+    @spanned("unet.spatial")
     def forward(self, x, context=None, inject: bool = False, ip_tokens=None,
                 ip_scale: float = 1.0):
         b, h, w, c = x.shape
@@ -433,6 +440,7 @@ class TemporalTransformer(nn.Module):
             inner, heads, head_dim, None, dtype, pnp_chunks)])
         self.proj_out = nn.Linear(inner, channels)
 
+    @spanned("unet.temporal")
     def forward(self, x, inject: bool = False, bias: Optional[torch.Tensor] = None):
         b, f, h, w, c = x.shape
         y = group_norm(x.reshape(b * f, h, w, c), self.norm).to(self.dtype)

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.mesh import current_manual_axis, local_frame_slice
+from ..utils.profiling import span, spanned
 from .layers import (
     Attention,
     Downsample2D,
@@ -183,6 +184,7 @@ class I2VGenUNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch0, eps=1e-5)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
+    @spanned("unet.forward")
     def forward(self, sample, timestep, encoder_hidden_states, fps, image_latents,
                 image_embeddings, pnp: Optional[Tuple[bool, bool, bool]] = None):
         cfg = self.config
@@ -192,43 +194,44 @@ class I2VGenUNet(nn.Module):
         dev = sample.device
 
         # time + fps embedding, repeated per frame (batch-major)
-        ts = torch.as_tensor(timestep, device=dev).reshape(-1).expand(B)
-        fps_v = torch.as_tensor(fps, device=dev).reshape(-1).expand(B)
-        emb = (self.time_embedding(sinusoidal_embedding(ts, ch0).to(dt))
-               + self.fps_embedding(sinusoidal_embedding(fps_v, ch0).to(dt)))
-        emb = emb.repeat_interleave(F_, dim=0)
+        with span("unet.embed"):
+            ts = torch.as_tensor(timestep, device=dev).reshape(-1).expand(B)
+            fps_v = torch.as_tensor(fps, device=dev).reshape(-1).expand(B)
+            emb = (self.time_embedding(sinusoidal_embedding(ts, ch0).to(dt))
+                   + self.fps_embedding(sinusoidal_embedding(fps_v, ch0).to(dt)))
+            emb = emb.repeat_interleave(F_, dim=0)
 
-        # cross-attention context: text, 64 local image tokens, N global tokens
-        ce = self.image_latents_context_embedding
-        z = F.silu(conv_nhwc(ce[0], image_latents[:, 0].to(dt)))
-        z = adaptive_avg_pool_2d(z, (32, 32))
-        z = F.silu(conv_nhwc(ce[3], z))
-        z = conv_nhwc(ce[5], z)
-        img_ctx = z.reshape(B, -1, cfg.cross_attention_dim)
-        gtok = self.context_embedding(image_embeddings.to(dt)).reshape(
-            B, cfg.num_image_context_tokens, cfg.cross_attention_dim)
-        context = torch.cat([encoder_hidden_states.to(dt), img_ctx, gtok], dim=1)
-        context = context.repeat_interleave(F_, dim=0)
+            # cross-attention context: text, 64 local image tokens, N global tokens
+            ce = self.image_latents_context_embedding
+            z = F.silu(conv_nhwc(ce[0], image_latents[:, 0].to(dt)))
+            z = adaptive_avg_pool_2d(z, (32, 32))
+            z = F.silu(conv_nhwc(ce[3], z))
+            z = conv_nhwc(ce[5], z)
+            img_ctx = z.reshape(B, -1, cfg.cross_attention_dim)
+            gtok = self.context_embedding(image_embeddings.to(dt)).reshape(
+                B, cfg.num_image_context_tokens, cfg.cross_attention_dim)
+            context = torch.cat([encoder_hidden_states.to(dt), img_ctx, gtok], dim=1)
+            context = context.repeat_interleave(F_, dim=0)
 
-        # image-latent path: per-frame convs, then attention over frames per
-        # pixel. Inside a manual-SPMD region image_latents arrive replicated
-        # with every frame (the encoder attends across all of them) while
-        # sample holds this rank's frames: the result is cut to its window.
-        pi = self.image_latents_proj_in
-        F_il = image_latents.shape[1]
-        il = fold_frames(image_latents.to(dt))
-        il = F.silu(conv_nhwc(pi[0], il))
-        il = F.silu(conv_nhwc(pi[2], il))
-        il = conv_nhwc(pi[4], il)
-        il = unfold_frames(il, F_il).permute(0, 2, 3, 1, 4).reshape(B * H * W, F_il, C)
-        il = self.image_latents_temporal_encoder(il)
-        il = il.reshape(B, H, W, F_il, C).permute(0, 3, 1, 2, 4)
-        if F_il != F_:
-            region = current_manual_axis()
-            if region is None or F_il != F_ * region[1]:
-                raise ValueError(f"image_latents have {F_il} frames and sample {F_}: they must "
-                                 "match, or be the whole clip's inside a manual-SPMD region")
-            il = local_frame_slice(il, region[0], F_)
+            # image-latent path: per-frame convs, then attention over frames per
+            # pixel. Inside a manual-SPMD region image_latents arrive replicated
+            # with every frame (the encoder attends across all of them) while
+            # sample holds this rank's frames: the result is cut to its window.
+            pi = self.image_latents_proj_in
+            F_il = image_latents.shape[1]
+            il = fold_frames(image_latents.to(dt))
+            il = F.silu(conv_nhwc(pi[0], il))
+            il = F.silu(conv_nhwc(pi[2], il))
+            il = conv_nhwc(pi[4], il)
+            il = unfold_frames(il, F_il).permute(0, 2, 3, 1, 4).reshape(B * H * W, F_il, C)
+            il = self.image_latents_temporal_encoder(il)
+            il = il.reshape(B, H, W, F_il, C).permute(0, 3, 1, 2, 4)
+            if F_il != F_:
+                region = current_manual_axis()
+                if region is None or F_il != F_ * region[1]:
+                    raise ValueError(f"image_latents have {F_il} frames and sample {F_}: they must "
+                                     "match, or be the whole clip's inside a manual-SPMD region")
+                il = local_frame_slice(il, region[0], F_)
 
         x = torch.cat([sample.to(dt), il], dim=-1)
         x = conv_nhwc(self.conv_in, fold_frames(x))
@@ -237,7 +240,8 @@ class I2VGenUNet(nn.Module):
         skips = [x]
         for blk in self.down_blocks:
             for j in range(len(blk.resnets)):
-                x = blk.resnets[j](x, emb)
+                with span("unet.resnet"):
+                    x = blk.resnets[j](x, emb)
                 x = fold_frames(blk.temp_convs[j](unfold_frames(x, F_)))
                 if hasattr(blk, "attentions"):
                     x = blk.attentions[j](x, context=context)
@@ -248,11 +252,13 @@ class I2VGenUNet(nn.Module):
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, emb)
+        with span("unet.resnet"):
+            x = mid.resnets[0](x, emb)
         x = fold_frames(mid.temp_convs[0](unfold_frames(x, F_)))
         x = mid.attentions[0](x, context=context)
         x = fold_frames(mid.temp_attentions[0](unfold_frames(x, F_)))
-        x = mid.resnets[1](x, emb)
+        with span("unet.resnet"):
+            x = mid.resnets[1](x, emb)
         x = fold_frames(mid.temp_convs[1](unfold_frames(x, F_)))
 
         targets = set(cfg.pnp_attn_targets)
@@ -260,7 +266,8 @@ class I2VGenUNet(nn.Module):
             for j in range(len(blk.resnets)):
                 x = torch.cat([x, skips.pop()], dim=-1)
                 inj_conv = pnp is not None and pnp[0] and (i, j) == cfg.pnp_conv_target
-                x = blk.resnets[j](x, emb, inject=inj_conv)
+                with span("unet.resnet"):
+                    x = blk.resnets[j](x, emb, inject=inj_conv)
                 x = fold_frames(blk.temp_convs[j](unfold_frames(x, F_)))
                 if hasattr(blk, "attentions"):
                     target = pnp is not None and (i, j) in targets

@@ -47,6 +47,7 @@ from ..ops.rotary import apply_rotary_partial, rotary_angles, rotary_freqs
 from ..ops.temporal_conv import groupnorm_silu_temporal_conv
 from ..parallel.mesh import (around_frame_op, axis_index, gather_frames, local_pixel_slice,
                              sharded_region)
+from ..utils.profiling import span, spanned
 from .layers import (
     Attention,
     Downsample2D,
@@ -120,6 +121,7 @@ class AlphaTemporalResnet(nn.Module):
         self.conv2 = TemporalConv3(channels, channels)
         self.alpha = nn.Parameter(torch.ones(1))
 
+    @spanned("unet.resnet")
     def forward(self, x):
         b, f = x.shape[:2]
         f0row = int(self.first_frame_replicated and sharded_region() is not None)
@@ -166,6 +168,7 @@ class VideoLDMSpatialTransformer(nn.Module):
                                                         cross_attention_dim)])
         self.proj_out = nn.Linear(inner, channels)
 
+    @spanned("unet.spatial")
     def forward(self, x, context, frames: int, inject: bool = False, pnp_chunks: int = 4):
         bf, h_, w_, c = x.shape
         dt = self.dtype
@@ -211,6 +214,7 @@ def _first_frame_adjacent_slices(first_frame_tokens: torch.Tensor, h: int, w: in
     return torch.stack(slices, dim=1).reshape(b, 8, hw, c)
 
 
+@spanned("layer.rotary")
 def _rotate(x: torch.Tensor, positions: torch.Tensor, inner: int) -> torch.Tensor:
     """Rotary on the first ``inner // 2`` channels of ``[B, F, HW, inner]``
     tokens at frame positions ``positions [F]``."""
@@ -264,6 +268,7 @@ class VideoLDMTemporalTransformer(nn.Module):
         out = temporal_attention(q, k, v, self.heads, a1.scale, pixel_sharded=pixel_sharded)
         return a1.to_out[0](out)
 
+    @spanned("unet.temporal")
     def forward(self, x, context, frames: int, inject: bool = False, pnp_chunks: int = 4):
         bf, h_, w_, c = x.shape
         b, f, hw = bf // frames, frames, h_ * w_
@@ -405,6 +410,7 @@ class VideoLDMUNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch0, eps=1e-5)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
+    @spanned("unet.forward")
     def forward(self, sample, timestep, encoder_hidden_states, first_frame_latents=None,
                 frame_stride=None, pnp: Optional[Tuple[bool, bool, bool]] = None,
                 pnp_chunks: Optional[int] = None):
@@ -420,15 +426,17 @@ class VideoLDMUNet(nn.Module):
         ch0 = cfg.block_out_channels[0]
         dev = sample.device
 
-        ts = torch.as_tensor(timestep, device=dev).reshape(-1).expand(B)
-        emb = self.time_embedding(sinusoidal_embedding(ts, ch0).to(dt))
-        if cfg.use_frame_stride_condition:
-            fs = torch.as_tensor(1 if frame_stride is None else frame_stride,
-                                 device=dev).reshape(-1).expand(B)
-            emb = emb + self.frame_stride_embedding(sinusoidal_embedding(fs, ch0).to(dt))
-        emb = emb.repeat_interleave(F_, dim=0)
+        with span("unet.embed"):
+            ts = torch.as_tensor(timestep, device=dev).reshape(-1).expand(B)
+            emb = self.time_embedding(sinusoidal_embedding(ts, ch0).to(dt))
+            if cfg.use_frame_stride_condition:
+                fs = torch.as_tensor(1 if frame_stride is None else frame_stride,
+                                     device=dev).reshape(-1).expand(B)
+                emb = emb + self.frame_stride_embedding(sinusoidal_embedding(fs, ch0).to(dt))
+            emb = emb.repeat_interleave(F_, dim=0)
         context = encoder_hidden_states.to(dt)
 
+        @spanned("unet.embed")
         def ff_conv_inject(x, conv):
             """conv2d mode: frame 0 of the hidden states becomes a 1x1 conv of
             the nearest-resized first-frame latent (torch-nearest indexing)."""
@@ -452,7 +460,8 @@ class VideoLDMUNet(nn.Module):
             if mode == "conv2d":
                 x = ff_conv_inject(x, blk.first_frame_conv)
             for j in range(len(blk.resnets)):
-                x = blk.resnets[j](x, emb)
+                with span("unet.resnet"):
+                    x = blk.resnets[j](x, emb)
                 if cfg.use_temporal:
                     x = temporal_resnet(blk.conv3ds[j], x)
                 if hasattr(blk, "attentions"):
@@ -467,11 +476,13 @@ class VideoLDMUNet(nn.Module):
         mid = self.mid_block
         if mode == "conv2d":
             x = ff_conv_inject(x, mid.first_frame_conv)
-        x = mid.resnets[0](x, emb)
+        with span("unet.resnet"):
+            x = mid.resnets[0](x, emb)
         if cfg.use_temporal:
             x = temporal_resnet(mid.conv3ds[0], x)
         x = mid.attentions[0](x, context, F_)
-        x = mid.resnets[1](x, emb)
+        with span("unet.resnet"):
+            x = mid.resnets[1](x, emb)
         if cfg.use_temporal:
             x = temporal_resnet(mid.conv3ds[1], x)
 
@@ -482,7 +493,8 @@ class VideoLDMUNet(nn.Module):
             for j in range(len(blk.resnets)):
                 x = torch.cat([x, skips.pop()], dim=-1)
                 inj_conv = pnp is not None and pnp[0] and (i, j) == cfg.pnp_conv_target
-                x = blk.resnets[j](x, emb, inject=inj_conv, pnp_chunks=chunks)
+                with span("unet.resnet"):
+                    x = blk.resnets[j](x, emb, inject=inj_conv, pnp_chunks=chunks)
                 if cfg.use_temporal:
                     x = temporal_resnet(blk.conv3ds[j], x)
                 if hasattr(blk, "attentions"):

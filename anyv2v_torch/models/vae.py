@@ -10,6 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from .layers import Attention, Downsample2D, ResnetBlock2D, Upsample2D, conv_nhwc, group_norm, linear_1x1
 
 
@@ -133,9 +134,11 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
 
+    @spanned("vae.encode")
     def encode_moments(self, images):
         return linear_1x1(self.quant_conv, self.encoder(images))
 
+    @spanned("vae.decode")
     def decode(self, latents):
         return self.decoder(linear_1x1(self.post_quant_conv, latents.to(self.config.dtype)))
 

@@ -81,6 +81,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from .flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention
 from .folded_attention import HEAD_DIMS, folded_attention
 from .frame_attention import frame_attention, frame_attention_long, takes, takes_long
@@ -165,6 +166,7 @@ def _short_bias_route(sq: int, sk: int, dh: int):
     return None
 
 
+@spanned("layer.attn")
 def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                          heads: int, scale: float, causal: bool = False,
                          bias: Optional[torch.Tensor] = None,
@@ -205,6 +207,7 @@ def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
     return sdpa_attention(query, key, value, heads, scale, causal)
 
 
+@spanned("layer.attn")
 def spatial_attention_ffconcat(query: torch.Tensor, k_self: torch.Tensor,
                                v_self: torch.Tensor, k_ctx: torch.Tensor,
                                v_ctx: torch.Tensor, frames: int, heads: int,
@@ -218,6 +221,7 @@ def spatial_attention_ffconcat(query: torch.Tensor, k_self: torch.Tensor,
     return flash_attention(query, k_self, v_self, heads, scale, k_ctx, v_ctx, frames)
 
 
+@spanned("layer.attn")
 def temporal_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                        heads: int, scale: float, bias: Optional[torch.Tensor] = None,
                        pixel_sharded: bool = False) -> torch.Tensor:

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from . import _build
 
 
@@ -132,6 +133,7 @@ gn_silu_temporal_conv.launches = 0
 gn_silu_temporal_conv.prologue_launches = 0
 
 
+@spanned("layer.tconv")
 def groupnorm_silu_temporal_conv(x: torch.Tensor, norm: torch.nn.GroupNorm, w: torch.Tensor,
                                  b: torch.Tensor, pixel_sharded: bool = False) -> torch.Tensor:
     """groupnorm (``norm``'s groups, eps and affine) -> SiLU -> (3,1,1) conv

@@ -34,6 +34,7 @@ import torch
 from ..models.vae import mode_from_moments
 from ..parallel.mesh import (all_gather_axis, axis_size, frames_sharding, gather_frame_shares,
                              gather_frames, local_frame_slice, manual_axis, shard_params)
+from ..utils.profiling import spanned
 
 DEFAULT_CHUNK_STEPS = 25
 
@@ -64,6 +65,7 @@ class HostTrajectory:
         store._chunks.append(torch.from_numpy(np.asarray(traj, np.float32)))
         return store
 
+    @spanned("traj.to_host")
     def append(self, chunk: torch.Tensor) -> None:
         """Store a ``[k, ...]`` chunk on the host as fp32. The copy waits for
         the device once, at the end of the chunk that made it."""
@@ -95,6 +97,7 @@ class HostTrajectory:
                 else torch.cat(self._chunks, dim=0)).numpy()
         return grid if dtype is None else grid.astype(dtype)
 
+    @spanned("traj.to_device")
     def __getitem__(self, i):
         if isinstance(i, (int, np.integer)):
             n = len(self)
@@ -105,6 +108,7 @@ class HostTrajectory:
         raise TypeError("HostTrajectory supports integer row indexing and "
                         "gather_rows; use np.asarray() for the full grid")
 
+    @spanned("traj.to_device")
     def gather_rows(self, rows) -> torch.Tensor:
         """``[len(rows), ...]`` device tensor of the selected rows."""
         return self._rows(rows).to(self.device)
@@ -270,6 +274,7 @@ class LatentCodecMixin(ShardingMixin):
         z = mode_from_moments(self.vae.encode_moments(x))
         return z.float() * self.vae.config.scaling_factor
 
+    @spanned("pipe.encode")
     def encode_video(self, frames01, chunk_size: int = 16) -> torch.Tensor:
         """``[F, H, W, 3]`` -> ``[1, F, h, w, 4]``, in chunks of frames to bound
         activation memory (with a mesh, each rank's share of the frames)."""
@@ -286,6 +291,7 @@ class LatentCodecMixin(ShardingMixin):
         img = self.vae.decode(latents / self.vae.config.scaling_factor)
         return torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
 
+    @spanned("pipe.decode")
     def decode_latents(self, latents, chunk_size: int = 16) -> torch.Tensor:
         """``[1, F, h, w, 4]`` -> video ``[F, H, W, 3]`` in [0, 1], fp32 (with a
         mesh, each rank decodes its share of the frames)."""

@@ -53,6 +53,7 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
+from ..utils.profiling import span, spanned
 from .common import (FramePlan, HostTrajectory, LatentCodecMixin, device_rows_for_scan,
                      group_constant_runs, run_inversion)
 from .i2vgen import PnPConfig
@@ -128,6 +129,7 @@ class ConsistI2VPipeline(LatentCodecMixin):
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    @spanned("pipe.invert")
     def invert(self, video_latents, text_embeds, num_inversion_steps: int = 500,
                frame_stride: int = 3, chunk_steps: Optional[int] = None,
                traj_store: str = "device"):
@@ -143,12 +145,14 @@ class ConsistI2VPipeline(LatentCodecMixin):
         plan = self._frame_plan(x.shape[1])
         x = plan.local(x)
 
+        @spanned("pipe.step")
         def step(i):
             nonlocal x
             t = int(inv_ts[i])
             with plan.region():
                 eps = self._eps(x, t, text, ff, frame_stride)
-            x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
+            with span("pipe.guide"):
+                x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
             return torch.cat([ff, plan.gather(x)], dim=1)
 
         traj = run_inversion(step, np.ones(len(inv_ts), bool), lat.shape, self.device,
@@ -160,6 +164,7 @@ class ConsistI2VPipeline(LatentCodecMixin):
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    @spanned("pipe.edit")
     def sample_with_pnp(self, traj, inv_ts: np.ndarray, text_embeds_all, edited_ff_latent,
                         src_ff_latent, num_inference_steps: int = 50, t_idx: int = 4,
                         cfg_txt: float = 35.0, cfg_img: float = 1.0,
@@ -203,17 +208,23 @@ class ConsistI2VPipeline(LatentCodecMixin):
         traj, cache_idx = device_rows_for_scan(traj, cache_idx, k_inj)
         ffl = torch.cat([ff_src] + ff_rows, dim=0)
         for start, pat, stop in group_constant_runs(masks, k_inj):
-            for i in range(start, stop):
-                inp = torch.cat([plan.local(traj[cache_idx[i]][:, 1:])] + [x] * n_rows, dim=0)
-                with plan.region():
-                    eps = self._eps(inp, int(ts_run[i]), text_all, ffl, frame_stride, pnp=pat,
-                                    pnp_chunks=n_rows + 1)
-                eps = combine_guidance(eps[1:], mode, cfg_txt, cfg_img, guidance_rescale, plan)
-                x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
+            with span("pipe.segment"):
+                for i in range(start, stop):
+                    with span("pipe.step"):
+                        inp = torch.cat([plan.local(traj[cache_idx[i]][:, 1:])] + [x] * n_rows,
+                                        dim=0)
+                        with plan.region():
+                            eps = self._eps(inp, int(ts_run[i]), text_all, ffl, frame_stride,
+                                            pnp=pat, pnp_chunks=n_rows + 1)
+                        with span("pipe.guide"):
+                            eps = combine_guidance(eps[1:], mode, cfg_txt, cfg_img,
+                                                   guidance_rescale, plan)
+                            x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
         if k_inj < n_run:
-            x = self._guided_loop(x, text_all[1:], torch.cat(ff_rows, dim=0), ts_run[k_inj:],
-                                  ts_prev[k_inj:], mode, cfg_txt, cfg_img, guidance_rescale,
-                                  frame_stride, plan)
+            with span("pipe.segment"):
+                x = self._guided_loop(x, text_all[1:], torch.cat(ff_rows, dim=0), ts_run[k_inj:],
+                                      ts_prev[k_inj:], mode, cfg_txt, cfg_img, guidance_rescale,
+                                      frame_stride, plan)
         return torch.cat([ff_edit, plan.gather(x)], dim=1)
 
     @torch.inference_mode()
@@ -222,11 +233,13 @@ class ConsistI2VPipeline(LatentCodecMixin):
         """Guided DDIM steps on ``x``, this rank's frames under ``plan``."""
         n_rows = _UNCOND_ROWS[mode]
         for t, t_prev in zip(ts, ts_prev):
-            with plan.region():
-                eps = self._eps(torch.cat([x] * n_rows, dim=0), int(t), text_rows, ff_rows,
-                                frame_stride)
-            eps = combine_guidance(eps, mode, cfg_txt, cfg_img, guidance_rescale, plan)
-            x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
+            with span("pipe.step"):
+                with plan.region():
+                    eps = self._eps(torch.cat([x] * n_rows, dim=0), int(t), text_rows, ff_rows,
+                                    frame_stride)
+                with span("pipe.guide"):
+                    eps = combine_guidance(eps, mode, cfg_txt, cfg_img, guidance_rescale, plan)
+                    x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
         return x
 
     # ------------------------------------------------------------------

@@ -41,6 +41,7 @@ from ..schedulers import (
     inversion_timesteps,
     sampling_timesteps,
 )
+from ..utils.profiling import span, spanned
 from .common import (FramePlan, HostTrajectory, LatentCodecMixin, device_rows_for_scan,
                      group_constant_runs, run_inversion)
 
@@ -69,6 +70,7 @@ class I2VGenPipeline(LatentCodecMixin):
     # conditioning
     # ------------------------------------------------------------------
 
+    @spanned("pipe.encode")
     def prepare_image_latents(self, image01, num_frames: int) -> torch.Tensor:
         """Conditioning-frame latent plus (F-1) position-mask frames of value
         (i+1)/(F-1). ``[H, W, 3]`` -> ``[1, F, h, w, 4]`` fp32."""
@@ -97,6 +99,7 @@ class I2VGenPipeline(LatentCodecMixin):
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    @spanned("pipe.invert")
     def invert(self, video_latents, text_embeds, image_latents, image_embeds,
                num_inversion_steps: int = 500, fps: int = 8,
                chunk_steps: Optional[int] = None, num_save_steps: Optional[int] = None,
@@ -120,12 +123,14 @@ class I2VGenPipeline(LatentCodecMixin):
         plan = self._frame_plan(x.shape[1])
         x = plan.local(x)
 
+        @spanned("pipe.step")
         def step(i):
             nonlocal x
             t = int(inv_ts[i])
             with plan.region():
                 eps = self._eps(x, t, text, fps, il, ie)
-            x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
+            with span("pipe.guide"):
+                x = ddim_inverse_step(self.schedule, x, eps, t, num_inversion_steps)
             return plan.gather(x)
 
         traj = run_inversion(step, keep, row_shape, self.device, traj_store, chunk_steps)
@@ -136,6 +141,7 @@ class I2VGenPipeline(LatentCodecMixin):
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    @spanned("pipe.edit")
     def sample_with_pnp(self, traj, inv_ts: np.ndarray, text_embeds_all, image_latents_all,
                         image_embeds_all, num_inference_steps: int = 50, t_idx: int = 0,
                         guidance_scale: float = 9.0, pnp: Optional[PnPConfig] = None,
@@ -180,16 +186,21 @@ class I2VGenPipeline(LatentCodecMixin):
         traj, cache_idx = device_rows_for_scan(traj, cache_idx, k_inj)
         # static segments: each run of steps has one Python-bool flag pattern
         for start, pat, stop in group_constant_runs(masks, k_inj):
-            for i in range(start, stop):
-                inp = torch.cat([plan.local(traj[cache_idx[i]]), x, x], dim=0)
-                with plan.region():
-                    eps3 = self._eps(inp, int(ts_run[i]), text3, fps, il3, ie3, pnp=pat)
-                _eps_src, eps_neg, eps_edit = eps3.chunk(3, dim=0)
-                eps = eps_neg + guidance_scale * (eps_edit - eps_neg)
-                x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
+            with span("pipe.segment"):
+                for i in range(start, stop):
+                    with span("pipe.step"):
+                        inp = torch.cat([plan.local(traj[cache_idx[i]]), x, x], dim=0)
+                        with plan.region():
+                            eps3 = self._eps(inp, int(ts_run[i]), text3, fps, il3, ie3, pnp=pat)
+                        with span("pipe.guide"):
+                            _eps_src, eps_neg, eps_edit = eps3.chunk(3, dim=0)
+                            eps = eps_neg + guidance_scale * (eps_edit - eps_neg)
+                            x = ddim_step(self.schedule, x, eps, int(ts_run[i]), int(ts_prev[i]))
         if k_inj < n_run:
-            x = self._sample_loop(x, text3[1:], il3[1:], ie3[1:], ts_run[k_inj:],
-                                  ts_prev[k_inj:], guidance_scale, fps, do_cfg=True, plan=plan)
+            with span("pipe.segment"):
+                x = self._sample_loop(x, text3[1:], il3[1:], ie3[1:], ts_run[k_inj:],
+                                      ts_prev[k_inj:], guidance_scale, fps, do_cfg=True,
+                                      plan=plan)
         return plan.gather(x)
 
     @torch.inference_mode()
@@ -197,13 +208,15 @@ class I2VGenPipeline(LatentCodecMixin):
                      fps, do_cfg: bool, plan: FramePlan = FramePlan()):
         """Guided DDIM steps on ``x``, this rank's frames under ``plan``."""
         for t, t_prev in zip(ts, ts_prev):
-            inp = torch.cat([x, x], dim=0) if do_cfg else x
-            with plan.region():
-                eps = self._eps(inp, int(t), text_all, fps, il_all, ie_all)
-            if do_cfg:
-                eps_neg, eps_cond = eps.chunk(2, dim=0)
-                eps = eps_neg + guidance_scale * (eps_cond - eps_neg)
-            x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
+            with span("pipe.step"):
+                inp = torch.cat([x, x], dim=0) if do_cfg else x
+                with plan.region():
+                    eps = self._eps(inp, int(t), text_all, fps, il_all, ie_all)
+                with span("pipe.guide"):
+                    if do_cfg:
+                        eps_neg, eps_cond = eps.chunk(2, dim=0)
+                        eps = eps_neg + guidance_scale * (eps_cond - eps_neg)
+                    x = ddim_step(self.schedule, x, eps, int(t), int(t_prev))
         return x
 
     def sample(self, init_latent, text_embeds_all, image_latents_all, image_embeds_all,

@@ -7,10 +7,12 @@ nested dicts, lists, tuples and dataclasses, checks a ``HostTrajectory``'s
 chunks, raises on a NaN or Inf anywhere, and raises where the JAX version
 returns 0.0: on a non-empty input that holds no tensor, and (through its
 chunks) on a host trajectory. ``check_scan_time`` keeps the JAX floor and
-message. ``PhaseTimers`` syncs on its ``sync`` outputs at exit.
+message. ``PhaseTimers`` syncs on its ``sync`` outputs at exit. ``trace_if``
+writes the profiler's events and the program's spans into one Chrome trace.
 """
 
 import dataclasses
+import json
 import os
 
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from anyv2v_tpu.utils import benchguard as jbench
+from anyv2v_torch.models.layers import group_norm
 from anyv2v_torch.pipelines.common import HostTrajectory
 from anyv2v_torch.utils import benchguard
 from anyv2v_torch.utils.profiling import PhaseTimers, trace_if
@@ -138,4 +141,17 @@ def test_phase_timers_sync_and_report(tmp_path):
         pass
     with trace_if(str(tmp_path / "trace")):
         (torch.ones(8) + 1).sum()
+        group_norm(torch.ones(1, 4, 4, 8), torch.nn.GroupNorm(2, 8))
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    # the profiler's events and the program's spans, as a process of their own,
+    # on one clock: the span holds the ops it ran
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "anyv2v_torch"]
+    assert [s["name"] for s in spans] == ["layer.norm"]
+    ops = [e for e in events if e.get("name") == "aten::var_mean"]
+    assert ops and spans[0]["pid"] not in {e["pid"] for e in ops}
+    start, end = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    assert all(start - 50 <= e["ts"] and e["ts"] + e["dur"] <= end + 50 for e in ops)
+    assert any(e.get("ph") == "M" and e.get("args", {}).get("name") == "anyv2v_torch spans"
+               for e in events)
