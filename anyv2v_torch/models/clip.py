@@ -87,8 +87,8 @@ class _Layer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(d, eps=1e-5)
 
     def forward(self, x, causal: bool):
-        x = x + self.self_attn(layer_norm(x, self.layer_norm1).to(self.dtype), causal)
-        h = self.mlp.fc1(layer_norm(x, self.layer_norm2).to(self.dtype))
+        x = x + self.self_attn(layer_norm(x, self.layer_norm1, self.dtype), causal)
+        h = self.mlp.fc1(layer_norm(x, self.layer_norm2, self.dtype))
         return x + self.mlp.fc2(_act(self.act, h))
 
 
@@ -138,7 +138,7 @@ class CLIPTextModel(nn.Module):
         for layer in tm.encoder.layers:
             before_last = x
             x = layer(x, causal=True)
-        x = layer_norm(x, tm.final_layer_norm).to(cfg.dtype)
+        x = layer_norm(x, tm.final_layer_norm, cfg.dtype)
         eos_pos = (input_ids == cfg.eos_token_id).int().argmax(dim=-1)
         pooled = x[torch.arange(b, device=x.device), eos_pos]
         if cfg.projection_dim is not None:
@@ -188,11 +188,11 @@ class CLIPVisionModel(nn.Module):
         patches = patches.flatten(2).transpose(1, 2)                 # [B, N, D]
         cls = emb.class_embedding.to(cfg.dtype)[None, None].expand(b, 1, -1)
         x = torch.cat([cls, patches], dim=1) + emb.position_embedding.weight[None].to(cfg.dtype)
-        x = layer_norm(x, vm.pre_layrnorm).to(cfg.dtype)
+        x = layer_norm(x, vm.pre_layrnorm, cfg.dtype)
         for layer in vm.encoder.layers:
             before_last = x
             x = layer(x, causal=False)
-        pooled = layer_norm(x[:, 0], vm.post_layernorm).to(cfg.dtype)
+        pooled = layer_norm(x[:, 0], vm.post_layernorm, cfg.dtype)
         return (before_last if penultimate else x), self.visual_projection(pooled)
 
 

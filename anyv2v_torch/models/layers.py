@@ -13,7 +13,8 @@ weights in another form for the kernels and convert in their state-dict
 hooks: :class:`Attention` pads every head to :func:`padded_head_dim`
 (i2vgen-xl's 5/10/20 -> 8/16/32), and the temporal conv stores ``[3, C, C']``.
 
-Norms compute in fp32; everything else in the module's dtype. PnP injection
+Norms keep fp32 statistics and round once to the module's dtype
+(:mod:`anyv2v_torch.ops.norm`); everything else computes in that dtype. PnP injection
 flags are Python bools (see :mod:`anyv2v_torch.ops.pnp`).
 """
 
@@ -28,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention, padded_head_dim, temporal_attention
+from ..ops import norm as _norm
 from ..ops.ffn import ffn_geglu, ffn_gelu, fits as ffn_fits
 from ..ops.pnp import inject_source_rows
 from ..ops.temporal_conv import groupnorm_silu_temporal_conv
@@ -40,21 +42,23 @@ from ..utils.profiling import spanned
 
 
 @spanned("layer.norm")
-def group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+def group_norm(x: torch.Tensor, norm: nn.GroupNorm, dtype: Optional[torch.dtype] = None,
+               silu: bool = False) -> torch.Tensor:
     """GroupNorm over every axis but the first and last of a channels-last
-    tensor, in fp32 (returns fp32)."""
-    n, c = x.shape[0], x.shape[-1]
-    g = norm.num_groups
-    xf = x.float().reshape(n, -1, g, c // g)
-    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
-    y = ((xf - mean) * torch.rsqrt(var + norm.eps)).reshape(x.shape)
-    return y * norm.weight.float() + norm.bias.float()
+    tensor, then SiLU where ``silu``: fp32 statistics and arithmetic, one
+    rounding to ``dtype`` (x's by default). Calls the KN entry through its
+    module (``_norm.group_norm``), as the benchmark wraps it."""
+    return _norm.group_norm(x.contiguous(), norm.weight, norm.bias, norm.num_groups, norm.eps,
+                            x.dtype if dtype is None else dtype, silu=silu)
 
 
 @spanned("layer.norm")
-def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
-                        norm.bias.float(), norm.eps)
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """LayerNorm over the last axis: fp32 statistics and affine, one rounding
+    to ``dtype`` (x's by default)."""
+    return _norm.layer_norm(x.contiguous(), norm.weight, norm.bias, norm.eps,
+                            x.dtype if dtype is None else dtype)
 
 
 @spanned("layer.conv")
@@ -151,10 +155,10 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x, temb=None, inject: bool = False, pnp_chunks: Optional[int] = None):
-        h = conv_nhwc(self.conv1, F.silu(group_norm(x, self.norm1)).to(self.dtype))
+        h = conv_nhwc(self.conv1, group_norm(x, self.norm1, self.dtype, silu=True))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = conv_nhwc(self.conv2, F.silu(group_norm(h, self.norm2)).to(self.dtype))
+        h = conv_nhwc(self.conv2, group_norm(h, self.norm2, self.dtype, silu=True))
         h = inject_source_rows(h, inject, pnp_chunks or self.pnp_chunks)
         if self.conv_shortcut is not None:
             x = linear_1x1(self.conv_shortcut, x)
@@ -374,12 +378,12 @@ class BasicTransformerBlock(nn.Module):
                 bias: Optional[torch.Tensor] = None):
         """``bias`` reaches attn1 only, as in the JAX block."""
         dt = self.dtype
-        x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inject,
+        x = x + self.attn1(layer_norm(x, self.norm1, dt), inject=inject,
                            frame_axis=frame_axis, pixel_sharded=pixel_sharded, bias=bias)
-        x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context,
+        x = x + self.attn2(layer_norm(x, self.norm2, dt), context=context,
                            frame_axis=frame_axis, ip_tokens=ip_tokens, ip_scale=ip_scale,
                            pixel_sharded=pixel_sharded)
-        return x + self.ff(layer_norm(x, self.norm3).to(dt))
+        return x + self.ff(layer_norm(x, self.norm3, dt))
 
 
 class SpatialTransformer(nn.Module):
@@ -407,7 +411,7 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context=None, inject: bool = False, ip_tokens=None,
                 ip_scale: float = 1.0):
         b, h, w, c = x.shape
-        y = _pointwise(self.proj_in, group_norm(x, self.norm).to(self.dtype))
+        y = _pointwise(self.proj_in, group_norm(x, self.norm, self.dtype))
         y = y.reshape(b, h * w, -1)
         for block in self.transformer_blocks:
             y = block(y, context=context, inject=inject, ip_tokens=ip_tokens, ip_scale=ip_scale)
@@ -443,7 +447,7 @@ class TemporalTransformer(nn.Module):
     @spanned("unet.temporal")
     def forward(self, x, inject: bool = False, bias: Optional[torch.Tensor] = None):
         b, f, h, w, c = x.shape
-        y = group_norm(x.reshape(b * f, h, w, c), self.norm).to(self.dtype)
+        y = group_norm(x.reshape(b * f, h, w, c), self.norm)   # x is in the module's dtype
 
         def block(y, mode):
             y = self.proj_in(y)

@@ -90,7 +90,7 @@ class _TemporalEncoder(nn.Module):
         self.ff = FeedForward(dim, mult=4, activation="gelu")
 
     def forward(self, x):
-        x = x + self.attn1(layer_norm(x, self.norm1).to(self.dtype))
+        x = x + self.attn1(layer_norm(x, self.norm1, self.dtype))
         return x + self.ff(x)
 
 
@@ -277,5 +277,5 @@ class I2VGenUNet(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
-        x = F.silu(group_norm(x, self.conv_norm_out)).to(dt)
+        x = group_norm(x, self.conv_norm_out, dt, silu=True)
         return unfold_frames(conv_nhwc(self.conv_out, x), F_)

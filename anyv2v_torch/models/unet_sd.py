@@ -28,7 +28,6 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from .layers import (
     Downsample2D,
@@ -229,7 +228,7 @@ class SDUNet(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
-        x = F.silu(group_norm(x, self.conv_norm_out)).to(dt)
+        x = group_norm(x, self.conv_norm_out, dt, silu=True)
         return conv_nhwc(self.conv_out, x)
 
 

@@ -170,15 +170,15 @@ class SeineTransformerBlock(nn.Module):
         inj_spatial, inj_cross, inj_temporal = inject
         dt = self.dtype
         bf, hw, c = x.shape
-        x = x + self.attn1(layer_norm(x, self.norm1).to(dt), inject=inj_spatial)
-        x = x + self.attn2(layer_norm(x, self.norm2).to(dt), context=context, inject=inj_cross)
-        h4 = layer_norm(x, self.norm_temp).to(dt).reshape(bf // frames, frames, hw, c)
+        x = x + self.attn1(layer_norm(x, self.norm1, dt), inject=inj_spatial)
+        x = x + self.attn2(layer_norm(x, self.norm2, dt), context=context, inject=inj_cross)
+        h4 = layer_norm(x, self.norm_temp, dt).reshape(bf // frames, frames, hw, c)
         # sharded: every frame local around the whole op, whose positions and
         # bias span the global frames
         out4 = around_frame_op(lambda h, mode: self._temporal(h, inj_temporal, mode is not None),
                                (h4,))
         x = x + out4.reshape(bf, hw, c)
-        return x + self.ff(layer_norm(x, self.norm3).to(dt))
+        return x + self.ff(layer_norm(x, self.norm3, dt))
 
 
 class SeineTransformer3D(nn.Module):
@@ -199,7 +199,7 @@ class SeineTransformer3D(nn.Module):
 
     def forward(self, x, context, frames: int, inject=(False, False, False)):
         bf, h, w, c = x.shape
-        y = linear_1x1(self.proj_in, group_norm(x, self.norm).to(self.dtype))
+        y = linear_1x1(self.proj_in, group_norm(x, self.norm, self.dtype))
         ctx = context.to(self.dtype).repeat_interleave(frames, dim=0)
         y = self.transformer_blocks[0](y.reshape(bf, h * w, -1), ctx, frames, inject)
         return linear_1x1(self.proj_out, y.reshape(bf, h, w, -1)) + x
@@ -310,5 +310,5 @@ class SeineUNet(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
-        x = F.silu(group_norm(x, self.conv_norm_out)).to(dt)
+        x = group_norm(x, self.conv_norm_out, dt, silu=True)
         return unfold_frames(conv_nhwc(self.conv_out, x), F_)

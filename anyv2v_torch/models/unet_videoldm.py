@@ -39,7 +39,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention, spatial_attention_ffconcat, temporal_attention
 from ..ops.pnp import inject_source_rows
@@ -174,9 +173,9 @@ class VideoLDMSpatialTransformer(nn.Module):
         dt = self.dtype
         blk = self.transformer_blocks[0]
         a1, a2 = blk.attn1, blk.attn2
-        y = self.proj_in(group_norm(x, self.norm).to(dt)).reshape(bf, h_ * w_, -1)
+        y = self.proj_in(group_norm(x, self.norm, dt)).reshape(bf, h_ * w_, -1)
 
-        h = layer_norm(y, blk.norm1).to(dt)
+        h = layer_norm(y, blk.norm1, dt)
         q, k, v = a1.to_q(h), a1.to_k(h), a1.to_v(h)
         if inject:   # PnP: Q/K substituted, V untouched
             q = inject_source_rows(q, True, pnp_chunks)
@@ -191,11 +190,11 @@ class VideoLDMSpatialTransformer(nn.Module):
             attn = multi_head_attention(q, k, v, self.heads, a1.scale)
         y = y + a1.to_out[0](attn)
 
-        h = layer_norm(y, blk.norm2).to(dt)
+        h = layer_norm(y, blk.norm2, dt)
         ctx = context.to(dt).repeat_interleave(frames, dim=0)
         attn = multi_head_attention(a2.to_q(h), a2.to_k(ctx), a2.to_v(ctx), self.heads, a2.scale)
         y = y + a2.to_out[0](attn)
-        y = y + blk.ff(layer_norm(y, blk.norm3).to(dt))
+        y = y + blk.ff(layer_norm(y, blk.norm3, dt))
         return self.proj_out(y.reshape(bf, h_, w_, -1)) + x
 
 
@@ -274,10 +273,10 @@ class VideoLDMTemporalTransformer(nn.Module):
         b, f, hw = bf // frames, frames, h_ * w_
         dt = self.dtype
         blk = self.transformer_blocks[0]
-        tokens = self.proj_in(group_norm(x, self.norm).to(dt)).reshape(bf, hw, -1)
+        tokens = self.proj_in(group_norm(x, self.norm, dt)).reshape(bf, hw, -1)
         inner = tokens.shape[-1]
 
-        normed4 = layer_norm(tokens, blk.norm1).to(dt).reshape(b, f, hw, inner)
+        normed4 = layer_norm(tokens, blk.norm1, dt).reshape(b, f, hw, inner)
         region = sharded_region()
         f0row = int(bool(region) and self.first_frame_replicated)
         adj = None
@@ -296,7 +295,7 @@ class VideoLDMTemporalTransformer(nn.Module):
         attn = around_frame_op(attend, (normed4,), f0row)
         tokens = tokens + attn.reshape(bf, hw, inner)
 
-        normed4 = layer_norm(tokens, blk.norm2).to(dt).reshape(b, f, hw, inner)
+        normed4 = layer_norm(tokens, blk.norm2, dt).reshape(b, f, hw, inner)
         f_glob, pos = f, torch.arange(f, device=x.device, dtype=torch.float32)
         if region:
             f_real = f - f0row
@@ -315,7 +314,7 @@ class VideoLDMTemporalTransformer(nn.Module):
         cross = multi_head_attention(q4.reshape(b, f * hw, inner), a2.to_k(ctx), a2.to_v(ctx),
                                      self.heads, a2.scale)
         tokens = tokens + a2.to_out[0](cross).reshape(bf, hw, inner)
-        tokens = tokens + blk.ff(layer_norm(tokens, blk.norm3).to(dt))
+        tokens = tokens + blk.ff(layer_norm(tokens, blk.norm3, dt))
 
         out = self.proj_out(tokens.reshape(bf, h_, w_, inner)) + x
         a = _alpha(self.alpha)
@@ -507,6 +506,6 @@ class VideoLDMUNet(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
-        x = F.silu(group_norm(x, self.conv_norm_out)).to(dt)
+        x = group_norm(x, self.conv_norm_out, dt, silu=True)
         out = unfold_frames(conv_nhwc(self.conv_out, x), F_)
         return out[:, 1:] if mode != "none" else out

@@ -8,7 +8,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..utils.profiling import spanned
 from .layers import Attention, Downsample2D, ResnetBlock2D, Upsample2D, conv_nhwc, group_norm, linear_1x1
@@ -48,7 +47,7 @@ class _MidBlock(nn.Module):
         x = self.resnets[0](x)
         b, h, w, c = x.shape
         attn = self.attentions[0]
-        tokens = group_norm(x, attn.group_norm).reshape(b, h * w, c).to(self.dtype)
+        tokens = group_norm(x, attn.group_norm, self.dtype).reshape(b, h * w, c)
         x = x + attn(tokens).reshape(b, h, w, c)
         return self.resnets[1](x)
 
@@ -84,7 +83,7 @@ class Encoder(nn.Module):
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
         x = self.mid_block(x)
-        x = F.silu(group_norm(x, self.conv_norm_out)).to(self.dtype)
+        x = group_norm(x, self.conv_norm_out, self.dtype, silu=True)
         return conv_nhwc(self.conv_out, x)
 
 
@@ -118,7 +117,7 @@ class Decoder(nn.Module):
                 x = r(x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
-        x = F.silu(group_norm(x, self.conv_norm_out)).to(self.dtype)
+        x = group_norm(x, self.conv_norm_out, self.dtype, silu=True)
         return conv_nhwc(self.conv_out, x)
 
 

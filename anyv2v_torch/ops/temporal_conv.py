@@ -1,9 +1,10 @@
 """K4: groupnorm-apply + SiLU + (3,1,1) temporal convolution over ``[B, F, P, C]``.
 
 Replaces ``anyv2v_tpu/ops/pallas_temporal_conv.py::_tconv_kernel``, which every
-``TemporalConvLayer`` runs four times. The group statistics stay a plain
-reduction outside the kernel (:func:`groupnorm_scale_shift`), as the JAX code
-keeps them outside Pallas; the kernel (``csrc/temporal_conv.cu``) applies
+``TemporalConvLayer`` runs four times. The group statistics stay outside
+the kernel (:func:`groupnorm_scale_shift`: KN's statistics,
+:func:`anyv2v_torch.ops.norm.group_scale_shift`), as the JAX code keeps them
+outside Pallas; the kernel (``csrc/temporal_conv.cu``) applies
 ``silu(x * s + t)`` in fp32, rounds to the compute dtype and convolves along
 frames with zero frame padding, accumulating in fp32.
 
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 
 from ..utils.profiling import spanned
 from . import _build
+from . import norm as _norm
 
 
 def tconv_plan(b: int, f: int, p: int, c: int, c_out: int, sms: int = _build.H100_SMS) -> dict:
@@ -55,21 +57,23 @@ def groupnorm_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tens
     """Per-(batch, channel) fp32 ``s, t`` such that groupnorm(x) = x*s + t,
     statistics over every axis but batch and channel. x ``[B, ..., C]``.
 
-    Inside a manual-SPMD region x is this rank's share (of the frames, or of
-    the pixels of every frame) and the statistics are global: the per-rank
-    mean and mean square are averaged over the ranks (one all-reduce; equal
-    shares make the mean of means exact)."""
+    Outside a manual-SPMD region: the KN statistics
+    (:func:`anyv2v_torch.ops.norm.group_scale_shift`, called through its
+    module, as the benchmark wraps it). Inside one, x is this rank's share (of
+    the frames, or of the pixels of every frame) and the statistics are
+    global: the per-rank mean and mean square are averaged over the ranks
+    (one all-reduce; equal shares make the mean of means exact), in plain
+    PyTorch."""
     from ..parallel.mesh import pmean_axis, sharded_region
 
-    b, c = x.shape[0], x.shape[-1]
-    xf = x.float().reshape(b, -1, groups, c // groups)
     region = sharded_region()
     if region is None:
-        var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False)     # [B, G]
-    else:
-        moments = pmean_axis(torch.stack([xf.mean(dim=(1, 3)), xf.square().mean(dim=(1, 3))]),
-                             region[0])
-        mean, var = moments[0], moments[1] - moments[0].square()
+        return _norm.group_scale_shift(x.contiguous(), gamma, beta, groups, eps)
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, groups, c // groups)
+    moments = pmean_axis(torch.stack([xf.mean(dim=(1, 3)), xf.square().mean(dim=(1, 3))]),
+                         region[0])
+    mean, var = moments[0], moments[1] - moments[0].square()
     inv = torch.rsqrt(var + eps)
     s = inv.repeat_interleave(c // groups, dim=1) * gamma.float()[None]
     t = beta.float()[None] - mean.repeat_interleave(c // groups, dim=1) * s

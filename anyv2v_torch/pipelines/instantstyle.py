@@ -65,7 +65,7 @@ class ImageProjModel(nn.Module):
         dt = self.proj.weight.dtype
         x = self.proj(image_embeds.to(dt))
         x = x.reshape(x.shape[0], self.num_tokens, self.cross_attention_dim)
-        return layer_norm(x, self.norm).to(dt)
+        return layer_norm(x, self.norm, dt)
 
 
 class MLPProjModel(nn.Module):
@@ -84,7 +84,7 @@ class MLPProjModel(nn.Module):
         """``[B, S_img, D_clip]`` -> ``[B, S_img, cross_dim]``."""
         dt = self.proj[0].weight.dtype
         h = self.proj[2](F.gelu(self.proj[0](image_tokens.to(dt))))
-        return layer_norm(h, self.proj[3]).to(dt)
+        return layer_norm(h, self.proj[3], dt)
 
 
 class _PerceiverAttention(nn.Module):
@@ -100,8 +100,8 @@ class _PerceiverAttention(nn.Module):
 
     def forward(self, tokens, latents):
         dt = self.to_q.weight.dtype
-        ln1 = layer_norm(tokens, self.norm1).to(dt)
-        ln2 = layer_norm(latents, self.norm2).to(dt)
+        ln1 = layer_norm(tokens, self.norm1, dt)
+        ln2 = layer_norm(latents, self.norm2, dt)
         k, v = self.to_kv(torch.cat([ln1, ln2], dim=1)).chunk(2, dim=-1)
         out = multi_head_attention(self.to_q(ln2), k.contiguous(), v.contiguous(), self.heads,
                                    self.scale)
@@ -137,9 +137,9 @@ class Resampler(nn.Module):
         tokens = self.proj_in(image_tokens.to(dt))
         for attn, ff in self.layers:
             x = x + attn(tokens, x)
-            h = ff[1](layer_norm(x, ff[0]).to(dt))
+            h = ff[1](layer_norm(x, ff[0], dt))
             x = x + ff[3](F.gelu(h))
-        return layer_norm(self.proj_out(x), self.norm_out).to(dt)
+        return layer_norm(self.proj_out(x), self.norm_out, dt)
 
 
 @torch.inference_mode()

@@ -4,7 +4,7 @@
 
 Phases:
  1. environment: torch and CUDA versions, the card's name and power limit;
- 2. build the five CUDA kernels of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
+ 2. build the six CUDA sources of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
     one nvcc per source, all started together, and print ptxas's registers
     and spills of every kernel's instances;
  3. hold each kernel against its plain PyTorch version in bf16 at the shapes
@@ -53,7 +53,14 @@ Phases:
     GEMM wherever s, t are given, timed apart under torch.profiler beside
     its byte bound (its record ``gn_silu_temporal_conv_prologue``, its
     launches the wrapper's ``prologue_launches``; its error is the K4
-    output's, which its h feeds);
+    output's, which its h feeds); KN, the norms (``csrc/norm.cu``: the group
+    norm with and without SiLU, K4's group statistics, the layer norm) at
+    ConsistI2V's L0-L3 shapes at the edit batch (51 images), the up blocks'
+    concatenated widths, the VAE's 512^2 decode widths and the layer norms'
+    rows, fp32 in and out off the path, beside ``F.group_norm`` (SiLU after
+    it where the case fuses one) and ``F.layer_norm`` on the same values
+    (the group norm's on a contiguous NCHW copy made beforehand), a yardstick
+    that the port never calls;
  3b. the op surfaces (before phase 4): the port's ``Attention`` with a score
     bias (SEINE L0 self, ConsistI2V L0 spatial cross per row, i2vgen-xl L2
     at dh 32), ``TemporalTransformer`` with a bias over its frames (SEINE L0
@@ -497,11 +504,41 @@ def _frame_transposes(q, k, v, heads):
     return run
 
 
+def _norm_cost(x, weight, bias, *args, **kwargs):
+    """KN: no operations; x read once, the affine parameters, the output
+    written once: x's shape in the dtype the call names, or s and t ``[N,
+    C]`` fp32 where it names none (K4's statistics)."""
+    out = next((a for a in (*args, *kwargs.values()) if isinstance(a, torch.dtype)), None)
+    written = (2 * x.shape[0] * x.shape[-1] * 4 if out is None
+               else x.numel() * torch.finfo(out).bits // 8)
+    return 0, _nbytes(x, weight, bias) + written
+
+
+def _group_norm_library(x, weight, bias, groups, eps, dtype, silu=False):
+    """``F.group_norm`` on a contiguous NCHW copy of x made beforehand (and
+    ``F.silu`` after it where the case fuses one), in x's dtype."""
+    xc = x.permute(0, x.dim() - 1, *range(1, x.dim() - 1)).contiguous()
+
+    def run():
+        y = torch.nn.functional.group_norm(xc, groups, weight, bias, eps)
+        return torch.nn.functional.silu(y) if silu else y
+    return run
+
+
+def _layer_norm_library(x, weight, bias, eps, dtype):
+    return lambda: torch.nn.functional.layer_norm(x, (x.shape[-1],), weight, bias, eps)
+
+
+def _scale_shift(fn):
+    """K4's statistics ``s, t`` as one ``[N, 2C]`` tensor, for the checks."""
+    return lambda *args: torch.cat(fn(*args), dim=1)
+
+
 def _kernels():
     """name -> (route, source, replaces, wrapper, plain version, cost,
     library call factory or None)."""
     from anyv2v_torch.ops import ffn, flash_attention as fl, folded_attention as fa
-    from anyv2v_torch.ops import frame_attention as fr, temporal_conv as tc
+    from anyv2v_torch.ops import frame_attention as fr, norm as kn, temporal_conv as tc
 
     return {
         "folded_attention": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
@@ -540,6 +577,13 @@ def _kernels():
         "flash_attention_bias": ("cuda", "anyv2v_torch/csrc/flash_attention.cu",
                                  "anyv2v_tpu/ops/pallas_attention.py:44", fl.flash_attention,
                                  fl.flash_attention_plain, _attn_cost, _attn_library),
+        # KN: no Pallas kernel (the JAX package leaves its norms to XLA)
+        "group_norm": ("cuda", "anyv2v_torch/csrc/norm.cu", None, kn.group_norm,
+                       kn.group_norm_plain, _norm_cost, _group_norm_library),
+        "group_scale_shift": ("cuda", "anyv2v_torch/csrc/norm.cu", None, _scale_shift(
+            kn.group_scale_shift), _scale_shift(kn.group_scale_shift_plain), _norm_cost, None),
+        "layer_norm": ("cuda", "anyv2v_torch/csrc/norm.cu", None, kn.layer_norm,
+                       kn.layer_norm_plain, _norm_cost, _layer_norm_library),
     }
 
 
@@ -628,8 +672,24 @@ def _kernel_cases():
             return (x, s, t, w, bias)
         return tagged(make, b=b, f=f, p=p, c=c, c_out=co)
 
+    def gn_args(n, p, c, groups=32, silu=True, dtype=torch.bfloat16, out=torch.bfloat16,
+                stats=False):
+        def make():
+            x = rn(n, p, c, std=1.5, dtype=dtype) + 0.3
+            w, b = 1 + rn(c, std=0.1, dtype=dtype), rn(c, std=0.1, dtype=dtype)
+            eps = 1e-6 if silu else 1e-5
+            return (x, w, b, groups, eps) if stats else (x, w, b, groups, eps, out, silu)
+        return tagged(make, n=n, p=p, c=c, groups=groups)
+
+    def ln_args(rows, c, dtype=torch.bfloat16, out=torch.bfloat16):
+        def make():
+            x = rn(rows, c, std=2.0, dtype=dtype) - 0.2
+            return x, 1 + rn(c, std=0.1, dtype=dtype), rn(c, std=0.1, dtype=dtype), 1e-5, out
+        return tagged(make, rows=rows, c=c)
+
     k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
                           "gn_silu_temporal_conv", "flash_attention")
+    gn, gss, ln = "group_norm", "group_scale_shift", "layer_norm"
     k2l, k3g, k5b = "frame_attention_long", "ffn_gelu", "flash_attention_bias"
     k1s = "folded_attention_short"
     return [
@@ -850,6 +910,54 @@ def _kernel_cases():
             (k5, f"ragged b2 Sq300 Sk200 h2 dh{dh}", attn(2, 300, 200, 2, dh, dh)),
             (k5b, f"ragged shared bias b2 Sq200 Sk300 h2 dh{dh}",
              attn_bias(2, 200, 300, 2, dh, dh, "shared")))],
+        *KN_CASES(gn_args, ln_args),
+    ]
+
+
+def KN_CASES(gn_args, ln_args):
+    """KN's cases: ConsistI2V at the edit batch (3 rows of 17 frames, 51
+    images of 64x64 / 32x32 / 16x16 / 8x8 latents): the resnets' norms with
+    SiLU, the spatial transformers' without, the up blocks' concatenated
+    widths, K4's statistics over a row's 17 frames, the transformers' layer
+    norms; the VAE's decode of 16 frames at its 512^2 widths (the last up
+    block's first resnet norms 256 channels there); CLIP's and the
+    InstantStyle resampler's layer norms, i2vgen-xl's 4-wide one; fp32 in and
+    out and the tiny archs' widths off the path."""
+    gn, gss, ln = "group_norm", "group_scale_shift", "layer_norm"
+    return [
+        (gn, "ConsistI2V L0 resnet N51 P4096 C320 silu", gn_args(51, 4096, 320)),
+        (gn, "ConsistI2V L0 spatial N51 P4096 C320", gn_args(51, 4096, 320, silu=False)),
+        (gn, "ConsistI2V L1 resnet N51 P1024 C640 silu", gn_args(51, 1024, 640)),
+        (gn, "ConsistI2V L2 resnet N51 P256 C1280 silu", gn_args(51, 256, 1280)),
+        (gn, "ConsistI2V mid resnet N51 P64 C1280 silu", gn_args(51, 64, 1280)),
+        (gn, "ConsistI2V up L0 concat N51 P4096 C960 silu", gn_args(51, 4096, 960)),
+        (gn, "ConsistI2V up L1 concat N51 P1024 C1920 silu", gn_args(51, 1024, 1920)),
+        (gn, "ConsistI2V up L2 concat N51 P256 C2560 silu", gn_args(51, 256, 2560)),
+        (gss, "ConsistI2V K4 L0 b3 F17 P4096 C320", gn_args(3, 17 * 4096, 320, stats=True)),
+        (gss, "ConsistI2V K4 L1 b3 F17 P1024 C640", gn_args(3, 17 * 1024, 640, stats=True)),
+        (gss, "ConsistI2V K4 L2 b3 F17 P256 C1280", gn_args(3, 17 * 256, 1280, stats=True)),
+        (ln, "ConsistI2V L0 tokens rows 51*4096 C320", ln_args(51 * 4096, 320)),
+        (ln, "ConsistI2V L1 tokens rows 51*1024 C640", ln_args(51 * 1024, 640)),
+        (ln, "ConsistI2V L2 tokens rows 51*256 C1280", ln_args(51 * 256, 1280)),
+        (gn, "VAE decode up 512^2 N16 P262144 C256 silu", gn_args(16, 512 * 512, 256)),
+        (gn, "VAE decode up 512^2 N16 P262144 C128 silu", gn_args(16, 512 * 512, 128)),
+        (gn, "VAE decode up 256^2 N16 P65536 C512 silu", gn_args(16, 256 * 256, 512)),
+        (gn, "VAE decode mid attention N16 P4096 C512", gn_args(16, 4096, 512, silu=False)),
+        (ln, "CLIP text rows 77 C1024", ln_args(77, 1024)),
+        (ln, "off-path InstantStyle resampler rows 2*16 C2048", ln_args(32, 2048)),
+        (ln, "off-path i2vgen-xl image-latent encoder rows 3*4096*16 C4", ln_args(3 * 4096 * 16, 4)),
+        (gn, "ragged fp32 in and out N3 P37 C64 G8", gn_args(3, 37, 64, 8, dtype=torch.float32,
+                                                            out=torch.float32)),
+        (gn, "ragged bf16 in fp32 out N2 P1000 C2560", gn_args(2, 1000, 2560,
+                                                               out=torch.float32)),
+        (gn, "ragged tiny N4 P16 C16 G8 silu", gn_args(4, 16, 16, 8)),
+        (gn, "ragged tiny N24 P1 C8 G4 silu", gn_args(24, 1, 8, 4)),
+        (gss, "ragged fp32 b2 F5 P30 C40 G8", gn_args(2, 5 * 30, 40, 8, dtype=torch.float32,
+                                                      stats=True)),
+        (ln, "ragged fp32 in bf16 out rows 1001 C768", ln_args(1001, 768, dtype=torch.float32)),
+        (ln, "ragged bf16 in fp32 out rows 999 C1280", ln_args(999, 1280, out=torch.float32)),
+        (ln, "ragged tiny rows 300 C16", ln_args(300, 16)),
+        (ln, "ragged rows 5 C12", ln_args(5, 12)),
     ]
 
 
@@ -1097,7 +1205,7 @@ class _Count:
 
 def _wrappers():
     from anyv2v_torch.ops import ffn, flash_attention, folded_attention, frame_attention
-    from anyv2v_torch.ops import temporal_conv
+    from anyv2v_torch.ops import norm, temporal_conv
 
     return {"folded_attention": folded_attention.folded_attention,
             "frame_attention": frame_attention.frame_attention,
@@ -1110,7 +1218,10 @@ def _wrappers():
                                                      "prologue_launches"),
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_bias": _Count(flash_attention.flash_attention, "bias_launches"),
-            "ffn_gelu": ffn.ffn_gelu}
+            "ffn_gelu": ffn.ffn_gelu,
+            "group_norm": norm.group_norm,
+            "group_scale_shift": norm.group_scale_shift,
+            "layer_norm": norm.layer_norm}
 
 
 def _flat(out):
@@ -2312,13 +2423,15 @@ def _forward_flops(arch, size, batch):
     from torch.utils.flop_counter import FlopCounterMode
 
     from anyv2v_torch.models import layers
-    from anyv2v_torch.ops import attention, ffn
+    from anyv2v_torch.ops import attention, ffn, norm
     from anyv2v_torch.ops import flash_attention as fl, folded_attention as fa
     from anyv2v_torch.utils.model_zoo import build_modules
 
     saved = attention.flash_attention, attention.folded_attention, layers.ffn_geglu
+    saved_norms = norm.group_norm, norm.layer_norm
     attention.flash_attention, attention.folded_attention, layers.ffn_geglu = (
         fl.flash_attention_plain, fa.folded_attention_plain, ffn.ffn_geglu_plain)
+    norm.group_norm, norm.layer_norm = norm.group_norm_plain, norm.layer_norm_plain
     try:
         modules = {k: m.to(torch.bfloat16).eval()
                    for k, m in build_modules(arch, torch.bfloat16).items()}
@@ -2329,6 +2442,7 @@ def _forward_flops(arch, size, batch):
         return counter.get_total_flops()
     finally:
         attention.flash_attention, attention.folded_attention, layers.ffn_geglu = saved
+        norm.group_norm, norm.layer_norm = saved_norms
 
 
 def _editor_k5_role(q, k, heads, k_ctx):
@@ -2853,7 +2967,11 @@ _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel", "folded_att
                   ("K4 prologue", "temporal_conv_kernel_prologue",
                    "gn_silu_temporal_conv_prologue"),
                   ("K4 temporal_conv", "temporal_conv_kernel", "gn_silu_temporal_conv"),
-                  ("K5 flash_attention", "flash_attention_kernel", "flash_attention"))
+                  ("K5 flash_attention", "flash_attention_kernel", "flash_attention"),
+                  ("KN group statistics", "kn_group_stats_kernel", "group_norm"),
+                  ("KN group apply", "kn_group_apply_kernel", "group_norm"),
+                  ("KN K4 finalize", "kn_group_finalize_kernel", "group_scale_shift"),
+                  ("KN layer_norm", "kn_layer_norm_kernel", "layer_norm"))
 
 
 class _ClockSampler:

@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from anyv2v_torch.models import layers  # noqa: E402
-from anyv2v_torch.ops import attention, temporal_conv  # noqa: E402
+from anyv2v_torch.ops import attention, norm, temporal_conv  # noqa: E402
 from anyv2v_torch.utils import profiling  # noqa: E402
 from anyv2v_torch.utils.model_zoo import ARCHS, build_modules  # noqa: E402
 
@@ -42,6 +42,11 @@ def _stub_kernels() -> None:
     for name in ("flash_attention", "folded_attention", "frame_attention",
                  "frame_attention_long"):
         setattr(attention, name, lambda q, *args, **kwargs: torch.empty_like(q))
+    norm.group_norm = lambda x, w, b, groups, eps, dtype, silu=False: x.new_empty(x.shape,
+                                                                                 dtype=dtype)
+    norm.layer_norm = lambda x, w, b, eps, dtype: x.new_empty(x.shape, dtype=dtype)
+    norm.group_scale_shift = lambda x, w, b, groups, eps: 2 * (
+        x.new_empty(x.shape[0], x.shape[-1], dtype=torch.float32),)
 
 
 def edit_spans(steps: int, batch3: int) -> tuple:

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from anyv2v_torch.models import layers
-from anyv2v_torch.ops import _build, attention, ffn
+from anyv2v_torch.ops import _build, attention, ffn, norm
 from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops import folded_attention as fa
 from anyv2v_torch.ops import frame_attention as fr
@@ -32,13 +32,49 @@ def _meta(*shape):
     return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
 
 
-def _stub_kernels(monkeypatch):
+def _stub_norms(monkeypatch, seen):
+    """Replace KN's wrappers (``anyv2v_torch.ops.norm``, which the models
+    call through the module) by stand-ins that record (images, pixels an
+    image, C, groups) of the group norms and of K4's statistics, (rows, C) of
+    the layer norms, into ``seen``."""
+    def gn(x, weight, bias, groups, eps, dtype, silu=False):
+        n, c = x.shape[0], x.shape[-1]
+        seen.setdefault("group_norm", set()).add((n, x.numel() // (n * c), c, groups))
+        return torch.empty(x.shape, device=x.device, dtype=dtype)
+
+    def stats(x, weight, bias, groups, eps):
+        n, c = x.shape[0], x.shape[-1]
+        seen.setdefault("group_scale_shift", set()).add((n, x.numel() // (n * c), c, groups))
+        return tuple(torch.empty(n, c, device=x.device) for _ in range(2))
+
+    def ln(x, weight, bias, eps, dtype):
+        seen.setdefault("layer_norm", set()).add((x.numel() // x.shape[-1], x.shape[-1]))
+        return torch.empty(x.shape, device=x.device, dtype=dtype)
+
+    monkeypatch.setattr(norm, "group_norm", gn)
+    monkeypatch.setattr(norm, "group_scale_shift", stats)
+    monkeypatch.setattr(norm, "layer_norm", ln)
+
+
+def _check_norm_plans(seen):
+    """Each routed norm shape has a launch plan that the card takes."""
+    for n, p, c, groups in seen.get("group_norm", set()):
+        _build.check_plan("group_norm", norm.norm_plan(n, p, c, groups))
+    for n, p, c, groups in seen.get("group_scale_shift", set()):
+        _build.check_plan("group_norm", norm.norm_plan(n, p, c, groups, stats_only=True))
+    for rows, c in seen.get("layer_norm", set()):
+        _build.check_plan("layer_norm", norm.layer_norm_plan(rows, c))
+
+
+def _stub_kernels(monkeypatch, norms=None):
     """Replace every kernel wrapper (and the dispatcher's SDPA) by a stand-in
     that records its operands' shapes: returns {wrapper name: set of (q
     shape, k shape, heads)}, K3's entries (rows, C, inner) and K4's (x
     shape, C', prologue); K5's split-KV calls also under
-    "flash_attention_context", with the context's length and frames."""
+    "flash_attention_context", with the context's length and frames. KN's
+    shapes go to ``norms`` (:func:`_stub_norms`)."""
     seen = {}
+    _stub_norms(monkeypatch, {} if norms is None else norms)
 
     def record(name):
         def call(q, k, v, heads, scale, *args, **kw):
@@ -73,9 +109,9 @@ def _stub_kernels(monkeypatch):
     return seen
 
 
-def _routes(monkeypatch, arch, frames, hw=None, batch=3):
+def _routes(monkeypatch, arch, frames, hw=None, batch=3, norms=None):
     """{wrapper name: set of (q shape, k shape, heads)} of one forward."""
-    seen = _stub_kernels(monkeypatch)
+    seen = _stub_kernels(monkeypatch, norms)
     cfg = ARCHS[arch]["unet"]
     hw = hw or (64 if cfg.block_out_channels[0] >= 320 else 16)
     unet = build_modules(arch, torch.bfloat16)["unet"].to(torch.bfloat16).eval()
@@ -151,6 +187,18 @@ def test_every_routed_ffn_and_temporal_conv_shape_has_a_plan(monkeypatch, arch, 
             assert p < 128 or arch.endswith("-tiny")
 
 
+@pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
+def test_every_routed_norm_shape_has_a_plan(monkeypatch, arch, frames):
+    """Every group norm, layer norm and K4 statistics call of a forward
+    reaches KN with a plan that the card takes; the temporal UNets reach all
+    three, SEINE no K4 statistics."""
+    seen = {}
+    _routes(monkeypatch, arch, frames, norms=seen)
+    assert seen.get("group_norm") and seen.get("layer_norm")
+    assert bool(seen.get("group_scale_shift")) == (not arch.startswith("seine"))
+    _check_norm_plans(seen)
+
+
 def test_dropped_widths_are_refused():
     """K2's old channel-pair body took head widths 2 and 4; no model stores a
     head that narrow, and neither route takes one now."""
@@ -166,10 +214,10 @@ _EDITORS = [("instructpix2pix", 512, 3), ("cosxl", 1024, 3), ("instantstyle", 10
             ("instructpix2pix-tiny", 64, 3), ("cosxl-tiny", 64, 3), ("instantstyle-tiny", 64, 2)]
 
 
-def _editor_routes(monkeypatch, arch, size, batch):
+def _editor_routes(monkeypatch, arch, size, batch, norms=None):
     from anyv2v_torch.pipelines.instantstyle import Resampler
 
-    seen = _stub_kernels(monkeypatch)
+    seen = _stub_kernels(monkeypatch, norms)
     modules = {k: m.to(torch.bfloat16).eval() for k, m in build_modules(arch, torch.bfloat16).items()}
     cfg = ARCHS[arch]["unet"]
     h, ctx = size // 8, cfg.cross_attention_dim
@@ -276,8 +324,11 @@ def test_op_surfaces_route_to_the_bias_and_gelu_kernels_with_a_plan(monkeypatch)
         monkeypatch.setattr(layers, name, lambda x, w1, b1, w2, b2, name=name: seen.setdefault(
             name, []).append((x.numel() // x.shape[-1], x.shape[-1], w2.shape[1]))
             or torch.empty_like(x))
+    norms = {}
+    _stub_norms(monkeypatch, norms)
     with torch.inference_mode():
         chip_smoke.op_surfaces(device="meta")
+    _check_norm_plans(norms)
     assert set(seen) == {"flash_attention", "frame_attention", "ffn_gelu", "ffn_geglu"}, \
         sorted(seen)
     forms = set()
@@ -300,3 +351,11 @@ def test_op_surfaces_route_to_the_bias_and_gelu_kernels_with_a_plan(monkeypatch)
         plan = ffn.ffn_plan(min(ffn.CHUNK_ROWS, n), c, inner, activation="gelu")
         for part in ("gelu", "out"):
             _build.check_plan("ffn_gelu", plan[part])
+
+
+@pytest.mark.parametrize("arch,size,batch", _EDITORS)
+def test_every_editor_norm_shape_has_a_plan(monkeypatch, arch, size, batch):
+    seen = {}
+    _editor_routes(monkeypatch, arch, size, batch, norms=seen)
+    assert seen.get("group_norm") and seen.get("layer_norm")
+    _check_norm_plans(seen)
