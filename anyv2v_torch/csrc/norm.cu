@@ -40,9 +40,21 @@
 //  - Moments by Welford per channel (no sum of squares: a group holds up to
 //    about 1 M elements at the VAE's 512^2), merged by Chan's formula:
 //    across the channels of a group (equal counts), across pixel slots,
-//    then across splits in the apply (one warp a group, a butterfly of
-//    shuffles), which spares a third launch; the partials are N x G x
-//    splits x 3 floats of the caller's scratch.
+//    then across splits in the apply (one warp a group, four groups a warp
+//    at once, a butterfly of shuffles), which spares a third launch; the
+//    partials are N x G x splits x 3 floats of the caller's scratch.
+//  - The apply cuts an image's pixels into splits of its own (`apply_splits`
+//    of `apply_split_rows`), as many as fill the card, while the statistics
+//    keep at most 128 splits an image: every apply block merges all of its
+//    image's partials, so where N is small (a clip of 16 frames normalised
+//    as one image: N 1-3 of 16 x 4096 pixels) more statistics splits would
+//    cost each apply block more than their grid gains. Where N is large the
+//    two grids are the same.
+//  - Where x holds one share of each image's pixels (a rank's frames of a
+//    clip split over ranks), the statistics and the apply are two calls, and
+//    the caller gathers every share's partials between them: the apply
+//    merges them all as it merges one share's (Chan's formula takes any
+//    counts), so no fp32 copy is made and no variance is taken in one pass.
 //  - The apply walks the blocks in the reverse order of the statistics, so
 //    that its first blocks find the pixels that the statistics read last
 //    still in the 50 MB L2 (a whole tensor below about 50 MB is read from
@@ -142,22 +154,44 @@ __device__ __forceinline__ void merge(Moments& a, const Moments& b) {
 
 // The mean and 1/sqrt(var + eps) of each group of image n from its
 // partials part[n][g][0..splits)[3], into mean[G], rstd[G] (shared): one
-// warp a group, each lane merging every 32nd split, then a butterfly.
-// blockDim.x is a multiple of 32.
+// warp a group, each lane merging every 32nd split, then a butterfly; a
+// warp carries MERGE_CHAINS groups at once, so that their partials' loads
+// are in flight together (the merge is bound by their L2 latency where an
+// apply block's own pixels are few; 8 chains, predicated to a warp's
+// groups, measured slower). blockDim.x is a multiple of 32.
+constexpr int MERGE_CHAINS = 4;
+
 __device__ void group_moments(const float* __restrict__ part, int n, int G, int splits,
                               float eps, float* mean, float* rstd) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  for (int g = warp; g < G; g += warps) {
-    const float* p = part + ((size_t)n * G + g) * splits * 3;
-    Moments a{0.f, 0.f, 0.f};
-    for (int s = lane; s < splits; s += 32) merge(a, Moments{p[3 * s], p[3 * s + 1], p[3 * s + 2]});
+  for (int g0 = warp; g0 < G; g0 += MERGE_CHAINS * warps) {
+    Moments a[MERGE_CHAINS];
+    const float* p[MERGE_CHAINS];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      merge(a, Moments{__shfl_xor_sync(~0u, a.n, o), __shfl_xor_sync(~0u, a.mean, o),
-                       __shfl_xor_sync(~0u, a.m2, o)});
-    if (lane == 0) {
-      mean[g] = a.mean;
-      rstd[g] = rsqrtf(fmaxf(a.m2 / a.n, 0.f) + eps);
+    for (int u = 0; u < MERGE_CHAINS; ++u) {
+      a[u] = Moments{0.f, 0.f, 0.f};
+      // a chain past the last group reads the last group's partials again, unused
+      p[u] = part + ((size_t)n * G + min(g0 + u * warps, G - 1)) * splits * 3;
+    }
+    for (int s = lane; s < splits; s += 32) {
+      Moments m[MERGE_CHAINS];
+#pragma unroll
+      for (int u = 0; u < MERGE_CHAINS; ++u)
+        m[u] = Moments{p[u][3 * s], p[u][3 * s + 1], p[u][3 * s + 2]};
+#pragma unroll
+      for (int u = 0; u < MERGE_CHAINS; ++u) merge(a[u], m[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_CHAINS; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        merge(a[u], Moments{__shfl_xor_sync(~0u, a[u].n, o), __shfl_xor_sync(~0u, a[u].mean, o),
+                            __shfl_xor_sync(~0u, a[u].m2, o)});
+      const int g = g0 + u * warps;
+      if (lane == 0 && g < G) {
+        mean[g] = a[u].mean;
+        rstd[g] = rsqrtf(fmaxf(a[u].m2 / a[u].n, 0.f) + eps);
+      }
     }
   }
 }
@@ -253,17 +287,19 @@ __global__ void __launch_bounds__(GN_MAX_THREADS) kn_group_stats_kernel(
 }
 
 // y = x * s + t per (n, channel), silu(y) where SILU, rounded once to TO,
-// over the pixels of one split of one image; blocks in the reverse order of
+// over the pixels [split * split_rows, + split_rows) of one image, its split
+// one of gridDim.x (the apply's own), its statistics merged from the
+// stats_splits partials of the statistics; blocks in the reverse order of
 // the statistics' (L2). Shared: mean[G], rstd[G].
 template <typename TI, typename TO, bool SILU>
 __global__ void __launch_bounds__(GN_MAX_THREADS) kn_group_apply_kernel(
     const TI* __restrict__ x, const float* __restrict__ part, const void* __restrict__ w,
     const void* __restrict__ b, bool param_bf16, TO* __restrict__ y, int P, int C, int G,
-    int rows, int split_rows, float eps) {
+    int rows, int split_rows, int stats_splits, float eps) {
   extern __shared__ float sm[];
   const int splits = gridDim.x;
   const int n = gridDim.y - 1 - blockIdx.y, split = splits - 1 - blockIdx.x;
-  group_moments(part, n, G, splits, eps, sm, sm + G);
+  group_moments(part, n, G, stats_splits, eps, sm, sm + G);
   __syncthreads();
   const int c8 = C / VEC, cg = C / G, col = threadIdx.x % c8, r = threadIdx.x / c8;
   if (r >= rows) return;
@@ -389,18 +425,27 @@ __global__ void __launch_bounds__(LN_THREADS) kn_layer_norm_kernel(
   }
 }
 
-// The group launch's shape, as ops/norm.py norm_plan gives it.
-bool group_plan_ok(int N, int P, int C, int G, int threads, int rows, int splits,
-                   int split_rows, int smem) {
+// A cut of P pixels into `splits` runs of `split_rows` (a multiple of rows),
+// none empty.
+bool splits_ok(int P, int rows, int splits, int split_rows) {
+  return split_rows > 0 && split_rows % rows == 0 && splits >= 1 &&
+         (long long)splits * split_rows >= P && (long long)(splits - 1) * split_rows < P;
+}
+
+// A block of `threads` over `rows` pixel slots of C/8 columns each, on x [N, P, C].
+bool block_ok(int N, int P, int C, int G, int threads, int rows) {
   if (N <= 0 || P <= 0 || C <= 0 || G <= 0 || C % VEC != 0 || C % G != 0 || C > 4096)
     return false;
   const int c8 = C / VEC;
   return threads % 32 == 0 && threads <= GN_MAX_THREADS && rows >= 1 && rows * c8 <= threads &&
-         threads < rows * c8 + 32 && split_rows > 0 && split_rows % rows == 0 &&
-         splits >= 1 && (long long)splits * split_rows >= P &&
-         (long long)(splits - 1) * split_rows < P && N <= 65535 &&
-         smem == (int)sizeof(float) * (2 * rows * C + rows + 2 * rows * G) && smem <= 48 * 1024 &&
-         (long long)N * P * C < (1LL << 40);
+         threads < rows * c8 + 32 && N <= 65535 && (long long)N * P * C < (1LL << 40);
+}
+
+// The statistics' launch, as ops/norm.py norm_plan gives it.
+bool group_plan_ok(int N, int P, int C, int G, int threads, int rows, int splits,
+                   int split_rows, int smem) {
+  return block_ok(N, P, C, G, threads, rows) && splits_ok(P, rows, splits, split_rows) &&
+         smem == (int)sizeof(float) * (2 * rows * C + rows + 2 * rows * G) && smem <= 48 * 1024;
 }
 
 template <typename T>
@@ -414,16 +459,43 @@ cudaError_t group_stats(const T* x, float* part, int N, int P, int C, int G, int
 template <typename TI, typename TO>
 cudaError_t group_apply(const TI* x, const float* part, const void* w, const void* b, bool pb,
                         TO* y, int N, int P, int C, int G, float eps, bool silu_, int threads,
-                        int rows, int splits, int split_rows, cudaStream_t st) {
+                        int rows, int stats_splits, int splits, int split_rows,
+                        cudaStream_t st) {
   const dim3 grid(splits, N);
   const int smem = 2 * G * sizeof(float);
   if (silu_)
     kn_group_apply_kernel<TI, TO, true><<<grid, threads, smem, st>>>(
-        x, part, w, b, pb, y, P, C, G, rows, split_rows, eps);
+        x, part, w, b, pb, y, P, C, G, rows, split_rows, stats_splits, eps);
   else
     kn_group_apply_kernel<TI, TO, false><<<grid, threads, smem, st>>>(
-        x, part, w, b, pb, y, P, C, G, rows, split_rows, eps);
+        x, part, w, b, pb, y, P, C, G, rows, split_rows, stats_splits, eps);
   return cudaGetLastError();
+}
+
+cudaError_t stats_any(const void* x, int x_bf16, float* part, int N, int P, int C, int G,
+                      int threads, int rows, int splits, int split_rows, int smem,
+                      cudaStream_t st) {
+  return x_bf16 ? group_stats((const __nv_bfloat16*)x, part, N, P, C, G, threads, rows, splits,
+                              split_rows, smem, st)
+                : group_stats((const float*)x, part, N, P, C, G, threads, rows, splits,
+                              split_rows, smem, st);
+}
+
+cudaError_t apply_any(const void* x, int x_bf16, const float* part, const void* w, const void* b,
+                      bool pb, void* y, int y_bf16, int N, int P, int C, int G, float eps,
+                      bool sl, int threads, int rows, int stats_splits, int splits,
+                      int split_rows, cudaStream_t st) {
+  if (x_bf16 && y_bf16)
+    return group_apply((const __nv_bfloat16*)x, part, w, b, pb, (__nv_bfloat16*)y, N, P, C, G,
+                       eps, sl, threads, rows, stats_splits, splits, split_rows, st);
+  if (x_bf16)
+    return group_apply((const __nv_bfloat16*)x, part, w, b, pb, (float*)y, N, P, C, G, eps, sl,
+                       threads, rows, stats_splits, splits, split_rows, st);
+  if (y_bf16)
+    return group_apply((const float*)x, part, w, b, pb, (__nv_bfloat16*)y, N, P, C, G, eps, sl,
+                       threads, rows, stats_splits, splits, split_rows, st);
+  return group_apply((const float*)x, part, w, b, pb, (float*)y, N, P, C, G, eps, sl, threads,
+                     rows, stats_splits, splits, split_rows, st);
 }
 
 template <typename TI, typename TO, int V>
@@ -456,37 +528,54 @@ cudaError_t layer_norm(const TI* x, const void* w, const void* b, bool pb, TO* y
 
 // Group norm of x [N, P, C] into y (silu(y) where `silu`): the statistics
 // into the caller's scratch `part` (N x G x splits x 3 floats), then the
-// apply. The plan (ops/norm.py norm_plan) gives threads, rows, splits,
-// split_rows and the statistics' shared bytes. *_bf16: 1 for bf16, 0 for
+// apply over apply_splits runs of apply_split_rows pixels an image. The
+// plan (ops/norm.py norm_plan) gives threads, rows, splits, split_rows, the
+// statistics' shared bytes and the apply's cut. *_bf16: 1 for bf16, 0 for
 // fp32. Pointers 16-byte aligned.
 extern "C" int anyv2v_group_norm(const void* x, int x_bf16, const void* w, const void* b,
                                  int param_bf16, void* y, int y_bf16, float* part, int N, int P,
                                  int C, int G, float eps, int silu, int threads, int rows,
-                                 int splits, int split_rows, int smem, void* stream) {
-  if (!group_plan_ok(N, P, C, G, threads, rows, splits, split_rows, smem) || x == nullptr ||
-      y == nullptr || part == nullptr || w == nullptr || b == nullptr)
+                                 int splits, int split_rows, int smem, int apply_splits,
+                                 int apply_split_rows, void* stream) {
+  if (!group_plan_ok(N, P, C, G, threads, rows, splits, split_rows, smem) ||
+      !splits_ok(P, rows, apply_splits, apply_split_rows) || x == nullptr || y == nullptr ||
+      part == nullptr || w == nullptr || b == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      x_bf16 ? group_stats((const __nv_bfloat16*)x, part, N, P, C, G, threads, rows, splits,
-                           split_rows, smem, st)
-             : group_stats((const float*)x, part, N, P, C, G, threads, rows, splits, split_rows,
-                           smem, st);
+  const cudaError_t err =
+      stats_any(x, x_bf16, part, N, P, C, G, threads, rows, splits, split_rows, smem, st);
   if (err != cudaSuccess) return (int)err;
-  const bool pb = param_bf16 != 0, sl = silu != 0;
-  if (x_bf16 && y_bf16)
-    err = group_apply((const __nv_bfloat16*)x, part, w, b, pb, (__nv_bfloat16*)y, N, P, C, G,
-                      eps, sl, threads, rows, splits, split_rows, st);
-  else if (x_bf16)
-    err = group_apply((const __nv_bfloat16*)x, part, w, b, pb, (float*)y, N, P, C, G, eps, sl,
-                      threads, rows, splits, split_rows, st);
-  else if (y_bf16)
-    err = group_apply((const float*)x, part, w, b, pb, (__nv_bfloat16*)y, N, P, C, G, eps, sl,
-                      threads, rows, splits, split_rows, st);
-  else
-    err = group_apply((const float*)x, part, w, b, pb, (float*)y, N, P, C, G, eps, sl, threads,
-                      rows, splits, split_rows, st);
-  return (int)err;
+  return (int)apply_any(x, x_bf16, part, w, b, param_bf16 != 0, y, y_bf16, N, P, C, G, eps,
+                        silu != 0, threads, rows, splits, apply_splits, apply_split_rows, st);
+}
+
+// The group norm in two calls, for an x [N, P, C] that holds one share of
+// each image's pixels (a rank's frames of a clip): the statistics of this
+// share into `part` (N x G x splits x 3 floats), which the caller gathers
+// with every other share's into [N][G][stats_splits][3]; then the apply of
+// those merged statistics to this share. Arguments as anyv2v_group_norm's.
+extern "C" int anyv2v_group_stats(const void* x, int x_bf16, float* part, int N, int P, int C,
+                                  int G, int threads, int rows, int splits, int split_rows,
+                                  int smem, void* stream) {
+  if (!group_plan_ok(N, P, C, G, threads, rows, splits, split_rows, smem) || x == nullptr ||
+      part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)stats_any(x, x_bf16, part, N, P, C, G, threads, rows, splits, split_rows, smem,
+                        (cudaStream_t)stream);
+}
+
+extern "C" int anyv2v_group_apply(const void* x, int x_bf16, const float* part,
+                                  int stats_splits, const void* w, const void* b,
+                                  int param_bf16, void* y, int y_bf16, int N, int P, int C,
+                                  int G, float eps, int silu, int threads, int rows,
+                                  int apply_splits, int apply_split_rows, void* stream) {
+  if (!block_ok(N, P, C, G, threads, rows) ||
+      !splits_ok(P, rows, apply_splits, apply_split_rows) || stats_splits < 1 || x == nullptr ||
+      y == nullptr || part == nullptr || w == nullptr || b == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)apply_any(x, x_bf16, part, w, b, param_bf16 != 0, y, y_bf16, N, P, C, G, eps,
+                        silu != 0, threads, rows, stats_splits, apply_splits, apply_split_rows,
+                        (cudaStream_t)stream);
 }
 
 // K4's prologue parameters: the statistics of x [N, P, C] into `part`, then
@@ -499,11 +588,8 @@ extern "C" int anyv2v_group_scale_shift(const void* x, int x_bf16, const void* w
       s == nullptr || t == nullptr || part == nullptr || w == nullptr || b == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      x_bf16 ? group_stats((const __nv_bfloat16*)x, part, N, P, C, G, threads, rows, splits,
-                           split_rows, smem, st)
-             : group_stats((const float*)x, part, N, P, C, G, threads, rows, splits, split_rows,
-                           smem, st);
+  const cudaError_t err =
+      stats_any(x, x_bf16, part, N, P, C, G, threads, rows, splits, split_rows, smem, st);
   if (err != cudaSuccess) return (int)err;
   kn_group_finalize_kernel<<<N, 256, 2 * G * sizeof(float), st>>>(part, w, b, param_bf16 != 0, s,
                                                                    t, C, G, splits, eps);

@@ -33,8 +33,8 @@ from ..ops import norm as _norm
 from ..ops.ffn import ffn_geglu, ffn_gelu, fits as ffn_fits
 from ..ops.pnp import inject_source_rows
 from ..ops.temporal_conv import groupnorm_silu_temporal_conv
-from ..parallel.mesh import around_frame_op
-from ..utils.profiling import spanned
+from ..parallel.mesh import all_gather_axis, around_frame_op, sharded_region
+from ..utils.profiling import span, spanned
 
 # ---------------------------------------------------------------------------
 # functional helpers
@@ -50,6 +50,24 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, dtype: Optional[torch.dtype]
     module (``_norm.group_norm``), as the benchmark wraps it."""
     return _norm.group_norm(x.contiguous(), norm.weight, norm.bias, norm.num_groups, norm.eps,
                             x.dtype if dtype is None else dtype, silu=silu)
+
+
+def clip_group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+    """GroupNorm of ``[B, F, H, W, C]`` with each clip's statistics taken over
+    its frames and pixels together, as diffusers' ``TransformerTemporalModel``
+    normalises ``[B, C, F, H, W]``: :func:`group_norm` on ``[B, F*H*W, C]``.
+    Inside a manual-SPMD region x holds this rank's frames; KN's partial
+    moments are then gathered from every rank before the apply."""
+    b, f, h, w, c = x.shape
+    region = sharded_region()
+    if region is None:
+        return group_norm(x.reshape(b, f * h * w, c), norm).reshape(x.shape)
+    group, ranks = region
+    with span("layer.norm"):
+        y = _norm.group_norm(x.reshape(b, f * h * w, c).contiguous(), norm.weight, norm.bias,
+                             norm.num_groups, norm.eps, x.dtype,
+                             gather=lambda part: all_gather_axis(part, group, 2), shares=ranks)
+    return y.reshape(x.shape)
 
 
 @spanned("layer.norm")
@@ -419,12 +437,14 @@ class SpatialTransformer(nn.Module):
 
 
 class TemporalTransformer(nn.Module):
-    """diffusers TransformerTemporalModel over ``[B, F, H, W, C]``: tokens are
-    frames per pixel and stay in the module-native ``[B, F, HW, C]`` layout;
-    both attentions of the block attend over F (K2). Inside a manual-SPMD
-    region one all-to-all at the module boundary gives the whole block every
-    frame (norms, projections and FF are per token), where the pixels divide
-    into shares of at least 8; elsewhere each attention gathers the frames.
+    """diffusers TransformerTemporalModel over ``[B, F, H, W, C]``: the group
+    norm's statistics span each clip's frames (:func:`clip_group_norm`);
+    tokens are frames per pixel and stay in the module-native ``[B, F, HW,
+    C]`` layout; both attentions of the block attend over F (K2). Inside a
+    manual-SPMD region one all-to-all at the module boundary gives the whole
+    block every frame (projections and FF are per token), where the pixels
+    divide into shares of at least 8; elsewhere each attention gathers the
+    frames.
 
     With a ``bias`` (broadcastable to ``[B*H*W, heads, F, F]``, added to
     attn1's scores) the block runs on ``[(B H W), F, C]`` rows through the
@@ -447,7 +467,7 @@ class TemporalTransformer(nn.Module):
     @spanned("unet.temporal")
     def forward(self, x, inject: bool = False, bias: Optional[torch.Tensor] = None):
         b, f, h, w, c = x.shape
-        y = group_norm(x.reshape(b * f, h, w, c), self.norm)   # x is in the module's dtype
+        y = clip_group_norm(x, self.norm)   # x is in the module's dtype
 
         def block(y, mode):
             y = self.proj_in(y)

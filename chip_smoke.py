@@ -514,9 +514,10 @@ def _norm_cost(x, weight, bias, *args, **kwargs):
     return 0, _nbytes(x, weight, bias) + written
 
 
-def _group_norm_library(x, weight, bias, groups, eps, dtype, silu=False):
+def _group_norm_library(x, weight, bias, groups, eps, dtype, silu=False, gather=None):
     """``F.group_norm`` on a contiguous NCHW copy of x made beforehand (and
-    ``F.silu`` after it where the case fuses one), in x's dtype."""
+    ``F.silu`` after it where the case fuses one), in x's dtype (over x
+    alone where a case gathers partials)."""
     xc = x.permute(0, x.dim() - 1, *range(1, x.dim() - 1)).contiguous()
 
     def run():
@@ -673,12 +674,19 @@ def _kernel_cases():
         return tagged(make, b=b, f=f, p=p, c=c, c_out=co)
 
     def gn_args(n, p, c, groups=32, silu=True, dtype=torch.bfloat16, out=torch.bfloat16,
-                stats=False):
+                stats=False, ranks=1):
+        """``ranks`` > 1: x is one rank's share, its partials gathered with
+        ranks - 1 copies of themselves (the mock region's all-gather)."""
         def make():
             x = rn(n, p, c, std=1.5, dtype=dtype) + 0.3
             w, b = 1 + rn(c, std=0.1, dtype=dtype), rn(c, std=0.1, dtype=dtype)
             eps = 1e-6 if silu else 1e-5
-            return (x, w, b, groups, eps) if stats else (x, w, b, groups, eps, out, silu)
+            if stats:
+                return (x, w, b, groups, eps)
+            if ranks > 1:
+                return (x, w, b, groups, eps, out, silu,
+                        lambda part: torch.cat([part] * ranks, dim=2))
+            return (x, w, b, groups, eps, out, silu)
         return tagged(make, n=n, p=p, c=c, groups=groups)
 
     def ln_args(rows, c, dtype=torch.bfloat16, out=torch.bfloat16):
@@ -919,8 +927,12 @@ def KN_CASES(gn_args, ln_args):
     images of 64x64 / 32x32 / 16x16 / 8x8 latents): the resnets' norms with
     SiLU, the spatial transformers' without, the up blocks' concatenated
     widths, K4's statistics over a row's 17 frames, the transformers' layer
-    norms; the VAE's decode of 16 frames at its 512^2 widths (the last up
-    block's first resnet norms 256 channels there); CLIP's and the
+    norms; i2vgen-xl's temporal transformer norms, each over a clip of 16
+    frames as one image (N of 1-3: the apply's grid cut apart from the
+    statistics'), and one rank's 32 of 128 frames with its partials gathered
+    from 4 ranks (the frame-sharded path); the VAE's encode of one frame and decode of 16 frames at
+    its 512^2 widths (the last up block's first resnet norms 256 channels
+    there); CLIP's and the
     InstantStyle resampler's layer norms, i2vgen-xl's 4-wide one; fp32 in and
     out and the tiny archs' widths off the path."""
     gn, gss, ln = "group_norm", "group_scale_shift", "layer_norm"
@@ -933,6 +945,15 @@ def KN_CASES(gn_args, ln_args):
         (gn, "ConsistI2V up L0 concat N51 P4096 C960 silu", gn_args(51, 4096, 960)),
         (gn, "ConsistI2V up L1 concat N51 P1024 C1920 silu", gn_args(51, 1024, 1920)),
         (gn, "ConsistI2V up L2 concat N51 P256 C2560 silu", gn_args(51, 256, 2560)),
+        (gn, "i2vgen-xl temporal clip L0 b3 N3 P16*4096 C320",
+         gn_args(3, 16 * 4096, 320, silu=False)),
+        (gn, "i2vgen-xl temporal clip L1 b2 N2 P16*1024 C640",
+         gn_args(2, 16 * 1024, 640, silu=False)),
+        (gn, "i2vgen-xl temporal clip L3 b1 N1 P16*64 C1280",
+         gn_args(1, 16 * 64, 1280, silu=False)),
+        (gn, "i2vgen-xl temporal clip rank of 4 L0 b3 N3 P32*4096 C320 gathered",
+         gn_args(3, 32 * 4096, 320, silu=False, ranks=4)),
+        (gn, "VAE encode 512^2 N1 P262144 C128 silu", gn_args(1, 512 * 512, 128)),
         (gss, "ConsistI2V K4 L0 b3 F17 P4096 C320", gn_args(3, 17 * 4096, 320, stats=True)),
         (gss, "ConsistI2V K4 L1 b3 F17 P1024 C640", gn_args(3, 17 * 1024, 640, stats=True)),
         (gss, "ConsistI2V K4 L2 b3 F17 P256 C1280", gn_args(3, 17 * 256, 1280, stats=True)),
@@ -1560,13 +1581,17 @@ def _per_rank_run(path, forward, make_args, batches, k2_key, k5_role=None):
     """The per-rank forwards of ``path``: the launch counts of one forward at
     each of ``batches`` (counts set to 0 just before, read just after), its
     routes, its outputs' shapes and finiteness, then each forward's device
-    time by CUDA events (2 calls after a warm-up). Returns (counts, routes,
-    outputs' checks, ms by batch)."""
+    time by CUDA events (2 calls after a warm-up). The counts also hold
+    ``group_norm_gathered``: KN's group norms whose statistics spanned every
+    rank's share. Returns (counts, routes, outputs' checks, ms by batch)."""
+    from anyv2v_torch.ops import norm
+
     wrappers = _wrappers()
     g = torch.Generator(device="cuda").manual_seed(3)
     inputs = {b: make_args(b, g) for b in batches}
     for w in wrappers.values():
         w.launches = 0
+    norm.group_norm.gathered_launches = 0
     outs = {}
     with torch.inference_mode(), _RouteLog(k5_role or _consisti2v_k5_role) as routes:
         for b in batches:
@@ -1574,6 +1599,7 @@ def _per_rank_run(path, forward, make_args, batches, k2_key, k5_role=None):
             outs[b] = forward(*args, **kw)
         torch.cuda.synchronize()
     counts = {name: w.launches for name, w in wrappers.items()}
+    counts["group_norm_gathered"] = norm.group_norm.gathered_launches
     finite = {b: (tuple(o.shape), bool(torch.isfinite(o).all())) for b, o in outs.items()}
     del outs
     ms = {}
@@ -1596,7 +1622,8 @@ def phase_sharded(pipe, unsharded_ms):
     on this card (``mock_manual_axis``): 32 frames per rank, the image
     latents whole, every frame-coupled op at its per-rank shape (K2 long at
     all 128 frames over a quarter of the pixels, K4 likewise with the
-    all-reduced moments' s, t). One forward at batch 3 (every PnP flag on)
+    all-reduced moments' s, t; KN's temporal transformer norms on every
+    rank's gathered partials). One forward at batch 3 (every PnP flag on)
     and one at batch 1, timed by CUDA events beside phase 5's unsharded
     forwards (``unsharded_ms``: their profiled wall ms by batch), then
     profiled by kernel group. The collectives are local copies
@@ -1629,6 +1656,9 @@ def phase_sharded(pipe, unsharded_ms):
         and counts["flash_attention"] == 0,
         "K1, K3, K4 launched": all(counts[n] > 0 for n in (
             "folded_attention", "ffn_geglu", "gn_silu_temporal_conv")),
+        f"KN's group norm over every rank's frames in all {TEMPORAL_PER_FORWARD // 2} temporal "
+        "transformers of 2 forwards": counts["group_norm"] > 0
+        and counts["group_norm_gathered"] == TEMPORAL_PER_FORWARD,
     })
 
     phase_profile(pipe, "i2vgen-xl per rank of 4 (128 frames)", args, forward=forward)

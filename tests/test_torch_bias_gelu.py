@@ -24,6 +24,7 @@ from anyv2v_tpu.utils import convert as C
 from anyv2v_torch.models import layers as tl
 from anyv2v_torch.ops import attention
 from test_torch_blocks import jparams, randomize
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=2e-5)
 ROUTES = ("folded_attention", "frame_attention", "frame_attention_long", "flash_attention",

@@ -30,6 +30,7 @@ from anyv2v_torch.schedulers import (
     sampling_timesteps,
 )
 from test_torch_unet import randomize as randomize_port
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=2e-5)
 

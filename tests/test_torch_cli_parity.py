@@ -26,6 +26,7 @@ from test_torch_cli import EDIT_TEMPLATE, N_FRAMES, SIZE, STEPS, _edit, _invert,
 from test_torch_cli import workspace  # noqa: F401 (fixture)
 from test_torch_consisti2v_cli import read_frames
 from test_torch_seine import one_torch_thread  # noqa: F401 (fixture)
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

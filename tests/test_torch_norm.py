@@ -153,6 +153,11 @@ def _check_group_plan(plan, n, p, c, groups, sms):
     assert plan["split_rows"] % plan["rows"] == 0
     assert plan["splits"] * plan["split_rows"] >= p > (plan["splits"] - 1) * plan["split_rows"]
     assert plan["grid"] == (plan["splits"], n, 1)
+    # the apply's own cut of the pixels: as fine as the statistics' or finer
+    assert plan["apply_split_rows"] % plan["rows"] == 0
+    assert (plan["apply_splits"] * plan["apply_split_rows"] >= p
+            > (plan["apply_splits"] - 1) * plan["apply_split_rows"])
+    assert plan["apply_splits"] >= plan["splits"]
     assert plan["smem_bytes"] == 4 * (2 * plan["rows"] * c + plan["rows"]
                                       + 2 * plan["rows"] * groups)
     assert plan["scratch_floats"] == n * groups * plan["splits"] * 3
@@ -173,6 +178,9 @@ def test_norm_plans_fit_every_routed_shape(arch):
     sms = _build.H100_SMS
     for c, groups in sorted(gn):
         shapes = [(n, p) for n in UNET_IMAGES for p in UNET_PIXELS]
+        # i2vgen-xl's temporal transformers: a batch row's frames x pixels as one image
+        shapes += [(b, frames * p) for b in (1, 2, 3) for frames in (16, 128)
+                   for p in UNET_PIXELS]
         if (c, groups) in vae:
             shapes += [(n, p) for n in VAE_IMAGES for p in VAE_PIXELS]
         for n, p in shapes:
@@ -194,15 +202,77 @@ def test_norm_plans_fit_every_routed_shape(arch):
 
 
 @pytest.mark.parametrize("c,groups,n,p,stats_only,splits", [
-    (320, 32, 51, 4096, False, 21), (320, 32, 3, 4096, False, 63),
-    (128, 32, 16, 512 ** 2, False, 64), (1280, 32, 51, 64, False, 5),
+    (320, 32, 51, 4096, False, 21), (320, 32, 3, 4096, False, 76),
+    (128, 32, 16, 512 ** 2, False, 66), (1280, 32, 51, 64, False, 5),
     (2560, 32, 34, 256, False, 32), (320, 32, 3, 17 * 4096, True, 88)])
 def test_norm_plan_splits_follow_the_shape(c, groups, n, p, stats_only, splits):
     """As many splits an image as put eight blocks on each of 132 SMs (two
-    for K4's statistics alone: one wave), at most 64 (256), and none that
+    for K4's statistics alone: one wave), at most 128 (256), and none that
     streams less than 32 KB; the last split's pixels as many as the others'
-    or fewer (3 images of 4096: 63 splits of 66 pixels)."""
+    or fewer (3 images of 4096: 76 splits of 54 pixels)."""
     assert norm.norm_plan(n, p, c, groups, stats_only=stats_only)["splits"] == splits
+
+
+# i2vgen-xl's temporal transformer norms at 512^2: (level, pixels a frame, C)
+CLIP_LEVELS = [("L0", 4096, 320), ("L1", 1024, 640), ("L2", 256, 1280), ("L3", 64, 1280)]
+
+
+@pytest.mark.parametrize("b", [1, 2, 3])
+@pytest.mark.parametrize("level,hw,c", CLIP_LEVELS, ids=[lv[0] for lv in CLIP_LEVELS])
+def test_clip_norm_plan_fills_the_card_as_the_per_frame_one(b, level, hw, c):
+    """A clip of 16 frames normalised as one image (N = b, P = 16 x H x W):
+    the statistics keep at most ``MAX_SPLITS`` splits an image, and the
+    apply's grid is as large as that of the same tensor cut per frame (N =
+    16 b) to within 5 % (the rounding of a split to whole pixel slots), and
+    no larger than the plan's aim of eight blocks an SM."""
+    clip = norm.norm_plan(b, 16 * hw, c, 32)
+    per_frame = norm.norm_plan(16 * b, hw, c, 32)
+    assert clip["splits"] <= norm.MAX_SPLITS
+    blocks = clip["apply_splits"] * b
+    assert blocks >= 0.95 * per_frame["apply_splits"] * 16 * b
+    assert blocks <= norm.GN_BLOCKS_PER_SM * _build.H100_SMS + b
+
+
+@pytest.mark.parametrize("cuts,silu", [((2, 2), False), ((1, 3), True), ((5, 2, 9), False),
+                                       ((3, 3, 3, 3), True)])
+def test_group_norm_over_shares_is_the_whole_norm(cuts, silu):
+    """x cut along its pixels into shares (of ``cuts`` x 16 pixels: unequal
+    where the cuts differ, as Chan's merge allows), each share normalised
+    with every share's partial moments (``gather``): the norm of the whole
+    x. fp32, rtol and atol 1e-5 (the merge of a few shares' moments rounds
+    as the whole tensor's two-pass variance does, about 1e-7); the shares'
+    means lie apart, so a share's own norm misses by more than 0.1."""
+    c, groups = 64, 8
+    x = _x((3, 16 * sum(cuts), c), FP32, mean=0.4, seed=6)
+    shares = list(torch.split(x, [16 * k for k in cuts], dim=1))
+    shares = [s + i for i, s in enumerate(shares)]
+    x = torch.cat(shares, dim=1)
+    w, bias = _affine(c, FP32)
+    parts = []
+    for s in shares:
+        norm.group_norm_plain(s, w, bias, groups, 1e-6, FP32, silu,
+                              gather=lambda part: parts.append(part) or part)
+    every = torch.cat(parts, dim=2)
+    assert every.shape == (3, groups, len(cuts), 3)
+    got = torch.cat([norm.group_norm_plain(s, w, bias, groups, 1e-6, FP32, silu,
+                                           gather=lambda part: every) for s in shares], dim=1)
+    want = norm.group_norm_plain(x, w, bias, groups, 1e-6, FP32, silu)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    own = norm.group_norm_plain(shares[-1], w, bias, groups, 1e-6, FP32, silu)
+    assert (own - want[:, -16 * cuts[-1]:]).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("shares", [1, 2, 4, 8])
+def test_norm_plan_divides_the_statistics_among_shares(shares):
+    """One rank's share of a clip (one of ``shares``: 32 of 128 frames at L0,
+    batch 3): its statistics take at most ``MAX_SPLITS // shares`` splits, so
+    that the apply merges no more partials of every rank's than of one whole
+    image's; the apply's own cut is the unshared plan's."""
+    n, p, c = 3, 32 * 4096, 320
+    plan = norm.norm_plan(n, p, c, 32, shares=shares)
+    assert plan["splits"] * shares <= norm.MAX_SPLITS
+    assert plan["apply_splits"] == norm.norm_plan(n, p, c, 32)["apply_splits"]
+    _check_group_plan(plan, n, p, c, 32, _build.H100_SMS)
 
 
 @pytest.mark.parametrize("c,groups", [(12, 4), (320, 30), (8192, 32)])

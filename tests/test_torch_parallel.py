@@ -15,7 +15,10 @@ mesh (``conftest.py``), its modules on one device.
 - the sharded ``TemporalTransformer`` and ``TemporalConvLayer`` against the
   JAX modules on one device, rtol 1e-4, atol 1e-5 (``tests/test_parallel.py``'s
   tolerance), in both branches: pixels that divide into shares of 8 (the
-  all-to-all) and smaller grids (the gather);
+  all-to-all) and smaller grids (the gather); the JAX module with its norm
+  over the clip's frames, as published (``jax_clip_norm.py``);
+- the temporal transformer's norm over a clip split over the ranks against
+  the same norm on one process;
 - ``around_frame_op`` (the one resharding policy): each rank gets its frames
   of the op on the whole clip, in both branches, with and without a row
   every rank holds;
@@ -45,6 +48,7 @@ from anyv2v_tpu.models import layers as jl
 from anyv2v_tpu.parallel import mesh as jm
 from anyv2v_tpu.utils import convert as C
 from test_torch_unet import randomize
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 WORLD = 4
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -390,6 +394,30 @@ def test_sharded_temporal_layers_match_jax(ranks, side, inject):
     for key, w in want.items():
         got = np.concatenate([r[key] for r in ranks["case_layers"]], axis=1)
         np.testing.assert_allclose(got, np.asarray(w), rtol=1e-4, atol=1e-5, err_msg=key)
+
+
+def case_clip_norm(rank):
+    tt, _, _, _ = _layers()
+    group, n = frame_group(cpu_mesh())
+    f = LAYER_F // n
+    with torch.no_grad(), tm.manual_axis(group, n):
+        return {f"norm{side}": tl.clip_group_norm(
+            torch.from_numpy(_layer_input(side)[:, rank * f:(rank + 1) * f]), tt.norm).numpy()
+            for side in (4, 8)}
+
+
+@pytest.mark.parametrize("side", [4, 8])
+def test_sharded_clip_norm_is_the_unsharded_one(ranks, side):
+    """The temporal transformer's norm over a clip whose frames are split
+    over 4 ranks (each rank's partial moments gathered from every rank and
+    merged) equals the norm of the whole clip on one process, to fp32
+    rounding (rtol 1e-5, atol 1e-5: moments over 8 frames x 4 channels x 16
+    or 64 pixels)."""
+    tt, _, _, _ = _layers()
+    with torch.no_grad():
+        want = tl.clip_group_norm(torch.from_numpy(_layer_input(side)), tt.norm).numpy()
+    got = np.concatenate([r[f"norm{side}"] for r in ranks["case_clip_norm"]], axis=1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

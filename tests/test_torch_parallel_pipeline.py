@@ -35,6 +35,7 @@ from anyv2v_tpu.pipelines.i2vgen import I2VGenPipeline as JPipeline
 from anyv2v_tpu.schedulers import make_schedule as jax_make_schedule
 from test_torch_parallel import cpu_mesh, spawn
 from test_torch_unet import jax_tiny_config, tiny_models
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 F, HW = 8, 8
 VAE_FRAMES = (8, 6)

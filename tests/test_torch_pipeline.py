@@ -30,6 +30,7 @@ from anyv2v_tpu.utils import model_zoo as jzoo
 from anyv2v_torch.pipelines.i2vgen import I2VGenPipeline, PnPConfig
 from anyv2v_torch.schedulers import make_schedule
 from test_torch_unet import jax_tiny_config, tiny_models
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 F, HW, STEPS = 4, 64, 10

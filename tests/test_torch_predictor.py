@@ -40,6 +40,7 @@ from test_torch_product import F, HW, _runners, _Written
 from test_torch_product import files, models  # noqa: F401 (fixtures)
 from test_torch_sd_unet import editor_models, jax_sd_config
 from test_torch_seine import one_torch_thread  # noqa: F401 (fixture)
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 EDITOR = "instructpix2pix-tiny"
 STEPS, SEED = 2, 5

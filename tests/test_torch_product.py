@@ -47,6 +47,7 @@ from anyv2v_torch.schedulers import make_schedule
 from anyv2v_torch.utils import io as vio
 from test_torch_seine import one_torch_thread  # noqa: F401 (fixture)
 from test_torch_unet import jax_tiny_config, tiny_models
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 F, HW = 4, 64

@@ -195,3 +195,51 @@ def test_pipelines_equal_with_tracing_on_and_off(one_thread, make):
             assert up[0] in ("pipe.encode", "pipe.decode"), up
     self_ns = profiling.self_ns(spans)
     assert all(v >= 0 for v in self_ns)
+
+
+def test_i2vgen_norms_and_k1_run_under_their_spans(one_thread, monkeypatch):
+    """A tiny i2vgen encode, inversion, edit and decode with tracing on:
+    every norm over a clip (a KN ``group_norm`` call on ``[B, F*H*W, C]``)
+    runs inside a ``layer.norm`` span directly under ``unet.temporal``, one
+    a temporal transformer; every K1 call (``folded_attention``) runs
+    inside ``layer.attn``; and of the CPU profiler's operations fewer than
+    1 % start outside every span."""
+    from anyv2v_torch.ops import attention, norm
+
+    calls = []
+
+    def recorder(kind, fn):
+        def call(x, *args, **kwargs):
+            t0 = profiling.clock_ns()
+            out = fn(x, *args, **kwargs)
+            calls.append((kind, x.dim(), t0, profiling.clock_ns()))
+            return out
+        return call
+
+    monkeypatch.setattr(norm, "group_norm", recorder("kn", norm.group_norm))
+    monkeypatch.setattr(attention, "folded_attention",
+                        recorder("k1", attention.folded_attention))
+    run = _i2vgen_run()
+    with torch.inference_mode(), tracing() as tracer, \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    spans = tracer.take()
+
+    def inside(t0, t1, name):
+        return [i for i, s in enumerate(spans)
+                if s.name == name and s.start_ns <= t0 and t1 <= s.end_ns]
+
+    clip = [c for c in calls if c[0] == "kn" and c[1] == 3]
+    k1 = [c for c in calls if c[0] == "k1"]
+    assert clip and k1
+    assert len(clip) == sum(s.name == "unet.temporal" for s in spans)
+    for _, _, t0, t1 in clip:
+        norms = inside(t0, t1, "layer.norm")
+        assert norms and spans[spans[norms[-1]].parent].name == "unet.temporal"
+    for _, _, t0, t1 in k1:
+        assert inside(t0, t1, "layer.attn")
+    ops = [(e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.name().startswith("aten::")]
+    outside = [o for o in ops
+               if not any(s.start_ns <= o[0] <= s.end_ns for s in spans if s.parent < 0)]
+    assert ops and len(outside) < 0.01 * len(ops)

@@ -22,6 +22,7 @@ from anyv2v_tpu.utils import convert as C
 from anyv2v_tpu.utils import model_zoo as jzoo
 from anyv2v_torch.utils.model_zoo import ARCHS, I2VGEN_XL, build_modules
 from anyv2v_torch.utils.weights import state_dict_from_jax
+from jax_clip_norm import module_clip_norm  # noqa: F401 (fixture)
 
 TINY = ARCHS["i2vgen-tiny"]
 
