@@ -36,7 +36,6 @@ too).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import numbers
 from typing import Optional, Tuple
 
@@ -44,10 +43,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import rotary as _rotary
 from ..ops.attention import temporal_attention
 from ..ops.pnp import inject_source_rows
 from ..ops.relpos import relative_position_bias
-from ..ops.rotary import apply_rotary_partial, rotary_angles, rotary_freqs
 from ..parallel.mesh import around_frame_op
 from .layers import (
     Attention,
@@ -84,16 +83,6 @@ class SeineUNetConfig:
     )
     pnp_conv_target: Tuple[int, int] = (1, 1)
     dtype: torch.dtype = torch.bfloat16
-
-
-@functools.lru_cache(maxsize=None)
-def _frame_angles(frames: int, rot: int, device: torch.device) -> torch.Tensor:
-    """Rotary angles ``[frames, 1, 1, rot]`` at frame positions, made once
-    per device: a copy from host memory waits for the device's queue to
-    drain."""
-    with torch.inference_mode(False):
-        return rotary_angles(torch.arange(frames, dtype=torch.float32, device=device),
-                             rotary_freqs(rot))[:, None, None, :]
 
 
 class _RelativePositionBias(nn.Module):
@@ -147,19 +136,15 @@ class SeineTransformerBlock(nn.Module):
         per-head partial rotary at frame positions, then K2 with the
         relative-position bias."""
         a = self.attn_temp
-        b, f, hw, _ = x4.shape
+        f = x4.shape[1]
         q = inject_source_rows(a.to_q(x4), inject, a.pnp_chunks)
         k = inject_source_rows(a.to_k(x4), inject, a.pnp_chunks)
         v = a.to_v(x4)
         rot = min(self.rotary_dim, a.head_dim)
         if rot >= 2:
-            ang = _frame_angles(f, rot, x4.device)
-
-            def rotate(z):
-                zh = z.reshape(b, f, hw, a.heads, a.stored_head_dim)
-                return apply_rotary_partial(zh, ang, rot).reshape(z.shape)
-
-            q, k = rotate(q), rotate(k)
+            pos = torch.arange(f, dtype=torch.float32, device=x4.device)
+            q = _rotary.rotate_partial(q, pos, rot, a.heads)
+            k = _rotary.rotate_partial(k, pos, rot, a.heads)
         out = temporal_attention(q, k, v, a.heads, a.scale, bias=a.time_rel_pos_bias(f),
                                  pixel_sharded=pixel_sharded)
         return a.to_out[0](out)

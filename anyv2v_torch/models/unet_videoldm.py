@@ -40,9 +40,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops import rotary as _rotary
 from ..ops.attention import multi_head_attention, spatial_attention_ffconcat, temporal_attention
 from ..ops.pnp import inject_source_rows
-from ..ops.rotary import apply_rotary_partial, rotary_angles, rotary_freqs
 from ..ops.temporal_conv import groupnorm_silu_temporal_conv
 from ..parallel.mesh import (around_frame_op, axis_index, gather_frames, local_pixel_slice,
                              sharded_region)
@@ -216,10 +216,8 @@ def _first_frame_adjacent_slices(first_frame_tokens: torch.Tensor, h: int, w: in
 @spanned("layer.rotary")
 def _rotate(x: torch.Tensor, positions: torch.Tensor, inner: int) -> torch.Tensor:
     """Rotary on the first ``inner // 2`` channels of ``[B, F, HW, inner]``
-    tokens at frame positions ``positions [F]``."""
-    rot_dim = inner // 2
-    ang = rotary_angles(positions, rotary_freqs(rot_dim))[None, :, None, :]
-    return apply_rotary_partial(x, ang, rot_dim)
+    tokens at frame positions ``positions [F]`` (fp32, on x's device)."""
+    return _rotary.rotate_partial(x, positions, inner // 2)
 
 
 class VideoLDMTemporalTransformer(nn.Module):

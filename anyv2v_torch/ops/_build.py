@@ -29,7 +29,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "anyv2v_torch")
 SOURCES = ("folded_attention.cu", "frame_attention.cu", "ffn.cu", "temporal_conv.cu",
-           "flash_attention.cu", "norm.cu")
+           "flash_attention.cu", "norm.cu", "rotary.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
 PTXAS_VERBOSE = ("-Xptxas", "-v")   # compile steps only: registers, spills, shared memory

@@ -4,7 +4,7 @@
 
 Phases:
  1. environment: torch and CUDA versions, the card's name and power limit;
- 2. build the six CUDA sources of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
+ 2. build the seven CUDA sources of ``anyv2v_torch/csrc`` with nvcc (sm_90a),
     one nvcc per source, all started together, and print ptxas's registers
     and spills of every kernel's instances;
  3. hold each kernel against its plain PyTorch version in bf16 at the shapes
@@ -60,7 +60,11 @@ Phases:
     rows, fp32 in and out off the path, beside ``F.group_norm`` (SiLU after
     it where the case fuses one) and ``F.layer_norm`` on the same values
     (the group norm's on a contiguous NCHW copy made beforehand), a yardstick
-    that the port never calls;
+    that the port never calls; KR, the rotary (``csrc/rotary.cu``), at
+    ConsistI2V's L0-L2 at the edit batch (q over 17 frames, k over 25 rows
+    with the 8 augmented keys at position 0, the cross-attention q) and at
+    SEINE's L0 (8 heads of 40, 32 rotated), each required to equal its plain
+    version bit for bit (no library call computes it);
  3b. the op surfaces (before phase 4): the port's ``Attention`` with a score
     bias (SEINE L0 self, ConsistI2V L0 spatial cross per row, i2vgen-xl L2
     at dh 32), ``TemporalTransformer`` with a bias over its frames (SEINE L0
@@ -93,8 +97,8 @@ Phases:
  6. the ConsistI2V main path at full width (16 frames plus the conditioning
     frame, 512x512): a consisti2v-tiny reference check, then inversion, the
     cache files, the dual-CFG PnP edit at cfg_txt 35 / cfg_img 1 (batch 3,
-    then the batch-2 tail) and decode; K1-K5 must all launch, K5 in its three
-    roles, K2 with the augmented key axis, and no UNet attention of head
+    then the batch-2 tail) and decode; K1-K5 and KR must all launch, K5 in its
+    three roles, K2 with the augmented key axis, and no UNet attention of head
     width 40/64/80 may reach SDPA; then its profile at batch 1 and 3;
  7. ConsistI2V from a checkpoint folder: the full-width seeded weights
     written as a diffusers-layout snapshot in fp16 (``unet/`` in two
@@ -244,12 +248,13 @@ def _ptxas_summary(report, names):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            name = next((n for n in names if n + "I" in mangled), None)
+            name = next((n for n in names if n + "I" in mangled or n + "E" in mangled), None)
             current = None
             if name:
                 args = re.findall(r"L([ib])(\d+)E", mangled[mangled.index(name):])
-                current = name + "<" + ",".join(
+                current = name + ("<" + ",".join(
                     v if k == "i" else ("true" if v == "1" else "false") for k, v in args) + ">"
+                    if args else "")
                 spill = ""
             continue
         if current and "spill stores" in line:
@@ -514,6 +519,12 @@ def _norm_cost(x, weight, bias, *args, **kwargs):
     return 0, _nbytes(x, weight, bias) + written
 
 
+def _rotary_cost(x, positions, rot, groups=1):
+    """KR: no operations; x read once, the output written once, the
+    positions and the fp32 frequency table read."""
+    return 0, 2 * _nbytes(x) + _nbytes(positions) + 4 * (rot // 2)
+
+
 def _group_norm_library(x, weight, bias, groups, eps, dtype, silu=False, gather=None):
     """``F.group_norm`` on a contiguous NCHW copy of x made beforehand (and
     ``F.silu`` after it where the case fuses one), in x's dtype (over x
@@ -539,7 +550,8 @@ def _kernels():
     """name -> (route, source, replaces, wrapper, plain version, cost,
     library call factory or None)."""
     from anyv2v_torch.ops import ffn, flash_attention as fl, folded_attention as fa
-    from anyv2v_torch.ops import frame_attention as fr, norm as kn, temporal_conv as tc
+    from anyv2v_torch.ops import frame_attention as fr, norm as kn, rotary as kr
+    from anyv2v_torch.ops import temporal_conv as tc
 
     return {
         "folded_attention": ("cuda", "anyv2v_torch/csrc/folded_attention.cu",
@@ -585,6 +597,9 @@ def _kernels():
             kn.group_scale_shift), _scale_shift(kn.group_scale_shift_plain), _norm_cost, None),
         "layer_norm": ("cuda", "anyv2v_torch/csrc/norm.cu", None, kn.layer_norm,
                        kn.layer_norm_plain, _norm_cost, _layer_norm_library),
+        # KR: no Pallas kernel (the JAX package leaves its rotary to XLA)
+        "rotate_partial": ("cuda", "anyv2v_torch/csrc/rotary.cu", None, kr.rotate_partial,
+                           kr.rotate_partial_plain, _rotary_cost, None),
     }
 
 
@@ -694,6 +709,12 @@ def _kernel_cases():
             x = rn(rows, c, std=2.0, dtype=dtype) - 0.2
             return x, 1 + rn(c, std=0.1, dtype=dtype), rn(c, std=0.1, dtype=dtype), 1e-5, out
         return tagged(make, rows=rows, c=c)
+
+    def rot_args(b, positions, hw, c, rot, groups=1):
+        def make():
+            pos = torch.as_tensor(positions, dtype=torch.float32, device="cuda")
+            return rn(b, len(positions), hw, c, std=2.0), pos, rot, groups
+        return tagged(make, b=b, p=len(positions), hw=hw, c=c, rot=rot, groups=groups)
 
     k1, k2, k3, k4, k5 = ("folded_attention", "frame_attention", "ffn_geglu",
                           "gn_silu_temporal_conv", "flash_attention")
@@ -919,6 +940,7 @@ def _kernel_cases():
             (k5b, f"ragged shared bias b2 Sq200 Sk300 h2 dh{dh}",
              attn_bias(2, 200, 300, 2, dh, dh, "shared")))],
         *KN_CASES(gn_args, ln_args),
+        *KR_CASES(rot_args),
     ]
 
 
@@ -982,6 +1004,32 @@ def KN_CASES(gn_args, ln_args):
     ]
 
 
+def KR_CASES(rot_args):
+    """KR's cases: ConsistI2V's three rotary calls of a temporal transformer
+    at L0-L2 at the edit batch (3 rows): q over 17 frames, k over 17 frames
+    and the 8 augmented keys at position 0, the cross-attention q; SEINE's
+    q at L0 (8 heads of 40, the first 32 of each rotated); off the path a
+    rank's cross-attention q (its conditioning frame, then frames 9-12),
+    seine-tiny's 4 of 8 and a slab that ends inside a block."""
+    kr, q17, k25 = "rotate_partial", list(range(17)), list(range(17)) + [0] * 8
+    cases = []
+    for level, hw, c in (("L0", 4096, 320), ("L1", 1024, 640), ("L2", 256, 1280)):
+        cases += [
+            (kr, f"ConsistI2V {level} q b3 F17 HW{hw} C{c}", rot_args(3, q17, hw, c, c // 2)),
+            (kr, f"ConsistI2V {level} k b3 F17+8 HW{hw} C{c}", rot_args(3, k25, hw, c, c // 2)),
+            (kr, f"ConsistI2V {level} cross q b3 F17 HW{hw} C{c}",
+             rot_args(3, q17, hw, c, c // 2))]
+    return cases + [
+        (kr, "SEINE L0 q b3 F16 HW4096 h8 dh40 rot 32",
+         rot_args(3, list(range(16)), 4096, 320, 32, 8)),
+        (kr, "ragged rank 3 of 4 cross q b3 F1+4 HW4096 C320",
+         rot_args(3, [0, 9, 10, 11, 12], 4096, 320, 160)),
+        (kr, "ragged seine-tiny b3 F8 HW256 h2 dh8 rot 4",
+         rot_args(3, list(range(8)), 256, 16, 4, 2)),
+        (kr, "ragged b2 F3 HW7 C24 rot 24", rot_args(2, [0, 5, 2], 7, 24, 24)),
+    ]
+
+
 # case labels checked and timed, but not summed into the records' times
 _OFF_PATH = ("ragged", "seine-tiny", "off-path")
 _ATTENTION = ("folded_attention", "folded_attention_short", "frame_attention",
@@ -995,6 +1043,9 @@ _MODES = ("flash_attention_bias", "ffn_gelu")
 # (every K4 call of the models)
 _SUBS = ("folded_attention_short", "gn_silu_temporal_conv_prologue")
 K4_PROLOGUE = ("gn_silu_temporal_conv_prologue", "temporal_conv_kernel_prologue")
+# the records whose kernel repeats its plain version's arithmetic: equal bit
+# for bit
+_EXACT = ("rotate_partial",)
 # an attention kernel's error against the fp32 truth may be at most FP32_RATIO
 # times its plain version's (the bf16 rounding of the output) plus FP32_ATOL
 FP32_RATIO, FP32_ATOL = 1.5, 1e-4
@@ -1070,6 +1121,9 @@ def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
         err = (got.float() - want.float()).abs().max().item()
         bound = atol + rtol * want.float().abs().max().item()
         ok = bool(np.isfinite(err)) and err <= bound
+        if name in _EXACT:
+            ok = got.dtype == want.dtype and torch.equal(got.view(torch.int16),
+                                                        want.view(torch.int16))
         vs_fp32 = None
         if name in _ATTENTION:
             truth = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
@@ -1087,8 +1141,10 @@ def _run_kernel_cases(kernels, records, failures, atol, rtol, cases):
         flops, nbytes = cost(*args)
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-        log(f"kernel {name} [{label}]: max_abs_err {err:.3e} (bound {bound:.3e}, "
-            f"atol {atol} + rtol {rtol}*max|ref|) {'ok' if ok else 'MISS'}; kernel {ms:.4f} ms, "
+        held = ("bit for bit" if name in _EXACT
+                else f"bound {bound:.3e}, atol {atol} + rtol {rtol}*max|ref|")
+        log(f"kernel {name} [{label}]: max_abs_err {err:.3e} ({held}) "
+            f"{'ok' if ok else 'MISS'}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} op, "
             f"{nbytes:.3e} B), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             + ("" if transpose_ms is None else
@@ -1226,7 +1282,7 @@ class _Count:
 
 def _wrappers():
     from anyv2v_torch.ops import ffn, flash_attention, folded_attention, frame_attention
-    from anyv2v_torch.ops import norm, temporal_conv
+    from anyv2v_torch.ops import norm, rotary, temporal_conv
 
     return {"folded_attention": folded_attention.folded_attention,
             "frame_attention": frame_attention.frame_attention,
@@ -1242,7 +1298,8 @@ def _wrappers():
             "ffn_gelu": ffn.ffn_gelu,
             "group_norm": norm.group_norm,
             "group_scale_shift": norm.group_scale_shift,
-            "layer_norm": norm.layer_norm}
+            "layer_norm": norm.layer_norm,
+            "rotate_partial": rotary.rotate_partial}
 
 
 def _flat(out):
@@ -1396,7 +1453,9 @@ def phase_main_path():
         and float(edited.max()) <= 1.0,
         # the i2vgen-xl routes are K1-K4, as before K5 existed
         "K1-K4 launched": all(counts[n] > 0 for n in counts
-                              if n not in ("flash_attention", "frame_attention_long") + _MODES),
+                              if n not in ("flash_attention", "frame_attention_long",
+                                           "rotate_partial") + _MODES),
+        "KR not launched (i2vgen-xl has no rotary)": counts["rotate_partial"] == 0,
         "K1's short body launched (the image-latent encoder, the short-key class)":
         counts["folded_attention_short"] > 0,
         "K5 and K2 long not launched": counts["flash_attention"] == 0
@@ -1677,7 +1736,8 @@ def phase_sharded_backbone(arch, unet, make_args, k2_key, k5_role=None):
     _check_outputs({
         **{f"batch {b} per-rank output [{b},{f_loc},64,64,4] finite":
            finite[b] == ((b, f_loc, 64, 64, 4), True) for b in (3, 1)},
-        "K2 and K3 launched": counts["frame_attention"] > 0 and counts["ffn_geglu"] > 0,
+        "K2, K3 and KR launched": all(counts[n] > 0 for n in (
+            "frame_attention", "ffn_geglu", "rotate_partial")),
         "K2 long not launched": counts["frame_attention_long"] == 0,
     })
     return counts
@@ -2040,8 +2100,8 @@ def phase_consisti2v():
         f"video [{frames},512,512,3] in [0,1]": tuple(edited.shape) == (frames, 512, 512, 3)
         and bool(torch.isfinite(edited).all()) and float(edited.min()) >= 0.0
         and float(edited.max()) <= 1.0,
-        "K1-K5 launched": all(c > 0 for n, c in counts.items()
-                              if n not in ("frame_attention_long",) + _MODES + _SUBS),
+        "K1-K5 and KR launched": all(c > 0 for n, c in counts.items()
+                                     if n not in ("frame_attention_long",) + _MODES + _SUBS),
         "K5 in its three roles": set(routes.k5) == {"split-KV", "spatial cross",
                                                    "temporal cross"},
         "K2 with Sk 25": any(key.startswith("S17 Sk25") for key in routes.k2),
@@ -2285,7 +2345,7 @@ def phase_checkpoint_folder():
         tuple(frames01.shape) == (FOLDER_FRAMES, 512, 512, 3)
         and bool(torch.isfinite(frames01).all()) and float(frames01.min()) >= 0.0
         and float(frames01.max()) <= 1.0,
-        "K1 (short class), K2, K3, K4, K5 launched; K2 long not":
+        "K1 (short class), K2, K3, K4, K5, KR launched; K2 long not":
         all(c > 0 for n, c in counts.items()
             if n not in ("frame_attention_long",) + _MODES + _SUBS)
         and counts["frame_attention_long"] == 0,
@@ -2387,6 +2447,8 @@ def phase_seine():
         f"K2 with the bias on all {n_temporal} temporal attentions":
         all(key.endswith(" bias") for key in routes.k2)
         and sum(routes.k2.values()) == n_temporal == counts["frame_attention"],
+        f"KR on the q and k of all {n_temporal} temporal attentions":
+        counts["rotate_partial"] == 2 * n_temporal,
         "only the VAE's 512-wide head on SDPA": set(routes.sdpa) <= {512},
     })
 
@@ -3001,7 +3063,8 @@ _KERNEL_GROUPS = (("K1 folded_attention", "folded_attention_kernel", "folded_att
                   ("KN group statistics", "kn_group_stats_kernel", "group_norm"),
                   ("KN group apply", "kn_group_apply_kernel", "group_norm"),
                   ("KN K4 finalize", "kn_group_finalize_kernel", "group_scale_shift"),
-                  ("KN layer_norm", "kn_layer_norm_kernel", "layer_norm"))
+                  ("KN layer_norm", "kn_layer_norm_kernel", "layer_norm"),
+                  ("KR rotary", "kr_rotary_kernel", "rotate_partial"))
 
 
 class _ClockSampler:

@@ -12,7 +12,7 @@ import torch
 
 import anyv2v_torch
 from anyv2v_torch.ops import (_build, ffn, flash_attention, folded_attention, frame_attention,
-                               norm, temporal_conv)
+                               norm, rotary, temporal_conv)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
@@ -198,7 +198,7 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["folded", "frame", "frame_long", "ffn", "temporal_conv",
                                   "flash", "flash_splitkv", "group_norm", "group_scale_shift",
-                                  "layer_norm"])
+                                  "layer_norm", "rotary"])
 def test_wrappers_refuse_non_cpu_tensors(name):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper either launches its kernel (CUDA) or raises."""
@@ -225,13 +225,15 @@ def test_wrappers_refuse_non_cpu_tensors(name):
         "group_scale_shift": lambda: norm.group_scale_shift(t(2, 4, 16, 64), t(64), t(64), 8,
                                                             1e-5),
         "layer_norm": lambda: norm.layer_norm(t(2, 16, 64), t(64), t(64), 1e-5, torch.bfloat16),
+        "rotary": lambda: rotary.rotate_partial(t(2, 5, 8, 64), t(5, dtype=torch.float32), 32),
     }
     before = {w: w.launches for w in (folded_attention.folded_attention,
                                       frame_attention.frame_attention,
                                       frame_attention.frame_attention_long, ffn.ffn_geglu,
                                       temporal_conv.gn_silu_temporal_conv,
                                       flash_attention.flash_attention, norm.group_norm,
-                                      norm.group_scale_shift, norm.layer_norm)}
+                                      norm.group_scale_shift, norm.layer_norm,
+                                      rotary.rotate_partial)}
     with pytest.raises(ValueError, match="expected CUDA or CPU tensors"):
         calls[name]()
     assert all(w.launches == n for w, n in before.items())

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from anyv2v_torch.models import layers
-from anyv2v_torch.ops import _build, attention, ffn, norm
+from anyv2v_torch.ops import _build, attention, ffn, norm, rotary
 from anyv2v_torch.ops import flash_attention as fl
 from anyv2v_torch.ops import folded_attention as fa
 from anyv2v_torch.ops import frame_attention as fr
@@ -70,9 +70,9 @@ def _stub_kernels(monkeypatch, norms=None):
     """Replace every kernel wrapper (and the dispatcher's SDPA) by a stand-in
     that records its operands' shapes: returns {wrapper name: set of (q
     shape, k shape, heads)}, K3's entries (rows, C, inner) and K4's (x
-    shape, C', prologue); K5's split-KV calls also under
-    "flash_attention_context", with the context's length and frames. KN's
-    shapes go to ``norms`` (:func:`_stub_norms`)."""
+    shape, C', prologue), KR's (x shape, rot, groups); K5's split-KV calls
+    also under "flash_attention_context", with the context's length and
+    frames. KN's shapes go to ``norms`` (:func:`_stub_norms`)."""
     seen = {}
     _stub_norms(monkeypatch, {} if norms is None else norms)
 
@@ -106,6 +106,12 @@ def _stub_kernels(monkeypatch, norms=None):
     # the temporal convs of both UNets launch K4 through
     # temporal_conv.groupnorm_silu_temporal_conv
     monkeypatch.setattr(tc, "gn_silu_temporal_conv", tconv)
+
+    def rotate(x, positions, rot, groups=1):
+        seen.setdefault("rotate_partial", set()).add((tuple(x.shape), rot, groups))
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(rotary, "rotate_partial", rotate)
     return seen
 
 
@@ -155,6 +161,21 @@ def test_every_routed_attention_shape_has_a_kernel_and_a_plan(monkeypatch, arch,
                                                        > fr.MAX_FRAMES)
 
 
+
+
+@pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
+def test_every_routed_rotary_shape_has_a_plan(monkeypatch, arch, frames):
+    """ConsistI2V's and SEINE's temporal attention send KR their q and k
+    (ConsistI2V also its cross-attention q, and its keys with the 8
+    augmented rows), each at a layout KR takes with a plan one block can
+    hold; i2vgen-xl sends none."""
+    seen = _routes(monkeypatch, arch, frames)
+    calls = seen.get("rotate_partial", set())
+    assert bool(calls) == (not arch.startswith("i2vgen"))
+    if arch.startswith("consisti2v"):
+        assert {x[1] for x, _, _ in calls} == {frames + 1, frames + 9}
+    for shape, rot, groups in calls:
+        _build.check_plan("rotate_partial", rotary.rotary_plan(shape, rot, groups))
 
 
 @pytest.mark.parametrize("arch,frames", _ARCH_FRAMES)
